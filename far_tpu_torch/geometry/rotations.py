@@ -1,0 +1,28 @@
+"""Ortho-6D rotation representation (row convention).
+
+Counterpart of the 6D functions of ``far_tpu/geometry/rotations.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+
+
+def _normalize(v: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp(min=eps)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 3, 3) by Gram-Schmidt; the frame is the rows."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = _normalize(a1)
+    b2 = _normalize(a2 - (b1 * a2).sum(-1, keepdim=True) * b1)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
+    """First two rows of R flattened -> (..., 6)."""
+    return R[..., :2, :].reshape(*R.shape[:-2], 6)

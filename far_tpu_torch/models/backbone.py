@@ -1,0 +1,107 @@
+"""ResNet-FPN 8/2 feature backbone (NCHW inside, eval BatchNorm).
+
+Counterpart of ``far_tpu/models/backbone.py:ResNetFPN_8_2``, with the
+reference's module names (``conv1``, ``layer1.0.conv1``,
+``layer2_outconv2.1``, ...) so a reference state dict loads with
+``strict=True``. The stem is a plain 7x7/2 convolution: the JAX
+package's space-to-depth ``_StemConv`` computes the same thing in a form
+shaped for the TPU. The x2 upsample is bilinear with align_corners=True,
+as ``resize_bilinear_align_corners`` is. Parameters stay float32 and are
+cast to the input's dtype where they are used, as Flax does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
+    return F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding)
+
+
+def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
+    dt = x.dtype
+    return F.batch_norm(x, m.running_mean.to(dt), m.running_var.to(dt),
+                        m.weight.to(dt), m.bias.to(dt), False, 0.0, m.eps)
+
+
+def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+
+
+def _conv1(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 1, stride, 0, bias=False)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = _conv3(cin, planes, stride)
+        self.conv2 = _conv3(planes, planes)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(_conv1(cin, planes, stride),
+                                            nn.BatchNorm2d(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(bn(conv(x, self.conv1), self.bn1))
+        y = bn(conv(y, self.conv2), self.bn2)
+        if self.downsample is not None:
+            x = bn(conv(x, self.downsample[0]), self.downsample[1])
+        return F.relu(x + y)
+
+
+def _outconv2(mid: int, out: int) -> nn.Sequential:
+    return nn.Sequential(_conv3(mid, mid), nn.BatchNorm2d(mid),
+                         nn.LeakyReLU(0.01), _conv3(mid, out))
+
+
+def _refine(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
+    x = F.leaky_relu(bn(conv(x, seq[0]), seq[1]), 0.01)
+    return conv(x, seq[3])
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2.0, mode="bilinear",
+                         align_corners=True)
+
+
+class ResNetFPN_8_2(nn.Module):
+    """Coarse 1/8 (block_dims[2] channels) + fine 1/2 (block_dims[0])."""
+
+    def __init__(self, initial_dim: int = 128,
+                 block_dims: Sequence[int] = (128, 196, 256)):
+        super().__init__()
+        d0, d1, d2 = block_dims
+        self.conv1 = nn.Conv2d(1, initial_dim, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(initial_dim)
+        self.layer1 = nn.Sequential(BasicBlock(initial_dim, d0, 1),
+                                    BasicBlock(d0, d0, 1))
+        self.layer2 = nn.Sequential(BasicBlock(d0, d1, 2),
+                                    BasicBlock(d1, d1, 1))
+        self.layer3 = nn.Sequential(BasicBlock(d1, d2, 2),
+                                    BasicBlock(d2, d2, 1))
+        self.layer3_outconv = _conv1(d2, d2)
+        self.layer2_outconv = _conv1(d1, d2)
+        self.layer2_outconv2 = _outconv2(d2, d1)
+        self.layer1_outconv = _conv1(d0, d1)
+        self.layer1_outconv2 = _outconv2(d1, d0)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, 1, H, W) -> coarse (B, d2, H/8, W/8), fine (B, d0, H/2, W/2)."""
+        x0 = F.relu(bn(conv(x, self.conv1), self.bn1))
+        x1 = self.layer1(x0)
+        x2 = self.layer2(x1)
+        x3 = self.layer3(x2)
+        x3_out = conv(x3, self.layer3_outconv)
+        x2_out = _refine(conv(x2, self.layer2_outconv) + _up2(x3_out),
+                         self.layer2_outconv2)
+        x1_out = _refine(conv(x1, self.layer1_outconv) + _up2(x2_out),
+                         self.layer1_outconv2)
+        return x3_out, x1_out

@@ -1,0 +1,127 @@
+"""FARLoFTR: the LoFTR matcher + FAR regressor (eval).
+
+Counterpart of ``far_tpu/models/loftr.py:FARLoFTR`` (``match``,
+``regress_features``, ``regress_fuse``). Child modules carry the
+reference's names (``backbone``, ``loftr_coarse``, ``fine_preprocess``,
+``loftr_fine``, ``loftr_regress``), so a reference state dict with its
+``matcher.`` prefix stripped loads with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from far_tpu_torch.models.backbone import ResNetFPN_8_2
+from far_tpu_torch.models.constants import compute_normalized_6d
+from far_tpu_torch.models.fine import (
+    FinePreprocess,
+    fine_coords_to_kpts,
+    fine_matching,
+)
+from far_tpu_torch.models.matching import coarse_match
+from far_tpu_torch.models.position import add_sine_position_encoding
+from far_tpu_torch.models.regressor import PoseRegressorEMM
+from far_tpu_torch.models.transformer import LocalFeatureTransformer
+from far_tpu_torch.types import MatcherOutput, MatchResult, PairBatch, SolverSummary
+from far_tpu_torch.utils.config import FARConfig
+
+
+def compute_dtype(cfg: FARConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class FARLoFTR(nn.Module):
+    def __init__(self, cfg: FARConfig):
+        super().__init__()
+        if cfg.backbone.resolution != (8, 2):
+            raise NotImplementedError("the port has the 8/2 backbone only")
+        if cfg.match.match_type != "dual_softmax":
+            raise NotImplementedError("the port has dual-softmax matching only")
+        if cfg.predict_translation_scale:
+            raise NotImplementedError("TranslationScaleHead is not ported yet")
+        if cfg.backbone.norm != "batch":
+            raise NotImplementedError("the port has BatchNorm only")
+        for stack in (cfg.coarse, cfg.fine):
+            if stack.attention != "linear":
+                raise NotImplementedError("the port has linear attention only")
+        self.config = cfg
+        self.dtype = compute_dtype(cfg)
+        self.backbone = ResNetFPN_8_2(cfg.backbone.initial_dim,
+                                      tuple(cfg.backbone.block_dims))
+        self.loftr_coarse = LocalFeatureTransformer(
+            cfg.coarse.d_model, cfg.coarse.nhead, cfg.coarse.layer_names)
+        self.fine_preprocess = FinePreprocess(cfg.fine, cfg.coarse.d_model)
+        self.loftr_fine = LocalFeatureTransformer(
+            cfg.fine.d_model, cfg.fine.nhead, cfg.fine.layer_names,
+            window_tokens=cfg.fine.window_size ** 2)
+        if cfg.regress_rt:
+            self.loftr_regress = PoseRegressorEMM(cfg.regress, cfg.coarse_hw)
+
+    def coarse_features(self, image0: torch.Tensor, image1: torch.Tensor):
+        """Backbone + position encoding + coarse transformer.
+
+        Returns (feat_c, feat_f0, feat_f1, t0, t1): the backbone's coarse
+        map of both images (2B, C, h, w), the fine maps (B, Hf, Wf, Cf)
+        and the transformed coarse tokens (B, h*w, C)."""
+        cfg = self.config
+        hc, wc = cfg.coarse_hw
+        B = image0.shape[0]
+        imgs = torch.cat([image0, image1], dim=0).permute(0, 3, 1, 2)
+        feat_c, feat_f = self.backbone(imgs.to(self.dtype))
+        feat_c_hwc = feat_c.permute(0, 2, 3, 1)
+        feat_f = feat_f.permute(0, 2, 3, 1).contiguous()
+        t = add_sine_position_encoding(feat_c_hwc, cfg.coarse.temp_bug_fix)
+        t = t.reshape(2 * B, hc * wc, -1).contiguous()
+        t0, t1 = self.loftr_coarse(t[:B], t[B:])
+        return feat_c, feat_f[:B], feat_f[B:], t0, t1
+
+    def fine_stage(self, feat_f0, feat_f1, t0, t1, i_ids, j_ids):
+        """Window gather + fine transformer + soft-argmax -> expec_f."""
+        cfg = self.config
+        stride = cfg.backbone.resolution[0] // cfg.backbone.resolution[1]
+        f0w, f1w = self.fine_preprocess(feat_f0, feat_f1, t0, t1, i_ids,
+                                        j_ids, cfg.coarse_hw, stride)
+        return fine_matching(self.loftr_fine, f0w, f1w, cfg.fine.window_size)
+
+    def match(self, batch: PairBatch) -> MatcherOutput:
+        """Backbone + coarse transformer + coarse/fine matching."""
+        cfg = self.config
+        hc, wc = cfg.coarse_hw
+        _, feat_f0, feat_f1, t0, t1 = self.coarse_features(
+            batch.image0, batch.image1)
+        i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = coarse_match(
+            t0, t1, (hc, wc), (hc, wc), float(cfg.backbone.resolution[0]),
+            cfg.match, scale0=batch.scale0, scale1=batch.scale1)
+        expec_f = self.fine_stage(feat_f0, feat_f1, t0, t1, i_ids, j_ids)
+        mkpts1_f = fine_coords_to_kpts(
+            expec_f, mkpts1, cfg.fine.window_size,
+            float(cfg.backbone.resolution[1]), batch.scale1)
+        mkpts1_f = torch.where(valid[..., None], mkpts1_f, mkpts1)
+        matches = MatchResult(
+            i_ids=i_ids, j_ids=j_ids, mconf=mconf, valid=valid,
+            mkpts0=mkpts0, mkpts1=mkpts1, mkpts0_f=mkpts0, mkpts1_f=mkpts1_f,
+            expec_f=expec_f)
+        return MatcherOutput(matches=matches, feat_c0=t0, feat_c1=t1)
+
+    def solver_pose_in(self, summary: SolverSummary) -> torch.Tensor:
+        """Normalized 9D solver pose + correspondence counts / 500."""
+        cfg = self.config
+        parts = [compute_normalized_6d(summary.rt)]
+        if cfg.regress.use_num_corres:
+            parts.append(summary.num_after[..., None] / 500.0)
+        if cfg.regress.use_many_ransac_thr:
+            parts.append(summary.num_before[..., None] / 500.0)
+            parts.append(summary.num_tight[..., None] / 500.0)
+            parts.append(summary.num_ultra_tight[..., None] / 500.0)
+        return torch.cat(parts, dim=-1)
+
+    def regress_features(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor):
+        """EMM features; they do not depend on the solver pose, so the
+        prior loop computes them once."""
+        return self.loftr_regress.features_only(feat_c0, feat_c1)
+
+    def regress_fuse(self, features: torch.Tensor, summary: SolverSummary):
+        """MoE fusion of the EMM features with a solver pose ->
+        (pose_9d, gate)."""
+        return self.loftr_regress.fuse(features, self.solver_pose_in(summary))

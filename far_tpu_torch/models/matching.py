@@ -1,0 +1,95 @@
+"""Coarse dual-softmax matching with static top-k selection (eval).
+
+Counterpart of the eval branch of ``far_tpu/models/matching.py``: the
+row/column reductions of the dual-softmax confidences come from kernel
+K2 (``ops/matching_kernel.py``) without storing the (L, S) matrix; the
+border, threshold and mutual-nearest-neighbour tests and a static top-k
+over rows make exactly K match slots per pair.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from far_tpu_torch.ops.matching_kernel import dual_softmax_rowcol
+from far_tpu_torch.utils.config import MatchConfig
+
+
+def border_mask(h: int, w: int, b: int, device=None) -> torch.Tensor:
+    """(h*w,) bool mask, False within b cells of the image border."""
+    ys = torch.arange(h, device=device)[:, None]
+    xs = torch.arange(w, device=device)[None, :]
+    ok = (ys >= b) & (ys < h - b) & (xs >= b) & (xs < w - b)
+    return ok.reshape(-1)
+
+
+def ids_to_coords(ids: torch.Tensor, w: int, scale: float,
+                  rescale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grid index -> pixel coordinates <x, y> at original resolution."""
+    x = (ids % w).float() * scale
+    y = torch.div(ids, w, rounding_mode="floor").float() * scale
+    pts = torch.stack([x, y], dim=-1)
+    if rescale is not None:  # per-pair resize factor (B, 2)
+        pts = pts * rescale[:, None, :]
+    return pts
+
+
+def topk_stable(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis with ``jax.lax.top_k``'s slot order: the
+    lower index first among equal scores (every empty slot scores 0)."""
+    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def select_topk_matches_streamed(
+    feat0: torch.Tensor,
+    feat1: torch.Tensor,
+    hw0: Tuple[int, int],
+    hw1: Tuple[int, int],
+    cfg: MatchConfig,
+):
+    """Static-K mutual-NN match selection from K2's row/column reductions.
+
+    Returns (i_ids, j_ids, mconf, valid), all (B, K)."""
+    B, L, C = feat0.shape
+    scale = torch.tensor(1.0 / C ** 0.5, dtype=torch.float32).to(torch.bfloat16)
+    # rounded to bf16 even in an f32 model, as the JAX package does
+    f0 = (feat0.to(torch.bfloat16) * scale.to(feat0.device)).contiguous()
+    f1 = (feat1.to(torch.bfloat16) * scale.to(feat1.device)).contiguous()
+    row_val, row_idx, col_max = dual_softmax_rowcol(
+        f0, f1, 1.0 / cfg.dsmax_temperature)
+
+    bm0 = border_mask(*hw0, cfg.border_rm, device=feat0.device)
+    bm1 = border_mask(*hw1, cfg.border_rm, device=feat0.device)
+    cm_at = torch.gather(col_max, 1, row_idx)
+    ok = (row_val >= cm_at) & (row_val > cfg.thr) & bm0[None, :] & bm1[row_idx]
+    score = torch.where(ok, row_val, torch.zeros_like(row_val))
+    k = min(cfg.max_matches, L)
+    mconf, i_ids = topk_stable(score, k)
+    j_ids = torch.gather(row_idx, 1, i_ids)
+    valid = mconf > 0.0
+    return i_ids, j_ids, mconf, valid
+
+
+def coarse_match(
+    feat0: torch.Tensor,
+    feat1: torch.Tensor,
+    hw0: Tuple[int, int],
+    hw1: Tuple[int, int],
+    coarse_scale: float,
+    cfg: MatchConfig,
+    scale0: Optional[torch.Tensor] = None,
+    scale1: Optional[torch.Tensor] = None,
+):
+    """Coarse matching stage (eval).
+
+    Returns (i_ids, j_ids, mconf, valid, mkpts0, mkpts1)."""
+    i_ids, j_ids, mconf, valid = select_topk_matches_streamed(
+        feat0, feat1, hw0, hw1, cfg)
+    mkpts0 = ids_to_coords(i_ids, hw0[1], coarse_scale, scale0)
+    mkpts1 = ids_to_coords(j_ids, hw1[1], coarse_scale, scale1)
+    mkpts0 = mkpts0 * valid[..., None]
+    mkpts1 = mkpts1 * valid[..., None]
+    return i_ids, j_ids, mconf, valid, mkpts0, mkpts1

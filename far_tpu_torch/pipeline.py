@@ -1,0 +1,138 @@
+"""End-to-end FAR inference on the card: images -> fused 6DoF pose.
+
+Counterpart of ``far_tpu/pipeline.py`` (``make_solver_configs``,
+``far_forward``, ``build_inference_fn``, ``init_model``): matcher ->
+RANSAC -> regressor -> prior-biased RANSAC -> regressor. The entry
+points run on CUDA unless the caller asks for ``device="cpu"`` (there
+every kernel wrapper runs its plain version); without a card and without
+that request they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from far_tpu_torch.models.constants import denormalize_9d
+from far_tpu_torch.models.loftr import FARLoFTR
+from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
+from far_tpu_torch.types import FarOutput, PairBatch, SolverSummary
+from far_tpu_torch.utils.config import FARConfig
+from far_tpu_torch.utils.convert_weights import init_weights
+
+
+def make_solver_configs(cfg: FARConfig) -> Tuple[SolverConfig, SolverConfig]:
+    """(first-round, refinement-round) solver configs; with
+    solver='prior_ransac' the first round has no prior yet."""
+    so = cfg.solver
+    base = dict(
+        num_hypotheses=so.num_hypotheses,
+        minimal_solver=so.minimal_solver,
+        pixel_thr=so.pixel_thr,
+        prior_inl_th=so.prior_inl_th,
+        prior_lambda=so.prior_lambda,
+        bias_sigma_sq=so.bias_sigma_sq,
+        scoring=so.scoring,
+    )
+    if so.solver == "prior_ransac":
+        first = SolverConfig(solver="prior_ransac_noprior", **base)
+        refine = SolverConfig(solver="prior_ransac", **{
+            **base, "num_hypotheses": so.refine_num_hypotheses})
+    elif so.solver == "prior_ransac_noprior":
+        first = refine = SolverConfig(solver="prior_ransac_noprior", **base)
+    else:
+        first = refine = SolverConfig(solver="ransac", **base)
+    return first, refine
+
+
+def _summarize(est, num_before) -> SolverSummary:
+    return SolverSummary(rt=est.rt34, num_before=num_before,
+                         num_after=est.num_inliers, num_tight=est.num_tight,
+                         num_ultra_tight=est.num_ultra_tight,
+                         success=est.success)
+
+
+def _device_of(model: FARLoFTR) -> torch.device:
+    return next(model.parameters()).device
+
+
+def far_forward(
+    model: FARLoFTR,
+    batch: PairBatch,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,
+    prior_pcl: Optional[torch.Tensor] = None,
+) -> FarOutput:
+    """Full FAR inference for a batch of pairs on the model's device.
+
+    Round 0 solves without a prior; each of the config's
+    ``fine_pred_steps - 1`` later rounds re-solves with the previous
+    fused pose as a prior and re-fuses.
+
+    Args:
+        generator: the RANSAC sampler's generator (on the model's device).
+        uniforms: optional sampler draws, one (B, H_round, 8) tensor per
+            round, in place of the generator's.
+        prior_pcl: optional (P, 3) probe cloud of the prior rounds.
+    """
+    cfg = model.config
+    device = _device_of(model)
+    if batch.image0.device != device:
+        raise ValueError(f"batch on {batch.image0.device}, model on {device}")
+    steps = max(cfg.solver.fine_pred_steps, 1)
+    if uniforms is not None and len(uniforms) != steps:
+        raise ValueError(f"need {steps} uniform tensors, got {len(uniforms)}")
+    first_cfg, refine_cfg = make_solver_configs(cfg)
+
+    out = model.match(batch)
+    m = out.matches
+    num_before = m.valid.float().sum(-1)
+    features = model.regress_features(out.feat_c0, out.feat_c1)
+
+    prior_rt = None
+    for i in range(steps):
+        est = estimate_pose(
+            m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid,
+            prior_rt=prior_rt, cfg=first_cfg if i == 0 else refine_cfg,
+            prior_pcl=prior_pcl,
+            uniforms=None if uniforms is None else uniforms[i],
+            generator=generator)
+        pose_9d, gate = model.regress_fuse(features, _summarize(est, num_before))
+        prior_rt = denormalize_9d(pose_9d)
+
+    return FarOutput(
+        R=prior_rt[..., :3, :3], t=prior_rt[..., :3, 3], solver_rt=est.rt34,
+        regressed_9d=pose_9d, prior_rt=prior_rt, matches=m,
+        num_inliers=est.num_inliers, success=est.success, E=est.E,
+        gating=gate)
+
+
+def build_inference_fn(model: FARLoFTR) -> Callable[..., FarOutput]:
+    """(batch, generator=None, uniforms=None, prior_pcl=None) -> FarOutput,
+    under ``torch.inference_mode``."""
+
+    def fn(batch: PairBatch, generator=None, uniforms=None, prior_pcl=None):
+        with torch.inference_mode():
+            return far_forward(model, batch, generator, uniforms, prior_pcl)
+
+    return fn
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless asked otherwise."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: far_tpu_torch runs on the GPU; "
+                           "pass device='cpu' for the plain CPU versions")
+    return dev
+
+
+def init_model(cfg: Optional[FARConfig] = None, seed: int = 0,
+               device=None) -> FARLoFTR:
+    """The model with deterministic random weights (``init_weights``), in
+    eval mode on ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+    model = FARLoFTR(cfg or FARConfig())
+    init_weights(model, seed)
+    return model.to(dev).eval()

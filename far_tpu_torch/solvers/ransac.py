@@ -1,0 +1,182 @@
+"""Batched prior-biased RANSAC with the 8-point minimal solver.
+
+Counterpart of ``far_tpu/solvers/ransac.py:prior_ransac`` for
+``minimal_solver='8pt'``, ``linalg='fast'``, ``scoring='inlier'``:
+weighted inverse-CDF sampling (biased by a pose prior when one is
+given), one power-iteration 8-point hypothesis per sample, Sampson
+verification of every hypothesis against every point, prior transport
+scoring, a weighted least-squares polish over the winning inliers, and
+the recoverPose cheirality vote.
+
+The sampler's uniforms come from a ``torch.Generator`` or are handed in
+(``uniforms``), so a test can give the port the JAX sampler's draws and
+compare hypotheses one for one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from far_tpu_torch.geometry.epipolar import (
+    essential_from_pose34,
+    sampson_epipolar_distance,
+    symmetrical_epipolar_distance,
+)
+from far_tpu_torch.geometry.solvers import (
+    fast_decompose_essential,
+    recover_pose_from_essential,
+    run_8point_essential,
+)
+from far_tpu_torch.solvers.types import PoseEstimate, PriorParams
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    num_hypotheses: int = 2048
+    minimal_solver: str = "8pt"
+    inl_th: float = 3e-7         # squared Sampson on normalized coords
+    prior_lambda: float = 0.3
+    bias_sigma_sq: float = 0.1
+    use_prior_scoring: bool = True
+    use_biased_sampling: bool = True
+    scoring: str = "inlier"
+    min_valid: int = 8
+
+    def __post_init__(self):
+        if self.minimal_solver != "8pt":
+            raise NotImplementedError("the port's RANSAC has the 8-point "
+                                      "solver only (5-point: next slice)")
+        if self.scoring != "inlier":
+            raise NotImplementedError("the port's RANSAC has inlier scoring "
+                                      "only")
+
+
+def sample_indices(u: torch.Tensor, logw: torch.Tensor) -> torch.Tensor:
+    """Weighted sampling with replacement by inverse CDF.
+
+    Args:
+        u: (B, H, S) uniforms in [0, 1); logw: (B, N) log weights (-inf
+            for invalid points).
+    Returns:
+        (B, H, S) int64 indices: #{cdf < u * total}, capped at N - 1.
+    """
+    B, N = logw.shape
+    w = torch.exp(logw - logw.amax(dim=-1, keepdim=True))
+    cdf = torch.cumsum(w, dim=-1)
+    target = u * cdf[:, -1:, None]
+    idx = torch.searchsorted(cdf.contiguous(), target.reshape(B, -1),
+                             side="left").reshape(u.shape)
+    return idx.clamp(max=N - 1)
+
+
+def prior_transport_error(E: torch.Tensor, prior: PriorParams) -> torch.Tensor:
+    """Min point-cloud transport error between the hypotheses' poses (both
+    rotation candidates, +t) and the prior with unit translation.
+    E (B, H, 3, 3) -> (B, H)."""
+    R1, R2, t = fast_decompose_essential(E)
+    prior_R = prior.rt[..., :3, :3]
+    prior_t = prior.rt[..., :3, 3]
+    prior_t = prior_t / (torch.linalg.norm(prior_t, dim=-1, keepdim=True) + 1e-8)
+    pcl = prior.pcl
+    target = torch.einsum("bij,pj->bpi", prior_R, pcl) + prior_t[:, None, :]
+
+    def transport(R, tt):
+        moved = torch.einsum("bhij,pj->bhpi", R, pcl) + tt[..., None, :]
+        return (moved - target[:, None]).abs().mean(dim=(-1, -2))
+
+    return torch.minimum(transport(R1, t), transport(R2, t))
+
+
+def prior_ransac(
+    kp1: torch.Tensor,
+    kp2: torch.Tensor,
+    valid: torch.Tensor,
+    prior: Optional[PriorParams] = None,
+    cfg: RansacConfig = RansacConfig(),
+    inl_th: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> PoseEstimate:
+    """One batched RANSAC round.
+
+    Args:
+        kp1/kp2: (B, N, 2) K-normalized correspondences (padded).
+        valid: (B, N) bool validity mask.
+        prior: optional pose prior (biased sampling + prior scoring).
+        inl_th: optional (B,) per-pair squared threshold.
+        uniforms: optional (B, num_hypotheses, 8) sampler draws; else they
+            come from ``generator`` on the points' device.
+    """
+    B, N, _ = kp1.shape
+    H = cfg.num_hypotheses
+    S = 8
+    dtype = kp1.dtype
+    validf = valid.to(dtype)
+
+    if prior is not None and cfg.use_biased_sampling:
+        prior_err = symmetrical_epipolar_distance(
+            kp1, kp2, essential_from_pose34(prior.rt))
+        bias = torch.exp(-prior_err / cfg.bias_sigma_sq) + 1e-4
+        logw = torch.where(valid, torch.log(bias), -torch.inf)
+    else:
+        logw = torch.where(valid, 0.0, -torch.inf).to(dtype)
+    if uniforms is None:
+        uniforms = torch.rand((B, H, S), generator=generator,
+                              device=kp1.device, dtype=torch.float32)
+    if tuple(uniforms.shape) != (B, H, S):
+        raise ValueError(f"uniforms {tuple(uniforms.shape)} != {(B, H, S)}")
+    idx = sample_indices(uniforms.to(device=kp1.device, dtype=dtype), logw)
+
+    bidx = torch.arange(B, device=kp1.device)[:, None, None]
+    E = run_8point_essential(kp1[bidx, idx], kp2[bidx, idx], impl="power")
+    finite = torch.isfinite(E).all(dim=-1).all(dim=-1)       # (B, H)
+
+    thr = cfg.inl_th if inl_th is None else inl_th[:, None, None]
+    errs = sampson_epipolar_distance(kp1[:, None], kp2[:, None], E)  # (B, H, N)
+    inl = (errs <= thr) & valid[:, None]
+    score = inl.to(dtype).sum(-1)
+    if prior is not None and cfg.use_prior_scoring:
+        score = score - prior_transport_error(E, prior) ** 2 / cfg.prior_lambda
+    score = torch.where(finite, score, -torch.inf)
+    best = score.argmax(dim=-1)                               # (B,)
+    ar = torch.arange(B, device=kp1.device)
+    E_best, err_best, inl_best = E[ar, best], errs[ar, best], inl[ar, best]
+
+    # polish: weighted LS re-fit over the winning inliers, kept where it
+    # loses none
+    thr_b = cfg.inl_th if inl_th is None else inl_th[:, None]
+    w_inl = inl_best.to(dtype)
+    enough = w_inl.sum(-1, keepdim=True) >= 8
+    w_safe = torch.where(enough, w_inl, validf)
+    E_pol = run_8point_essential(kp1, kp2, weights=w_safe, impl="eigh")
+    errs_pol = sampson_epipolar_distance(kp1, kp2, E_pol)
+    inl_pol = (errs_pol <= thr_b) & valid
+    better = ((inl_pol.to(dtype).sum(-1) >= w_inl.sum(-1))
+              & torch.isfinite(E_pol).all(dim=-1).all(dim=-1))
+    E_best = torch.where(better[:, None, None], E_pol, E_best)
+    err_best = torch.where(better[:, None], errs_pol, err_best)
+    inl_best = torch.where(better[:, None], inl_pol, inl_best)
+
+    num_inl = inl_best.to(dtype).sum(-1)
+    num_tight = ((err_best <= thr_b / 10.0) & valid).to(dtype).sum(-1)
+    num_ultra = ((err_best <= thr_b / 100.0) & valid).to(dtype).sum(-1)
+
+    R, t, _, _ = recover_pose_from_essential(
+        E_best, kp1, kp2, weights=inl_best.to(dtype))
+
+    success = validf.sum(-1) >= cfg.min_valid
+    eye = torch.eye(3, dtype=dtype, device=kp1.device).expand(B, 3, 3)
+    s3, s2, sf = success[:, None, None], success[:, None], success.to(dtype)
+    return PoseEstimate(
+        E=torch.where(s3, E_best, eye),
+        R=torch.where(s3, R, eye),
+        t=torch.where(s2, t, torch.zeros_like(t)),
+        inliers=inl_best & s2,
+        num_inliers=num_inl * sf,
+        num_tight=num_tight * sf,
+        num_ultra_tight=num_ultra * sf,
+        success=success,
+    )

@@ -1,0 +1,160 @@
+"""Where one far_forward request spends its time on the card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 -m far_tpu_torch.tools.profile_forward [--dtype bfloat16] [--batch 4]
+
+The model is ``FARConfig`` at its defaults (480x640, full width) with the
+8-point solver and random weights from seed 0. After two warm-up
+requests it times one request by stage with CUDA events (backbone,
+coarse transformer, coarse match, fine stage, EMM features, each solver
+round, each MoE fusion, the rest), then traces one more request with
+``torch.profiler`` and prints the device time of the busiest kernels and
+the share of the request's wall time in which the card ran no kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import torch
+
+import far_tpu_torch.models.loftr as loftr_mod
+import far_tpu_torch.pipeline as pipeline_mod
+from far_tpu_torch.pipeline import build_inference_fn, init_model
+from far_tpu_torch.types import PairBatch
+from far_tpu_torch.utils.config import FARConfig, SolverOptions
+
+
+def synthetic_batch(B: int, H: int, W: int, device, seed: int = 0) -> PairBatch:
+    """Smooth random images, image 1 a shifted crop of image 0, with
+    intrinsics of focal length 517.97 px centred in the image."""
+    g = torch.Generator().manual_seed(seed)
+    low = torch.rand(B, 1, H // 8 + 2, W // 8 + 2, generator=g)
+    img = torch.nn.functional.interpolate(low, size=(H + 16, W + 32),
+                                          mode="bilinear", align_corners=True)
+    K = torch.tensor([[517.97, 0.0, W / 2.0], [0.0, 517.97, H / 2.0],
+                      [0.0, 0.0, 1.0]]).expand(B, 3, 3).contiguous()
+    nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous().to(device)
+    return PairBatch(image0=nhwc(img[:, :, :H, :W]), image1=nhwc(img[:, :, 16:, 32:]),
+                     K0=K.to(device), K1=K.to(device))
+
+
+class StageTimer:
+    """CUDA event pairs around named stages, read after one synchronize."""
+
+    def __init__(self):
+        self.events = []
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((name, start, end))
+            return out
+        return timed
+
+    def totals(self):
+        torch.cuda.synchronize()
+        out = collections.OrderedDict()
+        for name, start, end in self.events:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+def busy_ms(prof) -> float:
+    """Length of the union of the trace's device kernel intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
+    ap.add_argument("--batch", type=int, default=4)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward: no CUDA device")
+    dev = torch.device("cuda")
+    # float32 means float32 in every product, as in chip_smoke.py: cuDNN
+    # would otherwise run f32 convolutions in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = FARConfig(solver=SolverOptions(minimal_solver="8pt"), dtype=args.dtype)
+    model = init_model(cfg, seed=0, device=dev)
+    fn = build_inference_fn(model)
+    batch = synthetic_batch(args.batch, *cfg.image_size, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        fn(batch, generator=gen)
+    torch.cuda.synchronize()
+
+    timer = StageTimer()
+    for mod, name in ((model.backbone, "backbone"),
+                      (model.loftr_coarse, "coarse transformer (K1)")):
+        mod.forward = timer.wrap(name, mod.forward)
+    model.fine_stage = timer.wrap("fine stage (gather, K3, soft-argmax)",
+                                  model.fine_stage)
+    model.regress_features = timer.wrap("EMM features (K4)", model.regress_features)
+    model.regress_fuse = timer.wrap("MoE fusion", model.regress_fuse)
+    saved = (loftr_mod.coarse_match, pipeline_mod.estimate_pose)
+    loftr_mod.coarse_match = timer.wrap("coarse match (K2, top-k)", saved[0])
+    pipeline_mod.estimate_pose = timer.wrap("solver round", saved[1])
+    try:
+        t0 = time.perf_counter()
+        whole = timer.wrap("request", fn)
+        whole(batch, generator=gen)
+        stages = timer.totals()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        loftr_mod.coarse_match, pipeline_mod.estimate_pose = saved
+    request = stages.pop("request")
+    print(f"far_forward {args.dtype} B={args.batch} {cfg.image_size[0]}x"
+          f"{cfg.image_size[1]}: request {request:.3f} ms on the device clock, "
+          f"{wall:.3f} ms on the host clock")
+    for name, ms in stages.items():
+        print(f"  {name:40s} {ms:9.3f} ms  {100 * ms / request:5.1f} %")
+    rest = request - sum(stages.values())
+    print(f"  {'rest (glue, copies, launches)':40s} {rest:9.3f} ms  "
+          f"{100 * rest / request:5.1f} %")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(batch, generator=gen)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof)
+    print(f"traced request: {traced:.3f} ms wall, device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / traced:.3f}")
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    for dev_us, count, key in sorted(rows, reverse=True)[:25]:
+        print(f"  {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,75 @@
+"""Plain dataclasses passed between the stages of the port.
+
+Counterparts of ``far_tpu/types.py``, with the same fields and layouts:
+images are (B, H, W, 1) in [0, 1], match sets hold exactly K slots with
+a validity mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class PairBatch:
+    """A batch of image pairs; NHWC grayscale images in [0, 1]."""
+
+    image0: torch.Tensor                     # (B, H, W, 1)
+    image1: torch.Tensor                     # (B, H, W, 1)
+    K0: torch.Tensor                         # (B, 3, 3)
+    K1: torch.Tensor                         # (B, 3, 3)
+    scale0: Optional[torch.Tensor] = None    # (B, 2) resize scale <w, h>
+    scale1: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class MatchResult:
+    """Fixed-size coarse + fine correspondence set (K slots, masked)."""
+
+    i_ids: torch.Tensor     # (B, K) int64 coarse grid index in image 0
+    j_ids: torch.Tensor     # (B, K) int64 coarse grid index in image 1
+    mconf: torch.Tensor     # (B, K) confidence (0 where invalid)
+    valid: torch.Tensor     # (B, K) bool
+    mkpts0: torch.Tensor    # (B, K, 2) coarse pixel coords in image 0
+    mkpts1: torch.Tensor    # (B, K, 2)
+    mkpts0_f: torch.Tensor  # (B, K, 2) refined pixel coords
+    mkpts1_f: torch.Tensor  # (B, K, 2)
+    expec_f: torch.Tensor   # (B, K, 3) fine <x, y, std> in window units
+
+
+@dataclasses.dataclass
+class MatcherOutput:
+    matches: MatchResult
+    feat_c0: torch.Tensor   # (B, L, C) transformed coarse features
+    feat_c1: torch.Tensor   # (B, S, C)
+
+
+@dataclasses.dataclass
+class SolverSummary:
+    """Solver-side scalars fed to the MoE gate (counts, unscaled)."""
+
+    rt: torch.Tensor                # (B, 3, 4) solver pose
+    num_before: torch.Tensor        # (B,) matches before RANSAC
+    num_after: torch.Tensor         # (B,) inliers after RANSAC
+    num_tight: torch.Tensor         # (B,)
+    num_ultra_tight: torch.Tensor   # (B,)
+    success: torch.Tensor           # (B,) bool
+
+
+@dataclasses.dataclass
+class FarOutput:
+    """Final output of one FAR inference step."""
+
+    R: torch.Tensor                 # (B, 3, 3) fused rotation
+    t: torch.Tensor                 # (B, 3) fused translation
+    solver_rt: torch.Tensor         # (B, 3, 4) last solver pose
+    regressed_9d: torch.Tensor      # (B, 9) last regressor output
+    prior_rt: torch.Tensor          # (B, 3, 4) prior of the last round
+    matches: MatchResult
+    num_inliers: torch.Tensor       # (B,)
+    success: torch.Tensor           # (B,)
+    E: torch.Tensor                 # (B, 3, 3) last solver essential matrix
+    gating: Optional[torch.Tensor] = None
