@@ -12,10 +12,12 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    and bfloat16: launched next to its plain PyTorch version on the same
    inputs and held to a stated tolerance, both timed with CUDA events,
    with a PyTorch library call timed beside it where one computes the
-   same function;
+   same function; then the bfloat16 tensor-core routes of K1 and K4 at
+   ragged shapes (inputs from a generator of their own);
 4. ``far_forward`` at 480x640 and full width (8-point solver), three
    requests of B=4 in float32 and three in bfloat16, with the kernels'
-   launch counters set to 0 just before and read just after;
+   launch counters (all launches, and those of the tensor-core routes)
+   set to 0 just before and read just after;
 5. the matcher and the EMM features at a small width with the kernels on
    the card and with the plain versions on the CPU, compared;
 6. the port's solver on 16 synthetic scenes at 0.5 px noise.
@@ -39,6 +41,7 @@ import time
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+EX2_PER_CLOCK_SM = 16  # exponentials (MUFU.EX2) per clock per SM, sm_90
 
 B_KERNEL = 2        # pairs at which the kernels are held to their plain versions
 B_REQUEST = 4       # pairs per far_forward request
@@ -53,11 +56,24 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
+
+
+def exp_rate() -> float:
+    """Exponentials per second at the card's maximum SM clock."""
+    import torch
+
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EX2_PER_CLOCK_SM * sms * mhz * 1e6
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -77,6 +93,8 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def bound_ms(flops: float, nbytes: float, peak: float):
+    """The larger of the operations' time at their type's peak and the
+    bytes' time at the memory rate."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -99,6 +117,14 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+ROUTES = {  # how each kernel computes in bfloat16
+    "K1_loftr_layer": "cuda, tensor cores (wgmma, cp.async), 3 launches",
+    "K2_dual_softmax_rowcol": "cuda, CUDA cores (f32 FMA)",
+    "K3_fine_transformer": "cuda, CUDA cores (f32 FMA)",
+    "K4_bilinear_dual_softmax": "cuda, tensor cores (wgmma, cp.async), 3 launches",
+}
+
+
 def check_kernels(dev):
     """Phase 3. Returns the kernels' JSON entries."""
     import torch
@@ -106,7 +132,8 @@ def check_kernels(dev):
     from far_tpu_torch.ops.bilinear_attention import (
         bilinear_dual_softmax, bilinear_dual_softmax_plain)
     from far_tpu_torch.ops.fine_layer import fine_transformer, fine_transformer_plain
-    from far_tpu_torch.ops.loftr_layer import loftr_layer, loftr_layer_plain
+    from far_tpu_torch.ops.loftr_layer import (
+        loftr_layer, loftr_layer_plain, pack_params)
     from far_tpu_torch.ops.matching_kernel import (
         dual_softmax_rowcol, dual_softmax_rowcol_plain)
 
@@ -115,21 +142,51 @@ def check_kernels(dev):
     entries = {}
     failures = []
 
+    def ragged(what, err, tol):
+        ok = err <= tol
+        print(f"ragged {what}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if ok else 'DISAGREES'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    def k4_tol(dt, ref):
+        # f32: both in f32 on the same inputs, summation order only. bf16:
+        # the kernel rounds P and H = G / csum to bf16 as the TPU kernel
+        # does (2^-9 relative each, of random sign, before sums over N).
+        return (1e-4 if dt == torch.float32 else 1e-2) * float(ref.abs().max())
+
+    def k4_exps(dt, elements):
+        """Exponentials of S's elements on the exponential unit: the
+        function's least (2 per element: E = 2^(s - cmax) feeds the column
+        sums, and P = E^2 2^cmax[m] 2^-alpha[n] needs only per-row and
+        per-column factors beside one row-sum exponential) and the route's
+        own count (bf16 3: 1 statistics pass, 2 main pass; float32 4: 2
+        statistics, 2 tile pass). Neither is a hard floor, since an
+        exponential can also run on the FMA units as a polynomial, so
+        neither enters bound_ms."""
+        return 2 * elements, (3 if dt == torch.bfloat16 else 4) * elements
+
     def record(name, dt, err, tol, ms, plain_ms, flops, nbytes, lib_ms=None,
-               extra=""):
+               extra="", exps=None):
         peak = PEAK_F32 if dt == torch.float32 else PEAK_BF16
         b_ms, b_by = bound_ms(flops, nbytes, peak)
         tag = "f32" if dt == torch.float32 else "bf16"
         ok = err <= tol
+        e = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if exps:
+            e["exp_bound_ms"], e["exp_route_ms"] = (n / exp_rate() * 1e3 for n in exps)
+            extra += (f" exp_bound_ms={e['exp_bound_ms']:.4f} "
+                      f"exp_route_ms={e['exp_route_ms']:.4f}")
         print(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol {tol:.3e}) "
               f"{'ok' if ok else 'DISAGREES'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms} {extra}",
               flush=True)
         if not ok:
             failures.append(f"{name} {tag}")
-        entries.setdefault(name, {})[tag] = dict(
-            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
+        if tag == "bf16":
+            e["route"] = ROUTES[name]
+        entries.setdefault(name, {})[tag] = e
 
     # ---- K1: one coarse LoFTR layer (cross: x attends to src) ----------
     x32 = torch.randn(B, L, C, generator=g).to(dev)
@@ -139,14 +196,15 @@ def check_kernels(dev):
     k1_flops = B * (20 * L * C * C + 4 * L * C * d + 2 * L * C)
     for dt in (torch.float32, torch.bfloat16):
         x, s = x32.to(dt), s32.to(dt)
+        pk = pack_params(p, dt)  # cast once, outside the timed launches
         ref = loftr_layer_plain(x.float(), s.float(), p, H_COARSE)
-        out = loftr_layer(x, s, p, H_COARSE)
+        out = loftr_layer(x, s, pk, H_COARSE)
         torch.cuda.synchronize()
         err = max_err(out, ref)
-        # f32: summation order only; bf16: the kernel rounds q/k/v, msg,
-        # m, y and out to bf16 (2^-8 relative each), the reference not.
+        # f32: summation order only; bf16: the kernel rounds k, v, KV, q,
+        # msg, m, y and out to bf16 (2^-8 relative each), the reference not.
         tol = (1e-4 if dt == torch.float32 else 6e-2) * float(ref.abs().max())
-        ms = cuda_ms(lambda: loftr_layer(x, s, p, H_COARSE), 10)
+        ms = cuda_ms(lambda: loftr_layer(x, s, pk, H_COARSE), 10)
         plain_ms = cuda_ms(lambda: loftr_layer_plain(x, s, p, H_COARSE), 5)
         e = x.element_size()
         nbytes = 3 * B * L * C * e + 10 * C * C * e + 4 * C * 4
@@ -221,14 +279,34 @@ def check_kernels(dev):
         out = bilinear_dual_softmax(q, k, v, 0.125)
         torch.cuda.synchronize()
         err = max_err(out, ref)
-        # both in f32 on the same (rounded) inputs: summation order only
-        tol = 1e-4 * float(ref.abs().max())
         ms = cuda_ms(lambda: bilinear_dual_softmax(q, k, v, 0.125), 10)
         plain_ms = cuda_ms(lambda: bilinear_dual_softmax_plain(q, k, v, 0.125), 3)
         e = q.element_size()
         nbytes = B * H_EMM * L * (2 * D_EMM + Dv) * e + B * H_EMM * Dv * Dv * 4
-        record("K4_bilinear_dual_softmax", dt, err, tol, ms, plain_ms,
-               k4_flops, nbytes)
+        record("K4_bilinear_dual_softmax", dt, err, k4_tol(dt, ref), ms, plain_ms,
+               k4_flops, nbytes, exps=k4_exps(dt, B * H_EMM * L * L))
+
+    # ---- the bf16 tensor-core routes at ragged shapes --------------------
+    # (a generator of their own, so that the inputs above do not change)
+    gr = torch.Generator().manual_seed(1)
+    for Br, Lr, Sr in ((1, L, L), (B, 1000, 1200)):
+        x = torch.randn(Br, Lr, C, generator=gr).to(dev, torch.bfloat16)
+        s = torch.randn(Br, Sr, C, generator=gr).to(dev, torch.bfloat16)
+        pr = layer_params(C, gr, dev)
+        ref = loftr_layer_plain(x.float(), s.float(), pr, H_COARSE)
+        out = loftr_layer(x, s, pack_params(pr, torch.bfloat16), H_COARSE)
+        torch.cuda.synchronize()
+        ragged(f"K1_loftr_layer bf16 B={Br} L={Lr} S={Sr}", max_err(out, ref),
+               6e-2 * float(ref.abs().max()))
+    for Nr in (1000,):
+        q, k = (torch.randn(1, H_EMM, Nr, D_EMM, generator=gr).to(dev, torch.bfloat16)
+                for _ in range(2))
+        v = torch.randn(1, H_EMM, Nr, Dv, generator=gr).to(dev, torch.bfloat16)
+        ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
+        out = bilinear_dual_softmax(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        ragged(f"K4_bilinear_dual_softmax bf16 B=1 N={Nr}", max_err(out, ref),
+               k4_tol(torch.bfloat16, ref))
 
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -247,8 +325,12 @@ def counters():
             "K4_bilinear_dual_softmax": bilinear_dual_softmax}
 
 
+TC_ROUTES = ("K1_loftr_layer", "K4_bilinear_dual_softmax")  # have launches_tc
+
+
 def run_main_path(dev, card: str):
-    """Phase 4: far_forward at 480x640, full width; returns launches."""
+    """Phase 4: far_forward at 480x640, full width; returns the launches
+    of each kernel and those of the tensor-core routes."""
     import torch
 
     from far_tpu_torch.pipeline import build_inference_fn, init_model
@@ -257,6 +339,7 @@ def run_main_path(dev, card: str):
 
     fns = counters()
     total = {k: 0 for k in fns}
+    total_tc = {k: 0 for k in TC_ROUTES}
     for dtype in ("float32", "bfloat16"):
         cfg = FARConfig(solver=SolverOptions(minimal_solver="8pt"), dtype=dtype)
         per_req = {"K1_loftr_layer": 2 * len(cfg.coarse.layer_names)
@@ -269,8 +352,10 @@ def run_main_path(dev, card: str):
         gen = torch.Generator(device=dev).manual_seed(0)
         fn(batch, generator=gen)  # warm-up: cuDNN plans, allocator
         torch.cuda.synchronize()
-        for f in fns.values():
+        for k, f in fns.items():
             f.launches = 0
+            if k in TC_ROUTES:
+                f.launches_tc = 0
         times = []
         outs = []
         for _ in range(N_REQUESTS):
@@ -280,11 +365,18 @@ def run_main_path(dev, card: str):
             times.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
         counts = {k: f.launches for k, f in fns.items()}
+        counts_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
         for k, want in per_req.items():
             if counts[k] != want * N_REQUESTS:
                 fail(f"{dtype}: {k} launched {counts[k]} times, expected "
                      f"{want * N_REQUESTS} ({want} per request)")
             total[k] += counts[k]
+        for k in TC_ROUTES:  # bf16 requests go through the tensor-core routes
+            want = per_req[k] * N_REQUESTS if dtype == "bfloat16" else 0
+            if counts_tc[k] != want:
+                fail(f"{dtype}: {k} tensor-core route launched {counts_tc[k]} "
+                     f"times, expected {want}")
+            total_tc[k] += counts_tc[k]
         for out in outs:
             for name in ("R", "t", "regressed_9d", "gating", "num_inliers", "E"):
                 val = getattr(out, name)
@@ -297,11 +389,12 @@ def run_main_path(dev, card: str):
         print(f"far_forward {dtype} B={B_REQUEST} 480x640: ms/request median "
               f"{ms:.2f} (runs {[round(t, 2) for t in times]}), "
               f"pairs/s {B_REQUEST * 1e3 / ms:.2f}, launches {counts}, "
+              f"tensor-core route launches {counts_tc}, "
               f"valid matches {outs[-1].matches.valid.sum(-1).tolist()}, "
               f"inliers {outs[-1].num_inliers.tolist()} on {card}", flush=True)
         del model, fn, outs
         torch.cuda.empty_cache()
-    return total
+    return total, total_tc
 
 
 def small_agreement(dev):
@@ -413,6 +506,7 @@ def solver_guard(dev):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -433,7 +527,7 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     entries = check_kernels(dev)
-    launches = run_main_path(dev, card)
+    launches, launches_tc = run_main_path(dev, card)
     small_agreement(dev)
     solver_guard(dev)
 
@@ -458,6 +552,10 @@ def main() -> int:
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "dtype": main, other: entries[name][other]})
+        if name in launches_tc:
+            kernels[-1]["launches_tc"] = launches_tc[name]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

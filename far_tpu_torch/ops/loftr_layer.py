@@ -1,16 +1,32 @@
 """K1: one LoFTR encoder layer with linear attention.
 
 Replaces ``far_tpu/ops/loftr_layer.py:fused_loftr_layer`` (its
-``pl.pallas_call`` at :147). The CUDA kernel is
-``far_tpu_torch/csrc/loftr_layer.cu``; its note says what bounds it on the
-card (operations: ~6.5 GFLOP per pair at L=S=4800, C=256) and how the
-layer is split into launches because an SM cannot hold what the TPU
-kernel keeps in VMEM.
+``pl.pallas_call`` at :147). The CUDA source is
+``far_tpu_torch/csrc/loftr_layer.cu``. The layer is bound by operations
+(~6.5 GFLOP per pair at L=S=4800, C=256). Two routes:
+
+- float32: 11 launches on the CUDA cores (tiled products, a k^T v
+  reduction, a message kernel, LayerNorms), intermediates in device
+  memory.
+- bfloat16: 3 launches on the tensor cores (wgmma, cp.async): a k^T v
+  pass over 64-row chunks of src, a fixed-order reduction, and a row
+  pass per 128 rows that keeps the x tile, msg and m in shared memory,
+  q, y and every accumulator in registers, and streams the weights
+  through two 32 KB stages. What holds it back is that each tile's
+  wgmma, wait and epilogue run in series within a block. It rounds k, v,
+  KV, q, msg, m, y and out to bf16, where the TPU kernel casts them;
+  sum(k), z and the LayerNorms stay float32. It takes C in {64, 128, 192,
+  256} with a head width C / nhead dividing 64 (``FAR_K1_TC_SHAPES`` in
+  the source, asked through ``far_loftr_layer_tc_supports``); other
+  shapes raise.
 
 Weights use torch's Linear layout (out, in), the layout of the modules
 that own them (``models/transformer.py``):
     wq, wk, wv, wm (C, C); w0 (2C, 2C) = mlp.0; w1 (C, 2C) = mlp.2;
     ln1, ln2 (2, C) = [weight; bias].
+``pack_params`` casts them to the kernels' types (weights in the compute
+dtype, LayerNorm in float32), contiguous. The wrapper calls it on every
+launch; given a pack, it copies nothing.
 """
 
 from __future__ import annotations
@@ -62,11 +78,23 @@ def loftr_layer_plain(x: torch.Tensor, source: torch.Tensor, params: Params,
     return (x.float() + y).to(dt)
 
 
+WEIGHTS = ("wq", "wk", "wv", "wm", "w0", "w1")
+
+
+def pack_params(params: Params, dtype: torch.dtype) -> Params:
+    """The layer's weights in the layout the kernels take: the six
+    matrices in ``dtype``, ln1/ln2 in float32, all contiguous."""
+    out = {k: params[k].detach().to(dtype).contiguous() for k in WEIGHTS}
+    for k in ("ln1", "ln2"):
+        out[k] = params[k].detach().float().contiguous()
+    return out
+
+
 def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
                 nhead: int) -> torch.Tensor:
     """One LoFTR encoder layer: ``x`` (B, L, C) attends to ``source``
     (B, S, C). CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the float32 or the bfloat16 route of the kernel."""
     if _build.on_cpu(x, source):
         return loftr_layer_plain(x, source, params, nhead)
     B, L, C = x.shape
@@ -79,29 +107,38 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
     _build.require(C % nhead == 0, f"C={C} not divisible by nhead={nhead}")
     _build.require(x.is_contiguous() and source.is_contiguous(),
                    "x and source must be contiguous")
-    w = {k: params[k].to(x.dtype).contiguous()
-         for k in ("wq", "wk", "wv", "wm", "w0", "w1")}
+    tc = code == 1
+    if tc:
+        supports = _build.bind_size("loftr_layer", "far_loftr_layer_tc_supports", 2)
+        _build.require(supports(C, nhead) == 1,
+                       f"the bfloat16 route does not take x {tuple(x.shape)} "
+                       f"with nhead={nhead} (its shapes: FAR_K1_TC_SHAPES in "
+                       f"csrc/loftr_layer.cu)")
+    w = pack_params(params, x.dtype)  # no copies when already packed
     for k, shape in (("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)),
                      ("wm", (C, C)), ("w0", (2 * C, 2 * C)),
-                     ("w1", (C, 2 * C))):
+                     ("w1", (C, 2 * C)), ("ln1", (2, C)), ("ln2", (2, C))):
         _build.require(tuple(w[k].shape) == shape,
                        f"{k} has shape {tuple(w[k].shape)}, not {shape}")
-    ln1 = params["ln1"].float().contiguous()
-    ln2 = params["ln2"].float().contiguous()
-    _build.require(tuple(ln1.shape) == (2, C) and tuple(ln2.shape) == (2, C),
-                   "ln1/ln2 must be (2, C)")
-    size = _build.bind_size("loftr_layer", "far_loftr_layer_scratch", 6)
-    fn = _build.bind("loftr_layer", "far_loftr_layer", 12, 6)
+    name = "far_loftr_layer_tc" if tc else "far_loftr_layer"
+    if tc:
+        size = _build.bind_size("loftr_layer", "far_loftr_layer_tc_scratch", 4)
+        nbytes = size(B, S, C, nhead)
+    else:
+        size = _build.bind_size("loftr_layer", "far_loftr_layer_scratch", 5)
+        nbytes = size(B, L, S, C, nhead)
+    fn = _build.bind("loftr_layer", name, 12, 5)
     out = torch.empty_like(x)
-    scratch = _build.scratch(size(code, B, L, S, C, nhead), x)
-    err = fn(x.data_ptr(), source.data_ptr(), w["wq"].data_ptr(),
-             w["wk"].data_ptr(), w["wv"].data_ptr(), w["wm"].data_ptr(),
-             w["w0"].data_ptr(), w["w1"].data_ptr(), ln1.data_ptr(),
-             ln2.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-             B, L, S, C, nhead, code, _build.stream_of(x))
-    _build.check(err, "loftr_layer")
+    scratch = _build.scratch(nbytes, x)
+    err = fn(x.data_ptr(), source.data_ptr(),
+             *(w[k].data_ptr() for k in WEIGHTS), w["ln1"].data_ptr(),
+             w["ln2"].data_ptr(), out.data_ptr(), scratch.data_ptr(),
+             B, L, S, C, nhead, _build.stream_of(x))
+    _build.check(err, name)
     loftr_layer.launches += 1
+    loftr_layer.launches_tc += int(tc)
     return out
 
 
-loftr_layer.launches = 0
+loftr_layer.launches = 0     # launches of either route
+loftr_layer.launches_tc = 0  # launches of the bfloat16 tensor-core route
