@@ -12,7 +12,7 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    and bfloat16: launched next to its plain PyTorch version on the same
    inputs and held to a stated tolerance, both timed with CUDA events,
    with a PyTorch library call timed beside it where one computes the
-   same function; then the bfloat16 tensor-core routes of K1 and K4 at
+   same function; then the bfloat16 tensor-core routes of K1-K4 at
    ragged shapes (inputs from a generator of their own);
 4. ``far_forward`` at 480x640 and full width (8-point solver), three
    requests of B=4 in float32 and three in bfloat16, with the kernels'
@@ -119,8 +119,8 @@ def max_err(a, b) -> float:
 
 ROUTES = {  # how each kernel computes in bfloat16
     "K1_loftr_layer": "cuda, tensor cores (wgmma, cp.async), 3 launches",
-    "K2_dual_softmax_rowcol": "cuda, CUDA cores (f32 FMA)",
-    "K3_fine_transformer": "cuda, CUDA cores (f32 FMA)",
+    "K2_dual_softmax_rowcol": "cuda, tensor cores (wgmma, cp.async), 4 launches",
+    "K3_fine_transformer": "cuda, tensor cores (wgmma, cp.async), 1 launch",
     "K4_bilinear_dual_softmax": "cuda, tensor cores (wgmma, cp.async), 3 launches",
 }
 
@@ -131,7 +131,8 @@ def check_kernels(dev):
 
     from far_tpu_torch.ops.bilinear_attention import (
         bilinear_dual_softmax, bilinear_dual_softmax_plain)
-    from far_tpu_torch.ops.fine_layer import fine_transformer, fine_transformer_plain
+    from far_tpu_torch.ops.fine_layer import (
+        fine_transformer, fine_transformer_plain, pack_fine_params)
     from far_tpu_torch.ops.loftr_layer import (
         loftr_layer, loftr_layer_plain, pack_params)
     from far_tpu_torch.ops.matching_kernel import (
@@ -228,6 +229,9 @@ def check_kernels(dev):
         at_k = torch.gather(conf, 2, ri[..., None])[..., 0]
         idx_gap = float((prv - at_k).abs().max())
         n_diff = int((ri != pri).sum())
+        # mutual pairs of the plain version that the kernel's test drops
+        lost = int(((torch.gather(pcm, 1, pri) <= prv)
+                    & ~(torch.gather(cm, 1, ri) <= rv)).sum())
         del sim, conf
         err = max(err, idx_gap)
         tol = 1e-6 + 1e-4 * float(prv.abs().max())
@@ -243,7 +247,7 @@ def check_kernels(dev):
         nbytes = 2 * B * L * C * a.element_size() + B * L * (4 + 8 + 4)
         record("K2_dual_softmax_rowcol", dt, err, tol, ms, plain_ms,
                2 * B * L * L * C, nbytes, lib_ms,
-               extra=f"row_idx_differs={n_diff}")
+               extra=f"row_idx_differs={n_diff} mutual_lost={lost}")
 
     # ---- K3: fine transformer over 5x5 windows --------------------------
     n = B * K_MATCH
@@ -256,12 +260,13 @@ def check_kernels(dev):
     for dt in (torch.float32, torch.bfloat16):
         a, b = w0_32.to(dt), w1_32.to(dt)
         r0, r1 = fine_transformer_plain(a.float(), b.float(), fp, names, H_FINE)
-        o0, o1 = fine_transformer(a, b, fp, names, H_FINE)
+        pk = pack_fine_params(fp, dt)  # cast once, outside the timed launches
+        o0, o1 = fine_transformer(a, b, fp, names, H_FINE, pack=pk)
         torch.cuda.synchronize()
         err = max(max_err(o0, r0), max_err(o1, r1))
         tol = (1e-4 if dt == torch.float32 else 6e-2) * float(
             max(r0.abs().max(), r1.abs().max()))
-        ms = cuda_ms(lambda: fine_transformer(a, b, fp, names, H_FINE), 10)
+        ms = cuda_ms(lambda: fine_transformer(a, b, fp, names, H_FINE, pack=pk), 10)
         plain_ms = cuda_ms(lambda: fine_transformer_plain(a, b, fp, names, H_FINE), 5)
         e = a.element_size()
         nbytes = 4 * n * WW * C_FINE * e + 2 * 10 * C_FINE ** 2 * e
@@ -307,6 +312,31 @@ def check_kernels(dev):
         torch.cuda.synchronize()
         ragged(f"K4_bilinear_dual_softmax bf16 B=1 N={Nr}", max_err(out, ref),
                k4_tol(torch.bfloat16, ref))
+    for nr in (7, 2 * K_MATCH + 3):
+        a, b = (torch.randn(nr, WW, C_FINE, generator=gr).to(dev, torch.bfloat16)
+                for _ in range(2))
+        pr = [layer_params(C_FINE, gr, dev) for _ in range(2)]
+        r0, r1 = fine_transformer_plain(a.float(), b.float(), pr, names, H_FINE)
+        o0, o1 = fine_transformer(a, b, pr, names, H_FINE)
+        torch.cuda.synchronize()
+        ragged(f"K3_fine_transformer bf16 n={nr}", max(max_err(o0, r0), max_err(o1, r1)),
+               6e-2 * float(max(r0.abs().max(), r1.abs().max())))
+    for Br, Lr, Sr, Cr in ((1, 1000, 1200, C), (B, 192, 192, 32)):
+        f0 = torch.randn(Br, Lr, Cr, generator=gr)
+        f1 = torch.randn(Br, Sr, Cr, generator=gr)
+        f1[:, :Lr] = f0[:, torch.randperm(Lr, generator=gr)] + 0.5 * f1[:, :Lr]
+        sc = torch.tensor(1.0 / Cr ** 0.5).to(torch.bfloat16)
+        a = (f0.to(torch.bfloat16) * sc).to(dev).contiguous()
+        b = (f1.to(torch.bfloat16) * sc).to(dev).contiguous()
+        rv, ri, cm = dual_softmax_rowcol(a, b, 10.0)
+        prv, pri, pcm = dual_softmax_rowcol_plain(a, b, 10.0)
+        torch.cuda.synchronize()
+        sim = torch.einsum("blc,bsc->bls", a.float(), b.float()) * 10.0
+        conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
+        idx_gap = float((prv - torch.gather(conf, 2, ri[..., None])[..., 0]).abs().max())
+        ragged(f"K2_dual_softmax_rowcol bf16 B={Br} L={Lr} S={Sr} C={Cr}",
+               max(max_err(rv, prv), max_err(cm, pcm), idx_gap),
+               1e-6 + 1e-4 * float(prv.abs().max()))
 
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -325,7 +355,12 @@ def counters():
             "K4_bilinear_dual_softmax": bilinear_dual_softmax}
 
 
-TC_ROUTES = ("K1_loftr_layer", "K4_bilinear_dual_softmax")  # have launches_tc
+# kernels with a tensor-core route (counted by launches_tc), and the dtypes
+# of the requests that go through it (K2 takes bf16 in every request)
+TC_ROUTES = {"K1_loftr_layer": ("bfloat16",),
+             "K2_dual_softmax_rowcol": ("float32", "bfloat16"),
+             "K3_fine_transformer": ("bfloat16",),
+             "K4_bilinear_dual_softmax": ("bfloat16",)}
 
 
 def run_main_path(dev, card: str):
@@ -371,8 +406,8 @@ def run_main_path(dev, card: str):
                 fail(f"{dtype}: {k} launched {counts[k]} times, expected "
                      f"{want * N_REQUESTS} ({want} per request)")
             total[k] += counts[k]
-        for k in TC_ROUTES:  # bf16 requests go through the tensor-core routes
-            want = per_req[k] * N_REQUESTS if dtype == "bfloat16" else 0
+        for k, dtypes in TC_ROUTES.items():
+            want = per_req[k] * N_REQUESTS if dtype in dtypes else 0
             if counts_tc[k] != want:
                 fail(f"{dtype}: {k} tensor-core route launched {counts_tc[k]} "
                      f"times, expected {want}")

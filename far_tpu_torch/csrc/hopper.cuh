@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
-// (the bf16 routes of K1 loftr_layer.cu and K4 bilinear_attention.cu).
+// (the bf16 routes of K1 loftr_layer.cu, K2 matching_kernel.cu, K3
+// fine_layer.cu and K4 bilinear_attention.cu).
 //
 // - Shared-memory operand layout. Every wgmma operand in shared memory is
 //   K-major with the 128-byte swizzle: a tile of R rows and 64*A columns
@@ -11,7 +12,7 @@
 //   columns) of such a tile from a row-major global matrix.
 // - wgmma_ss / wgmma_rs: wgmma.mma_async m64nNk16, bf16 in, f32
 //   accumulators, A from shared memory (ss) or registers (rs); overloaded
-//   on the accumulator's length (N = 64, 72, 128). Register layout of the
+//   on the accumulator's length (N = 64, 72, 128; rs also 16, 32). Register layout of the
 //   accumulator for thread t of warp w in the warpgroup: d[4j + 2h + e]
 //   is row 16w + t/4 + 8h, column 8j + 2(t%4) + e. frag() packs two n8
 //   blocks of it into the A fragment of one k16 step.
@@ -20,6 +21,8 @@
 //   each register array the batch reads or writes once the wait returned,
 //   so the compiler neither reads an accumulator early nor reuses an A
 //   register while the tensor cores still read it.
+// - acc_row_stats: LayerNorm statistics of the rows a thread holds in an
+//   accumulator (K1's and K3's row passes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -178,6 +181,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 }, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 }, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[36], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
@@ -248,6 +272,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// LayerNorm statistics of the two rows a thread holds in a warpgroup
+// accumulator (pieces x N/2 values each); a row lives in one quad.
+template <int P, int N>
+__device__ __forceinline__ void acc_row_stats(const float (&acc)[P][N], float (&mu)[2],
+                                              float (&rstd)[2], int C) {
+  float s[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int e = 0; e < N; ++e) s[(e >> 1) & 1] += acc[p][e];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mu[h] = quad_sum(s[h]) / C;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float d = acc[p][e] - mu[(e >> 1) & 1];
+      v[(e >> 1) & 1] += d * d;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) rstd[h] = rsqrtf(quad_sum(v[h]) / C + 1e-5f);
 }
 
 }  // namespace hopper

@@ -436,29 +436,6 @@ __global__ void kv_reduce_tc_kernel(const float* __restrict__ part, int B, int n
   }
 }
 
-// LayerNorm statistics of the two rows a thread holds in a warpgroup
-// accumulator (pieces x N/2 values each); a row lives in one quad.
-template <int P, int N>
-__device__ __forceinline__ void acc_row_stats(const float (&acc)[P][N], float (&mu)[2],
-                                              float (&rstd)[2], int C) {
-  float s[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int e = 0; e < N; ++e) s[(e >> 1) & 1] += acc[p][e];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) mu[h] = quad_sum(s[h]) / C;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int e = 0; e < N; ++e) {
-      const float d = acc[p][e] - mu[(e >> 1) & 1];
-      v[(e >> 1) & 1] += d * d;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) rstd[h] = rsqrtf(quad_sum(v[h]) / C + 1e-5f);
-}
-
 // (c) Grid (ceil(L / ROWS), B).
 template <int C, int DH>
 __global__ void __launch_bounds__(THREADS, 1)

@@ -3,22 +3,36 @@
 Replaces ``far_tpu/ops/fine_layer.py:_fused`` (its ``pl.pallas_call`` at
 :246). Every layer application (self, cross; both directions; cross is
 sequential, so f1 attends to the updated f0) runs with linear attention
-confined to each s-token window. The CUDA kernel is
-``far_tpu_torch/csrc/fine_layer.cu``; its note says what bounds it
-(operations: ~35 GFLOP per pair at K=1024 windows, C=128) and how a
-block keeps its windows in shared memory through all four applications.
+confined to each s-token window. The kernel is bound by operations
+(~35 GFLOP per pair at K=1024 windows, C=128). The CUDA source is
+``far_tpu_torch/csrc/fine_layer.cu``; one launch in either route:
 
-Each layer's weights are a dict in the layout of ``ops/loftr_layer.py``.
+- float32, and bfloat16 shapes outside the tensor-core set: the CUDA
+  cores, a block keeping 2 windows in shared memory as f32 through all
+  four applications.
+- bfloat16 with C in {64, 128}, a head width of 16, 32 or 64 and s <= 64
+  (``FAR_K3_TC_SHAPES``, asked through
+  ``far_fine_transformer_tc_supports`` before any launch): the tensor
+  cores (wgmma, cp.async). A block holds 128 // s whole windows of both
+  images in shared memory as bf16 for all four applications and computes
+  the attention per head as the TPU kernel does, q k^T masked to the
+  window, then . v. It rounds q, k, v, the masked S, msg, m, y and x to
+  bf16 where the TPU kernel casts them; the denominators and LayerNorms
+  stay float32. What holds it back: each weight tile's and each head's
+  products run in series within a block.
+
+Each layer's weights are a dict in the layout of ``ops/loftr_layer.py``;
+``pack_fine_params`` casts and concatenates them once for the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from far_tpu_torch.ops import _build
-from far_tpu_torch.ops.loftr_layer import loftr_layer_plain
+from far_tpu_torch.ops.loftr_layer import WEIGHTS, loftr_layer_plain
 
 Params = Dict[str, torch.Tensor]
 _MAX_LAYERS = 30  # bits of the kernel's cross-layer mask
@@ -40,10 +54,34 @@ def fine_transformer_plain(f0: torch.Tensor, f1: torch.Tensor,
     return f0, f1
 
 
+class FinePack(NamedTuple):
+    """The stack's weights as the kernel takes them: ``w`` every layer's
+    [wq wk wv wm | w0 | w1] flattened in the compute dtype, ``ln`` every
+    layer's [ln1; ln2] in float32, both contiguous."""
+    w: torch.Tensor
+    ln: torch.Tensor
+
+
+def pack_fine_params(params: Sequence[Params], dtype: torch.dtype) -> FinePack:
+    """Cast and concatenate the layers' weights once, for callers that run
+    the stack many times with the same weights."""
+    w = torch.cat([torch.cat([p[k].detach().to(dtype).reshape(-1) for k in WEIGHTS])
+                   for p in params]).contiguous()
+    ln = torch.cat([torch.cat([p["ln1"].detach().float().reshape(-1),
+                               p["ln2"].detach().float().reshape(-1)])
+                    for p in params]).contiguous()
+    return FinePack(w, ln)
+
+
 def fine_transformer(f0: torch.Tensor, f1: torch.Tensor,
                      params: Sequence[Params], layer_names: Sequence[str],
-                     nhead: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fine transformer over (n, s, C) windows of both images."""
+                     nhead: int, pack: Optional[FinePack] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fine transformer over (n, s, C) windows of both images.
+
+    ``pack`` (from ``pack_fine_params(params, f0.dtype)``) saves the
+    kernel path its per-call cast of the weights; the plain version on
+    the CPU reads ``params``."""
     for name in layer_names:
         if name not in ("self", "cross"):
             raise KeyError(name)
@@ -58,25 +96,35 @@ def fine_transformer(f0: torch.Tensor, f1: torch.Tensor,
     _build.require(C % nhead == 0, f"C={C} not divisible by nhead={nhead}")
     _build.require(len(params) == len(layer_names) <= _MAX_LAYERS,
                    "one weight dict per layer name, at most 30 layers")
-    dt = f0.dtype
-    w = torch.cat([torch.cat([p[k].to(dt).reshape(-1) for k in
-                              ("wq", "wk", "wv", "wm", "w0", "w1")])
-                   for p in params]).contiguous()
-    _build.require(w.numel() == 10 * C * C * len(params),
+    w, ln = pack if pack is not None else pack_fine_params(params, f0.dtype)
+    _build.require(w.dtype == f0.dtype and ln.dtype == torch.float32
+                   and w.device == f0.device and ln.device == f0.device
+                   and w.is_contiguous() and ln.is_contiguous(),
+                   "the weight pack's dtypes or device do not fit f0, or it "
+                   "is not contiguous")
+    _build.require(w.numel() == 10 * C * C * len(params)
+                   and ln.numel() == 4 * C * len(params),
                    "layer weights do not fit C")
-    ln = torch.cat([torch.cat([p["ln1"].float().reshape(-1),
-                               p["ln2"].float().reshape(-1)])
-                    for p in params]).contiguous()
     cross = sum(1 << i for i, nm in enumerate(layer_names) if nm == "cross")
-    fn = _build.bind("fine_layer", "far_fine_transformer", 6, 7)
+    # bf16 shapes the tensor-core route is built for take it; other bf16
+    # shapes (and float32) take the CUDA-core route
+    tc = code == 1 and _build.bind_size(
+        "fine_layer", "far_fine_transformer_tc_supports", 3)(C, nhead, s) == 1
     out0 = torch.empty_like(f0)
     out1 = torch.empty_like(f1)
-    err = fn(f0.data_ptr(), f1.data_ptr(), w.data_ptr(), ln.data_ptr(),
-             out0.data_ptr(), out1.data_ptr(), n, s, C, nhead, len(params),
-             cross, code, _build.stream_of(f0))
-    _build.check(err, "fine_transformer")
+    args = [f0.data_ptr(), f1.data_ptr(), w.data_ptr(), ln.data_ptr(),
+            out0.data_ptr(), out1.data_ptr(), n, s, C, nhead, len(params), cross]
+    if tc:
+        fn = _build.bind("fine_layer", "far_fine_transformer_tc", 6, 6)
+        err = fn(*args, _build.stream_of(f0))
+    else:
+        fn = _build.bind("fine_layer", "far_fine_transformer", 6, 7)
+        err = fn(*args, code, _build.stream_of(f0))
+    _build.check(err, "fine_transformer" + (" (bf16)" if tc else ""))
     fine_transformer.launches += 1
+    fine_transformer.launches_tc += int(tc)
     return out0, out1
 
 
-fine_transformer.launches = 0
+fine_transformer.launches = 0     # launches of either route
+fine_transformer.launches_tc = 0  # launches of the bfloat16 tensor-core route

@@ -1,11 +1,13 @@
-"""The bfloat16 tensor-core routes of K1 and K4 (far_tpu_torch/csrc).
+"""The bfloat16 tensor-core routes of K1-K4 (far_tpu_torch/csrc).
 
-On the CPU: what surrounds the kernels - the weight pack that K1's
-wrapper takes (it must equal ``raw()`` cast to the dtype, and a layer's
-call must see a changed weight) and K4's zero padding of q, k and v (it
-must change nothing). On a card (marked ``cuda``; each test skips
-without one): both routes against their plain versions at ragged shapes
-and at every shape they are built for.
+On the CPU: what surrounds the kernels - the weight packs that K1's and
+K3's wrappers take (they must equal the weights cast to the dtype, and a
+layer's call must see a changed weight), K4's zero padding of q, k and v
+(it must change nothing), and the arithmetic of the K2 and K3 routes
+written out in plain torch: K2's log-domain reduction and K3's packing of
+windows into 128-row tiles. On a card (marked ``cuda``; each test skips
+without one): every route against its plain version at ragged shapes and
+at every shape it is built for.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_hopper.py
@@ -23,11 +25,21 @@ from far_tpu_torch.ops.bilinear_attention import (
     bilinear_dual_softmax_plain,
     pad_columns,
 )
+from far_tpu_torch.ops.fine_layer import (
+    fine_transformer,
+    fine_transformer_plain,
+    pack_fine_params,
+)
 from far_tpu_torch.ops.loftr_layer import (
     WEIGHTS,
+    layer_norm,
     loftr_layer,
     loftr_layer_plain,
     pack_params,
+)
+from far_tpu_torch.ops.matching_kernel import (
+    dual_softmax_rowcol,
+    dual_softmax_rowcol_plain,
 )
 
 torch.set_num_threads(2)
@@ -138,6 +150,194 @@ def test_pad_qk_changes_nothing(D):
                                rtol=0, atol=1e-6)
 
 
+# ---- K2's log-domain reduction -------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _k2_log_domain(f0, f1, inv_temp, dtype=torch.float32):
+    """The bf16 route's arithmetic in plain torch (``dtype``): x = s log2 e,
+    alpha / beta the log2 of each row's / column's softmax denominator,
+    t = (2x - alpha_i) - beta_j once per element; both maxima are taken
+    over t and exponentiated last."""
+    x = torch.einsum("blc,bsc->bls", f0.to(dtype), f1.to(dtype)) * (inv_temp * LOG2E)
+    rm, cm = x.amax(2, keepdim=True), x.amax(1, keepdim=True)
+    alpha = rm + torch.log2(torch.exp2(x - rm).sum(2, keepdim=True))
+    beta = cm + torch.log2(torch.exp2(x - cm).sum(1, keepdim=True))
+    t = (2 * x - alpha) - beta
+    tmax, idx = t.max(dim=2)  # first index on ties
+    return torch.exp2(tmax).float(), idx, torch.exp2(t.amax(dim=1)).float()
+
+
+def _k2_inputs(seed, B=2, L=96, S=80, C=32):
+    rng = np.random.default_rng(seed)
+    f1 = rng.standard_normal((B, S, C)).astype(np.float32)
+    pick = rng.integers(0, S, (B, L))
+    f0 = np.take_along_axis(f1, pick[..., None], axis=1) \
+        + 0.5 * rng.standard_normal((B, L, C)).astype(np.float32)
+    scale = torch.tensor(C ** -0.5).to(torch.bfloat16)
+    return ((torch.from_numpy(f0).to(torch.bfloat16) * scale),
+            (torch.from_numpy(f1).to(torch.bfloat16) * scale))
+
+
+@pytest.mark.parametrize("seed,L,S", [(0, 96, 80), (1, 64, 130), (2, 200, 200)])
+def test_k2_log_domain_matches_plain(seed, L, S):
+    """In float64 the reduction is the plain version's function to 2e-6
+    of the largest value: the plain version's own float32 rounding reaches
+    1.2e-6 there (10 ulp of 1.0) and 1.5e-6 relative on smaller values.
+    In float32, the kernel's type,
+    1e-5 relative: the exponent
+    2x - alpha - beta reaches ~40, which f32 carries to ~2.4e-6 absolute,
+    and conf = 2^t turns each such rounding into ~1.7e-6 relative."""
+    f0, f1 = _k2_inputs(seed, L=L, S=S)
+    prv, pri, pcm = dual_softmax_rowcol_plain(f0, f1, 10.0)
+    rv, ri, cm = _k2_log_domain(f0, f1, 10.0, torch.float64)
+    top = float(prv.abs().max())
+    np.testing.assert_allclose(rv.numpy(), prv.numpy(), rtol=0, atol=2e-6 * top)
+    np.testing.assert_allclose(cm.numpy(), pcm.numpy(), rtol=0, atol=2e-6 * top)
+    rv32, ri, cm32 = _k2_log_domain(f0, f1, 10.0)
+    np.testing.assert_allclose(rv32.numpy(), prv.numpy(), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(cm32.numpy(), pcm.numpy(), rtol=1e-5, atol=0)
+    # an index may differ only at a near-tie of the plain conf
+    sim = torch.einsum("blc,bsc->bls", f0.float(), f1.float()) * 10.0
+    conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
+    at = torch.gather(conf, 2, ri[..., None])[..., 0]
+    diff = ri != pri
+    np.testing.assert_allclose(at[diff].numpy(), prv[diff].numpy(), rtol=1e-5, atol=0)
+
+
+def test_k2_log_domain_keeps_the_first_index_on_exact_ties():
+    f0, f1 = _k2_inputs(3, L=40, S=24)
+    f1[:, 17] = f1[:, 5]  # columns 5 and 17 equal: every conf of 17 equals that of 5
+    f1[:, 20] = f1[:, 5]
+    _, ri, _ = _k2_log_domain(f0, f1, 10.0)
+    _, pri, _ = dual_softmax_rowcol_plain(f0, f1, 10.0)
+    assert not bool(((ri == 17) | (ri == 20)).any())
+    assert bool((ri == 5).any())
+    np.testing.assert_array_equal(ri.numpy(), pri.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_k2_log_domain_mutual_pairs_compare_equal(seed):
+    """A match survives models/matching.py's test row_val >= col_max[idx]
+    exactly when it is mutual: both sides are 2^t of the same float."""
+    f0, f1 = _k2_inputs(seed, L=120, S=100)
+    rv, ri, cm = _k2_log_domain(f0, f1, 10.0)
+    rv_bits = rv.view(torch.int32)
+    cm_at = torch.gather(cm, 1, ri)
+    mutual = rv >= cm_at
+    assert int(mutual.sum()) > 0.5 * rv.numel()
+    np.testing.assert_array_equal(rv_bits[mutual].numpy(),
+                                  cm_at.view(torch.int32)[mutual].numpy())
+    # the plain version finds the same mutual rows, but where a column's two
+    # best rows are a near-tie
+    prv, pri, pcm = dual_softmax_rowcol_plain(f0, f1, 10.0)
+    pmutual = prv >= torch.gather(pcm, 1, pri)
+    other = mutual != pmutual
+    gap = (prv - torch.gather(pcm, 1, pri)).abs() / prv
+    if bool(other.any()):
+        assert float(gap[other].max()) < 1e-5
+
+
+# ---- K3's tile form --------------------------------------------------------
+
+
+def _k3_tile_form(f0, f1, params, names, nhead):
+    """The bf16 route's layout in plain torch (float32): windows of s tokens
+    packed 128 // s to a 128-row tile with zero rows after them, attention
+    per head as q_h k_h^T masked to the row's window (pad rows form windows
+    of their own), the masked row sum as the denominator, then . v."""
+    n, s, C = f0.shape
+    wpb, d = 128 // s, C // nhead
+    nt = -(-n // wpb)
+
+    def pack(x):
+        x = torch.cat([x, x.new_zeros(nt * wpb - n, s, C)]).reshape(nt, wpb * s, C)
+        return torch.cat([x, x.new_zeros(nt, 128 - wpb * s, C)], dim=1)
+
+    win = torch.arange(128) // s
+    mask = (win[:, None] == win[None, :]).float()
+
+    def layer(x, y, p):
+        q = torch.nn.functional.elu(x @ p["wq"].t()) + 1
+        k = torch.nn.functional.elu(y @ p["wk"].t()) + 1
+        v = y @ p["wv"].t() / s
+        msg = torch.empty_like(x)
+        for h in range(nhead):
+            sl = slice(h * d, (h + 1) * d)
+            a = (q[..., sl] @ k[..., sl].transpose(1, 2)) * mask
+            msg[..., sl] = (a @ v[..., sl]) / (a.sum(-1, keepdim=True) + 1e-6) * s
+        ln1, ln2 = p["ln1"], p["ln2"]
+        m = layer_norm(msg @ p["wm"].t(), ln1[0], ln1[1])
+        yy = torch.relu(x @ p["w0"][:, :C].t() + m @ p["w0"][:, C:].t())
+        return x + layer_norm(yy @ p["w1"].t(), ln2[0], ln2[1])
+
+    x0, x1 = pack(f0), pack(f1)
+    for name, p in zip(names, params):
+        if name == "self":
+            x0, x1 = layer(x0, x0, p), layer(x1, x1, p)
+        else:
+            x0 = layer(x0, x1, p)
+            x1 = layer(x1, x0, p)
+
+    def unpack(x):
+        return x[:, :wpb * s].reshape(nt * wpb, s, C)[:n]
+
+    return unpack(x0), unpack(x1)
+
+
+def _fine_params(rng, C, n_layers=2):
+    def w(o, i):
+        return torch.from_numpy((rng.standard_normal((o, i)) / np.sqrt(i)).astype(np.float32))
+
+    def ln():
+        return torch.from_numpy(np.stack([1 + 0.05 * rng.standard_normal(C),
+                                          0.05 * rng.standard_normal(C)]).astype(np.float32))
+
+    return [{"wq": w(C, C), "wk": w(C, C), "wv": w(C, C), "wm": w(C, C),
+             "w0": w(2 * C, 2 * C), "w1": w(C, 2 * C), "ln1": ln(), "ln2": ln()}
+            for _ in range(n_layers)]
+
+
+@pytest.mark.parametrize("n,s,C,H", [(10, 25, 128, 8), (28, 9, 64, 4), (7, 25, 128, 8)])
+def test_k3_tile_form_matches_plain(n, s, C, H):
+    """Packing, window masks and zero pad rows change nothing (f32)."""
+    rng = np.random.default_rng(n * s + C)
+    f0, f1 = (torch.from_numpy(rng.standard_normal((n, s, C)).astype(np.float32))
+              for _ in range(2))
+    params = _fine_params(rng, C)
+    names = ("self", "cross")
+    o0, o1 = _k3_tile_form(f0, f1, params, names, H)
+    r0, r1 = fine_transformer_plain(f0, f1, params, names, H)
+    np.testing.assert_allclose(o0.numpy(), r0.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(o1.numpy(), r1.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_fine_params_round_trips(dtype):
+    C = 32
+    params = _fine_params(np.random.default_rng(0), C, n_layers=3)
+    w, ln = pack_fine_params(params, dtype)
+    assert w.dtype == dtype and w.is_contiguous() and w.numel() == 3 * 10 * C * C
+    assert ln.dtype == torch.float32 and ln.is_contiguous() and ln.numel() == 3 * 4 * C
+    for li, p in enumerate(params):
+        off = li * 10 * C * C
+        for k in WEIGHTS:
+            n = p[k].numel()
+            assert torch.equal(w[off:off + n].reshape(p[k].shape), p[k].to(dtype)), k
+            off += n
+        lnl = ln[li * 4 * C:(li + 1) * 4 * C].reshape(4, C)
+        assert torch.equal(lnl[:2], p["ln1"]) and torch.equal(lnl[2:], p["ln2"])
+    # on CPU tensors the wrapper, given the pack, is the plain version
+    rng = np.random.default_rng(1)
+    f0, f1 = (torch.from_numpy(rng.standard_normal((3, 9, C)).astype(np.float32))
+              for _ in range(2))
+    out = fine_transformer(f0, f1, params, ("self", "cross", "self"), 4,
+                           pack=pack_fine_params(params, torch.float32))
+    ref = fine_transformer_plain(f0, f1, params, ("self", "cross", "self"), 4)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
 # ---- on a card -----------------------------------------------------------
 
 
@@ -211,3 +411,83 @@ def test_bilinear_bf16_route_on_card(card, B, N, D):
     assert out.shape == (B, 4, D + 6, D + 6)
     err = float((out - ref).abs().max())
     assert err <= 1e-2 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,S,C", [(2, 4800, 4800, 256), (1, 1000, 1200, 256),
+                                     (2, 192, 192, 32), (1, 300, 130, 64),
+                                     (2, 257, 129, 128), (1, 129, 500, 192),
+                                     (1, 1, 1, 256)])
+def test_dual_softmax_bf16_route_on_card(card, B, L, S, C):
+    """Tolerance 1e-6 + 1e-4 max|ref| (phase 3's): the route computes S in
+    f32 on the tensor cores and the statistics in the log2 domain. Every
+    row index equals the plain one or is a near-tie; mutual pairs compare
+    equal bit for bit."""
+    g = torch.Generator().manual_seed(L + S + C)
+    f0 = torch.randn(B, L, C, generator=g)
+    f1 = torch.randn(B, S, C, generator=g)
+    m = min(L, S)
+    f1[:, :m] = f0[:, torch.randperm(L, generator=g)[:m]] + 0.5 * f1[:, :m]
+    sc = torch.tensor(C ** -0.5).to(torch.bfloat16)
+    a = (f0.to(torch.bfloat16) * sc).to(card).contiguous()
+    b = (f1.to(torch.bfloat16) * sc).to(card).contiguous()
+    before = dual_softmax_rowcol.launches_tc
+    rv, ri, cm = dual_softmax_rowcol(a, b, 10.0)
+    torch.cuda.synchronize()
+    assert dual_softmax_rowcol.launches_tc == before + 1
+    prv, pri, pcm = dual_softmax_rowcol_plain(a, b, 10.0)
+    tol = 1e-6 + 1e-4 * float(prv.abs().max())
+    assert float((rv - prv).abs().max()) <= tol
+    assert float((cm - pcm).abs().max()) <= tol
+    sim = torch.einsum("blc,bsc->bls", a.float(), b.float()) * 10.0
+    conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
+    assert float((prv - torch.gather(conf, 2, ri[..., None])[..., 0]).abs().max()) <= tol
+    cm_at = torch.gather(cm, 1, ri)
+    mutual = rv >= cm_at
+    assert torch.equal(rv[mutual].view(torch.int32), cm_at[mutual].view(torch.int32))
+
+
+K3_TC_SHAPES = [(C, C // dh) for C in (64, 128) for dh in (16, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,C,H", [(2051, 25, 128, 8), (7, 25, 128, 8), (1, 25, 128, 8)]
+                         + [(23, s, C, H) for C, H in K3_TC_SHAPES for s in (9, 25, 49)])
+def test_fine_transformer_bf16_route_on_card(card, n, s, C, H):
+    """Tolerance 6e-2 max|ref|: the kernel rounds k, v, q, S, msg, m, y and
+    x to bf16 at each of its four layer applications; the plain f32 version
+    does not."""
+    g = torch.Generator().manual_seed(n + s + C + H)
+    x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
+    p = [_params(C, g, card) for _ in range(2)]
+    names = ("self", "cross")
+    r0, r1 = fine_transformer_plain(x0, x1, p, names, H)
+    before = fine_transformer.launches_tc
+    o0, o1 = fine_transformer(x0.to(torch.bfloat16), x1.to(torch.bfloat16), p, names, H,
+                              pack=pack_fine_params(p, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert fine_transformer.launches_tc == before + 1
+    tol = 6e-2 * float(max(r0.abs().max(), r1.abs().max()))
+    assert float(max((o0.float() - r0).abs().max(), (o1.float() - r1).abs().max())) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,C,H", [(9, 25, 32, 4), (5, 9, 192, 8), (4, 81, 32, 4),
+                                     (5, 25, 128, 16)])
+def test_fine_transformer_bf16_outside_the_set_takes_cuda_cores(card, n, s, C, H):
+    """bf16 shapes the tensor-core route is not built for (C = 32 or 192,
+    a head width of 8 or 24, s = 81) run the CUDA-core kernel, chosen by
+    the explicit shape check. (That kernel keeps 2 windows in f32 in shared
+    memory, so it refuses C >= 192 at s = 25 as before.)"""
+    g = torch.Generator().manual_seed(n + C)
+    x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
+    p = [_params(C, g, card) for _ in range(2)]
+    names = ("self", "cross")
+    r0, r1 = fine_transformer_plain(x0, x1, p, names, H)
+    before, before_tc = fine_transformer.launches, fine_transformer.launches_tc
+    o0, o1 = fine_transformer(x0.to(torch.bfloat16), x1.to(torch.bfloat16), p, names, H)
+    torch.cuda.synchronize()
+    assert fine_transformer.launches == before + 1
+    assert fine_transformer.launches_tc == before_tc
+    tol = 6e-2 * float(max(r0.abs().max(), r1.abs().max()))
+    assert float(max((o0.float() - r0).abs().max(), (o1.float() - r1).abs().max())) <= tol
