@@ -13,14 +13,23 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    inputs and held to a stated tolerance, both timed with CUDA events,
    with a PyTorch library call timed beside it where one computes the
    same function; then the bfloat16 tensor-core routes of K1-K4 at
-   ragged shapes (inputs from a generator of their own);
-4. ``far_forward`` at 480x640 and full width (8-point solver), three
-   requests of B=4 in float32 and three in bfloat16, with the kernels'
+   ragged shapes, and the CUDA-core routes at the shapes the tensor-core
+   routes are not built for (K1 bf16 C=32 and C=96, K4 bf16 D=Dv=128,
+   K3 f32 C=256 and s=81), each against its plain version, with the
+   route that ran read from the launch counters (inputs from generators
+   of their own);
+4. ``far_forward`` at 480x640 and full width with ``FARConfig()``'s
+   5-point solver, three requests of B=4 in float32 and three in
+   bfloat16, then the same with the 8-point solver, with the kernels'
    launch counters (all launches, and those of the tensor-core routes)
-   set to 0 just before and read just after;
+   set to 0 just before each run and read just after;
 5. the matcher and the EMM features at a small width with the kernels on
    the card and with the plain versions on the CPU, compared;
-6. the port's solver on 16 synthetic scenes at 0.5 px noise.
+6. the port's solver on 16 synthetic scenes at 0.5 px noise, 5-point and
+   8-point, and the 5-point minimal solver on 64 exact problems;
+7. the network guard: ``assets/tiny_guard.npz`` (trained tiny weights)
+   through ``far_forward`` on 16 synthetic pairs, float32 and bfloat16,
+   held to the JAX package's gate (bench.py).
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -338,6 +347,67 @@ def check_kernels(dev):
                max(max_err(rv, prv), max_err(cm, pcm), idx_gap),
                1e-6 + 1e-4 * float(prv.abs().max()))
 
+    # ---- the CUDA-core routes at shapes the tensor-core routes lack ------
+    # (a generator of its own). The route that ran is read from the
+    # counters: launches + 1 and launches_tc unchanged.
+    gp = torch.Generator().manual_seed(2)
+
+    def cuda_core_route(name, wrapper, dt, shape, call, plain, tol_rel, flops, nbytes):
+        refs = plain()
+        n0, tc0 = wrapper.launches, wrapper.launches_tc
+        outs = call()
+        torch.cuda.synchronize()
+        took = "cuda cores" if (wrapper.launches - n0, wrapper.launches_tc - tc0) == (1, 0) \
+            else "tensor cores"
+        err = max(max_err(o, r) for o, r in zip(outs, refs))
+        tol = tol_rel * max(float(r.abs().max()) for r in refs)
+        ms, plain_ms = cuda_ms(call, 5), cuda_ms(plain, 2)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        ok = err <= tol and took == "cuda cores"
+        print(f"kernel {name} {tag} {shape}: route {took}, max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}) {'ok' if ok else 'FAILED'} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not ok:
+            failures.append(f"{name} {tag} {shape}")
+        entries.setdefault(name, {}).setdefault("cuda_core_shapes", []).append(dict(
+            shape=shape, dtype=tag, route=took, max_abs_err=err, tol=tol, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+
+    for Cr, Hr in ((32, 4), (96, 4)):  # the guard's coarse stack; head width 24
+        x = torch.randn(B, L, Cr, generator=gp).to(dev, torch.bfloat16)
+        s = torch.randn(B, L, Cr, generator=gp).to(dev, torch.bfloat16)
+        pr = layer_params(Cr, gp, dev)
+        pk = pack_params(pr, torch.bfloat16)
+        d = Cr // Hr
+        cuda_core_route(
+            "K1_loftr_layer", loftr_layer, torch.bfloat16, f"B={B} L=S={L} C={Cr} nhead={Hr}",
+            lambda: (loftr_layer(x, s, pk, Hr),),
+            lambda: (loftr_layer_plain(x.float(), s.float(), pr, Hr),), 6e-2,
+            B * (20 * L * Cr * Cr + 4 * L * Cr * d + 2 * L * Cr),
+            3 * B * L * Cr * 2 + 10 * Cr * Cr * 2 + 4 * Cr * 4)
+    Dr = 128
+    q, k, v = (torch.randn(B, H_EMM, L, Dr, generator=gp).to(dev, torch.bfloat16)
+               for _ in range(3))
+    cuda_core_route(
+        "K4_bilinear_dual_softmax", bilinear_dual_softmax, torch.bfloat16,
+        f"B={B} H={H_EMM} N={L} D=Dv={Dr}",
+        lambda: (bilinear_dual_softmax(q, k, v, Dr ** -0.5),),
+        lambda: (bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dr ** -0.5),),
+        1e-2, B * H_EMM * (4 * L * L * Dr + 2 * L * Dr * Dr),
+        B * H_EMM * L * 3 * Dr * 2 + B * H_EMM * Dr * Dr * 4)
+    for sr, Cr in ((WW, 256), (81, C_FINE)):
+        a, b = (torch.randn(n, sr, Cr, generator=gp).to(dev) for _ in range(2))
+        pr = [layer_params(Cr, gp, dev) for _ in range(2)]
+        pk = pack_fine_params(pr, torch.float32)
+        cuda_core_route(
+            "K3_fine_transformer", fine_transformer, torch.float32,
+            f"n={n} s={sr} C={Cr} nhead={H_FINE}",
+            lambda: fine_transformer(a, b, pr, names, H_FINE, pack=pk),
+            lambda: fine_transformer_plain(a, b, pr, names, H_FINE), 1e-4,
+            4 * n * (20 * sr * Cr ** 2 + 4 * sr * Cr * (Cr // H_FINE)),
+            4 * n * sr * Cr * 4 + 2 * 10 * Cr ** 2 * 4)
+
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
     return entries
@@ -363,6 +433,11 @@ TC_ROUTES = {"K1_loftr_layer": ("bfloat16",),
              "K4_bilinear_dual_softmax": ("bfloat16",)}
 
 
+# phase 4's runs: (dtype, minimal solver); FARConfig()'s solver is 5pt
+MAIN_RUNS = (("float32", "5pt"), ("bfloat16", "5pt"), ("float32", "8pt"),
+             ("bfloat16", "8pt"))
+
+
 def run_main_path(dev, card: str):
     """Phase 4: far_forward at 480x640, full width; returns the launches
     of each kernel and those of the tensor-core routes."""
@@ -375,8 +450,9 @@ def run_main_path(dev, card: str):
     fns = counters()
     total = {k: 0 for k in fns}
     total_tc = {k: 0 for k in TC_ROUTES}
-    for dtype in ("float32", "bfloat16"):
-        cfg = FARConfig(solver=SolverOptions(minimal_solver="8pt"), dtype=dtype)
+    for dtype, solver in MAIN_RUNS:
+        cfg = FARConfig(dtype=dtype) if solver == FARConfig().solver.minimal_solver \
+            else FARConfig(solver=SolverOptions(minimal_solver=solver), dtype=dtype)
         per_req = {"K1_loftr_layer": 2 * len(cfg.coarse.layer_names)
                    + 4 * cfg.regress.num_loftr_layers,
                    "K2_dual_softmax_rowcol": 1, "K3_fine_transformer": 1,
@@ -403,13 +479,13 @@ def run_main_path(dev, card: str):
         counts_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
         for k, want in per_req.items():
             if counts[k] != want * N_REQUESTS:
-                fail(f"{dtype}: {k} launched {counts[k]} times, expected "
+                fail(f"{dtype} {solver}: {k} launched {counts[k]} times, expected "
                      f"{want * N_REQUESTS} ({want} per request)")
             total[k] += counts[k]
         for k, dtypes in TC_ROUTES.items():
             want = per_req[k] * N_REQUESTS if dtype in dtypes else 0
             if counts_tc[k] != want:
-                fail(f"{dtype}: {k} tensor-core route launched {counts_tc[k]} "
+                fail(f"{dtype} {solver}: {k} tensor-core route launched {counts_tc[k]} "
                      f"times, expected {want}")
             total_tc[k] += counts_tc[k]
         for out in outs:
@@ -421,7 +497,7 @@ def run_main_path(dev, card: str):
                     tuple(out.matches.mkpts1_f.shape) != (B_REQUEST, cfg.match.max_matches, 2):
                 fail(f"{dtype}: unexpected output shapes")
         ms = statistics.median(times)
-        print(f"far_forward {dtype} B={B_REQUEST} 480x640: ms/request median "
+        print(f"far_forward {dtype} {solver} B={B_REQUEST} 480x640: ms/request median "
               f"{ms:.2f} (runs {[round(t, 2) for t in times]}), "
               f"pairs/s {B_REQUEST * 1e3 / ms:.2f}, launches {counts}, "
               f"tensor-core route launches {counts_tc}, "
@@ -489,8 +565,9 @@ def small_agreement(dev):
              f"expec_f {expec_err}")
 
 
-def solver_guard(dev):
-    """Phase 6: 16 synthetic scenes, 0.5 px noise, port's first-round solver."""
+def solver_guard(dev, minimal_solver: str):
+    """Phase 6: 16 synthetic scenes, 0.5 px noise, the port's first-round
+    solver. Returns the median rotation error in degrees."""
     import numpy as np
     import torch
 
@@ -498,7 +575,7 @@ def solver_guard(dev):
     from far_tpu_torch.solvers.pose_estimation import estimate_pose
     from far_tpu_torch.utils.config import FARConfig, SolverOptions
 
-    cfg = FARConfig(solver=SolverOptions(minimal_solver="8pt"))
+    cfg = FARConfig(solver=SolverOptions(minimal_solver=minimal_solver))
     B, Npts = 16, 512
     rng = np.random.default_rng(0)
     pts3 = rng.uniform([-2, -2, 3], [2, 2, 8], (B, Npts, 3)).astype(np.float32)
@@ -534,10 +611,78 @@ def solver_guard(dev):
     cosang = (np.einsum("bij,bij->b", R_est, R_gt.astype(np.float64)) - 1.0) / 2.0
     r_err = np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0)))
     med = float(np.median(r_err))
-    print(f"solver guard: 16 scenes, 0.5 px noise, 8-point: median rotation "
-          f"error {med:.4f} deg (max {float(r_err.max()):.4f})", flush=True)
+    print(f"solver guard: 16 scenes, 0.5 px noise, {minimal_solver}: median "
+          f"rotation error {med:.4f} deg (max {float(r_err.max()):.4f})", flush=True)
     if not med < 1.0:
-        fail(f"solver median rotation error {med} deg >= 1 deg")
+        fail(f"{minimal_solver} solver median rotation error {med} deg >= 1 deg")
+    return med
+
+
+def minimal_problems(dev, n: int = 64) -> float:
+    """Phase 6: the 5-point solver on n exact minimal problems (as
+    tests/test_fivepoint.py builds them): the share with a valid candidate
+    aligned with the true E (|cos| > 0.999), which must reach 85 %."""
+    import numpy as np
+    import torch
+
+    from far_tpu_torch.geometry.fivepoint import run_5point_essential
+
+    p1s, p2s, Es = [], [], []
+    for seed in range(n):
+        rng = np.random.default_rng(seed)
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        R = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+        t = rng.normal(size=3)
+        t /= np.linalg.norm(t)
+        P = rng.uniform(-1, 1, (5, 3))
+        P[:, 2] = rng.uniform(2, 6, 5)
+        P2 = P @ R.T + t
+        p1s.append(P[:, :2] / P[:, 2:3])
+        p2s.append(P2[:, :2] / P2[:, 2:3])
+        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        Es.append(tx @ R)
+    with torch.inference_mode():
+        E, valid = run_5point_essential(
+            torch.tensor(np.stack(p1s), dtype=torch.float32, device=dev),
+            torch.tensor(np.stack(p2s), dtype=torch.float32, device=dev))
+    E, valid = E.double().cpu().numpy(), valid.cpu().numpy()
+    Egt = np.stack(Es)
+    cos = np.abs((E * Egt[:, None]).sum((-2, -1))) / (
+        np.linalg.norm(E, axis=(-2, -1)) * np.linalg.norm(Egt, axis=(-2, -1))[:, None])
+    share = float((np.where(valid, cos, 0).max(-1) > 0.999).mean())
+    print(f"5-point minimal solver: {n} exact problems on the card, "
+          f"{share * 100:.1f} % recovered exactly, {valid.sum(-1).mean():.2f} "
+          f"valid candidates a problem", flush=True)
+    if share < 0.85:
+        fail(f"5-point solver recovered {share:.3f} of exact problems (< 0.85)")
+    return share
+
+
+def network_guard(dev) -> dict:
+    """Phase 7: the trained tiny checkpoint through far_forward on the
+    card, float32 and bfloat16; each median must stay under the JAX
+    package's gate max(3 x the trained median, 5 deg) (bench.py)."""
+    import torch
+
+    from far_tpu_torch.tools.guard import gate_deg, guard_eval, load_guard
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model, meta = load_guard(dtype=dtype, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        errs, med = guard_eval(model, seed=meta["eval_seed"], generator=gen)
+        gate = gate_deg(meta)
+        print(f"network guard {dtype}: median rotation error {med:.4f} deg over "
+              f"{len(errs)} pairs (max {float(errs.max()):.4f}; trained "
+              f"{meta['eval_rot_err_med_deg']} deg, gate {gate:.2f} deg)", flush=True)
+        if not med < gate:
+            fail(f"network guard {dtype}: median {med} deg >= gate {gate} deg")
+        out[dtype] = med
+    return out
 
 
 def main() -> int:
@@ -564,7 +709,10 @@ def main() -> int:
     entries = check_kernels(dev)
     launches, launches_tc = run_main_path(dev, card)
     small_agreement(dev)
-    solver_guard(dev)
+    for minimal_solver in ("5pt", "8pt"):
+        solver_guard(dev, minimal_solver)
+    minimal_problems(dev)
+    network_guard(dev)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -589,6 +737,8 @@ def main() -> int:
             "dtype": main, other: entries[name][other]})
         if name in launches_tc:
             kernels[-1]["launches_tc"] = launches_tc[name]
+        if "cuda_core_shapes" in entries[name]:
+            kernels[-1]["cuda_core_shapes"] = entries[name]["cuda_core_shapes"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

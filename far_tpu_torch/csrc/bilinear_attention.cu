@@ -6,12 +6,14 @@
 // F = v^T A v (Dv x Dv, f32). A is never stored: at N=4800 one head's A
 // is 92 MB of f32.
 //
-// float32 route (far_bilinear_dual_softmax), on the CUDA cores: a
-// statistics pass over 64x64 tiles of S (shared with K2, common.cuh)
-// gives the row and column (max, sum of exp); then one block per (head,
-// 64-column tile) walks every row tile, rebuilds its tile of A and
-// accumulates G[:, tile] = v^T A in f32 in shared memory, and ends with
-// its partial F = G v[tile]. A small kernel sums the partials in order.
+// CUDA-core route (far_bilinear_dual_softmax; float32, and bfloat16 with
+// D > 64 or Dv > 72): a statistics pass over 64x64 tiles of S (shared
+// with K2, common.cuh) gives the row and column (max, sum of exp); then
+// one block per (head, 64-column tile) walks every row tile, rebuilds its
+// tile of A and accumulates G[:, tile] = v^T A in f32 in shared memory,
+// and ends with its partial F = G v[tile]. A small kernel sums the
+// partials in order. In bf16 it rounds P = softmax_r * exp(S - cmax) and
+// H = G / csum to bf16, as the TPU kernel does (:77, :91).
 //
 // bfloat16 route (far_bilinear_dual_softmax_tc), three launches, the
 // products on the tensor cores (wgmma, hopper.cuh), tiles staged by
@@ -45,6 +47,8 @@
 // transposed by the wrapper (wgmma N must be a multiple of 8); narrower
 // q and k (D < 64) are padded to 64 with zero columns, which change no
 // element of S.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -91,7 +95,10 @@ bilinear_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       if (r < nr && c < nc) {
         const float s = st[r][c];
         const int n = row0 + r, m = col0 + c;
-        a = (expf(s - rm[n]) / rs[n]) * (expf(s - cm[m]) / cs[m]);
+        if (std::is_same<T, float>::value)
+          a = (expf(s - rm[n]) / rs[n]) * (expf(s - cm[m]) / cs[m]);
+        else  // P, rounded; 1 / csum applies to H below
+          a = rnd<T>((expf(s - rm[n]) / rs[n]) * expf(s - cm[m]));
       }
       st[r][c] = a;
     }
@@ -108,6 +115,12 @@ bilinear_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int e = threadIdx.x; e < TN * Dv; e += NT) {
     const int c = e / Dv, w = e % Dv;
     vt[e] = c < nc ? to_f<T>(vb[(size_t)(col0 + c) * Dv + w]) : 0.f;
+  }
+  if (!std::is_same<T, float>::value) {  // H = G / csum, rounded
+    for (int e = threadIdx.x; e < Dv * TN; e += NT) {
+      const int c = e % TN;
+      G[e] = c < nc ? rnd<T>(G[e] / cs[col0 + c]) : 0.f;
+    }
   }
   __syncthreads();
   float* out = fpart + ((size_t)bh * nct + blockIdx.x) * Dv * Dv;
@@ -176,13 +189,19 @@ extern "C" size_t far_bilinear_scratch(int BH, int N, int Dv) {
   return layout(nullptr, BH, N, Dv).bytes;
 }
 
-// float32 route. q, k (BH, N, D), v (BH, N, Dv) contiguous; out (BH, Dv,
-// Dv) float32.
+// CUDA-core route. q, k (BH, N, D), v (BH, N, Dv) contiguous, in the
+// storage type; out (BH, Dv, Dv) float32. dtype: 0 = float32,
+// 1 = bfloat16.
 extern "C" int far_bilinear_dual_softmax(const void* q, const void* k, const void* v, void* out,
-                                         void* scratch, int BH, int N, int D, int Dv, float scale,
-                                         void* stream) {
-  return run<float>((const float*)q, (const float*)k, (const float*)v, (float*)out,
-                    (char*)scratch, BH, N, D, Dv, scale, (cudaStream_t)stream);
+                                         void* scratch, int BH, int N, int D, int Dv, int dtype,
+                                         float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return run<float>((const float*)q, (const float*)k, (const float*)v, (float*)out,
+                      (char*)scratch, BH, N, D, Dv, scale, st);
+  using bf = __nv_bfloat16;
+  return run<bf>((const bf*)q, (const bf*)k, (const bf*)v, (float*)out, (char*)scratch, BH, N,
+                 D, Dv, scale, st);
 }
 
 // ---------------------------------------------------------------------------

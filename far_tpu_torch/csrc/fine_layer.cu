@@ -11,13 +11,16 @@
 // ~35 GFLOP per pair on ~26 MB of tokens in and out.
 //
 // CUDA-core route (far_fine_transformer; float32, and bf16 shapes outside
-// FAR_K3_TC_SHAPES): one block owns WPB windows (R = WPB*s <= 64 rows per
-// tile), holds both images' tokens and the layer's intermediates in
-// shared memory as f32 (about 145 KB at C=128) and streams the weights
-// from L2 through the same 64x64 tile product as K1 (common.cuh). Per
-// window and head, KV = k^T v and sum(k) are reduced in shared memory;
-// the message, LayerNorm and residual never touch device memory. Values
-// round to the storage type where the TPU kernel casts them.
+// FAR_K3_TC_SHAPES): one block owns wpb windows (R = wpb*s rows), holds
+// both images' tokens and the layer's intermediates in shared memory as
+// f32, 4 (5 R C + wpb H (d^2 + d)) bytes (about 145 KB at C=128, s=25,
+// wpb=2), and streams the weights from L2 through the same 64x64 tile
+// product as K1 (common.cuh). wpb is 2 where that fits the card's
+// per-block limit and 1 where it does not (C >= 192 at s=25, C=128 at
+// s=81), chosen at run time. Per window and head, KV = k^T v and sum(k)
+// are reduced in shared memory; the message, LayerNorm and residual never
+// touch device memory. Values round to the storage type where the TPU
+// kernel casts them.
 //
 // bfloat16 route (far_fine_transformer_tc), one launch, every product on
 // the tensor cores (wgmma, hopper.cuh), weights streamed through two
@@ -67,7 +70,7 @@ using namespace far;
 
 namespace {
 
-constexpr int WPB = 2;  // windows per block
+constexpr int WPB_MAX = 2;  // windows per block where they fit
 
 enum Epi { EPI_NONE = 0, EPI_ELU1 = 1, EPI_DIV = 2, EPI_RELU = 3 };
 
@@ -118,7 +121,7 @@ __device__ void block_ln(float* z, int R, int C, const float* ln, float* rows, b
   __syncthreads();
 }
 
-// One LoFTR encoder layer, X <- layer(X, Y), on R rows of WPB windows.
+// One LoFTR encoder layer, X <- layer(X, Y), on R rows of whole windows.
 template <typename T>
 __device__ void layer(float* X, const float* Y, float* P1, float* P2, float* KV, const T* w,
                       const float* ln, int R, int s, int C, int H, TileSmem& sm) {
@@ -179,11 +182,11 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 fine_kernel(const T* __restrict__ f0, const T* __restrict__ f1, const T* __restrict__ w,
             const float* __restrict__ ln, T* __restrict__ out0, T* __restrict__ out1, int n, int s,
-            int C, int H, int n_layers, int cross_mask) {
+            int C, int H, int n_layers, int cross_mask, int wpb) {
   extern __shared__ float sh[];
   __shared__ TileSmem sm;
-  const int R = WPB * s;
-  const int w0 = blockIdx.x * WPB, nwin = min(WPB, n - w0);
+  const int R = wpb * s;
+  const int w0 = blockIdx.x * wpb, nwin = min(wpb, n - w0);
   const size_t base = (size_t)w0 * s * C;
   const int nvalid = nwin * s * C;
   float* X0 = sh;
@@ -218,13 +221,25 @@ template <typename T>
 int run(const T* f0, const T* f1, const T* w, const float* ln, T* out0, T* out1, int n, int s,
         int C, int H, int n_layers, int cross_mask, cudaStream_t st) {
   if (C % H != 0 || n_layers > 30) return (int)cudaErrorInvalidValue;
-  const int d = C / H, R = WPB * s;
-  const size_t smem = sizeof(float) * ((size_t)5 * R * C + (size_t)WPB * H * (d * d + d));
-  cudaError_t err = cudaFuncSetAttribute(fine_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int d = C / H;
+  auto smem = [&](int wpb) {
+    return sizeof(float) * ((size_t)5 * wpb * s * C + (size_t)wpb * H * (d * d + d));
+  };
+  // dynamic shared memory a block may take beside the static TileSmem
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  fine_kernel<T><<<(n + WPB - 1) / WPB, NT, smem, st>>>(f0, f1, w, ln, out0, out1, n, s, C, H,
-                                                        n_layers, cross_mask);
+  const size_t limit = (size_t)optin - sizeof(TileSmem);
+  int wpb = WPB_MAX;
+  while (wpb > 1 && smem(wpb) > limit) --wpb;
+  if (smem(wpb) > limit) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(fine_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem(wpb));
+  if (err != cudaSuccess) return (int)err;
+  fine_kernel<T><<<(n + wpb - 1) / wpb, NT, smem(wpb), st>>>(f0, f1, w, ln, out0, out1, n, s, C,
+                                                             H, n_layers, cross_mask, wpb);
   return (int)cudaGetLastError();
 }
 

@@ -11,12 +11,15 @@
 // against ~7 MB of tokens in and out, far above the card's ridge point
 // (6.6 us per pair at 989 TFLOP/s bf16, 97 us at 67 TFLOP/s f32).
 //
-// float32 route (far_loftr_layer): the TPU kernel keeps one batch
-// element in VMEM; an SM's 227 KB cannot, so the layer is a chain of 11
-// launches on the CUDA cores: tiled products (64x64 tiles over all B*L
-// rows, epilogues elu+1 / 1/S / relu fused), a per-head k^T v reduction
-// split over row chunks with deterministic partial sums, a message kernel
-// with the head's KV in shared memory, and LayerNorm(+residual) kernels.
+// CUDA-core route (far_loftr_layer; float32, and bfloat16 shapes outside
+// FAR_K1_TC_SHAPES, such as C = 32 or a head width of 24): the TPU kernel
+// keeps one batch element in VMEM; an SM's 227 KB cannot, so the layer is
+// a chain of 11 launches on the CUDA cores: tiled products (64x64 tiles
+// over all B*L rows, epilogues elu+1 / 1/S / relu fused), a per-head
+// k^T v reduction split over row chunks with deterministic partial sums,
+// a message kernel with the head's KV in shared memory, and
+// LayerNorm(+residual) kernels. In bf16 the products accumulate in f32
+// and the intermediates round where the TPU kernel casts them.
 //
 // bfloat16 route (far_loftr_layer_tc), three launches, every product on
 // the tensor cores (wgmma, hopper.cuh), operands staged by cp.async:
@@ -159,7 +162,12 @@ msg_kernel(const T* __restrict__ q, const float* __restrict__ kv, int L, int S, 
   float* qs = sh + H * nel;        // (MSG_ROWS, C)
   const int b = blockIdx.y, r0 = blockIdx.x * MSG_ROWS;
   const int nr = min(MSG_ROWS, L - r0);
-  for (int e = threadIdx.x; e < H * nel; e += NT) kvs[e] = kv[(size_t)b * H * nel + e];
+  // KV rounds to the storage type where the TPU kernel casts it (:72);
+  // sum(k) stays f32
+  for (int e = threadIdx.x; e < H * nel; e += NT) {
+    const float a = kv[(size_t)b * H * nel + e];
+    kvs[e] = e % nel < d * d ? rnd<T>(a) : a;
+  }
   for (int e = threadIdx.x; e < MSG_ROWS * C; e += NT) {
     const int r = e / C;
     qs[e] = r < nr ? to_f<T>(q[((size_t)b * L + r0) * C + e]) : 0.f;
@@ -273,21 +281,30 @@ int run(const T* x, const T* src, const T* wq, const T* wk, const T* wv, const T
 
 }  // namespace
 
-extern "C" size_t far_loftr_layer_scratch(int B, int L, int S, int C, int H) {
-  return layout(nullptr, 4, B, L, S, C, H).bytes;
+extern "C" size_t far_loftr_layer_scratch(int dtype, int B, int L, int S, int C, int H) {
+  return layout(nullptr, dtype == 0 ? 4 : 2, B, L, S, C, H).bytes;
 }
 
-// float32 route. x (B, L, C), src (B, S, C); wq/wk/wv/wm (C, C), w0
-// (2C, 2C), w1 (C, 2C) torch Linear weights; ln1/ln2 (2, C) [weight;
-// bias].
+// CUDA-core route: float32, and the bfloat16 shapes outside
+// FAR_K1_TC_SHAPES. x (B, L, C), src (B, S, C); wq/wk/wv/wm (C, C), w0
+// (2C, 2C), w1 (C, 2C) torch Linear weights in the storage type; ln1/ln2
+// (2, C) float32 [weight; bias]. dtype: 0 = float32, 1 = bfloat16 (every
+// product accumulates in f32; q, k, v, KV, msg, m, y and out round to
+// bf16 where the TPU kernel casts them).
 extern "C" int far_loftr_layer(const void* x, const void* src, const void* wq, const void* wk,
                                const void* wv, const void* wm, const void* w0, const void* w1,
                                const void* ln1, const void* ln2, void* out, void* scratch,
-                               int B, int L, int S, int C, int H, void* stream) {
-  return run<float>((const float*)x, (const float*)src, (const float*)wq, (const float*)wk,
-                    (const float*)wv, (const float*)wm, (const float*)w0, (const float*)w1,
-                    (const float*)ln1, (const float*)ln2, (float*)out, (char*)scratch, B, L, S,
-                    C, H, (cudaStream_t)stream);
+                               int B, int L, int S, int C, int H, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return run<float>((const float*)x, (const float*)src, (const float*)wq, (const float*)wk,
+                      (const float*)wv, (const float*)wm, (const float*)w0, (const float*)w1,
+                      (const float*)ln1, (const float*)ln2, (float*)out, (char*)scratch, B, L,
+                      S, C, H, st);
+  using bf = __nv_bfloat16;
+  return run<bf>((const bf*)x, (const bf*)src, (const bf*)wq, (const bf*)wk, (const bf*)wv,
+                 (const bf*)wm, (const bf*)w0, (const bf*)w1, (const float*)ln1,
+                 (const float*)ln2, (bf*)out, (char*)scratch, B, L, S, C, H, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Essential-matrix algebra and epipolar residuals.
 
-Counterpart of the parts of ``far_tpu/geometry/epipolar.py`` the
-8-point RANSAC path uses. The residuals are written as broadcast
-arithmetic, so (B, H, N) hypothesis x point grids never build (B, H, N,
-3) intermediates.
+Counterpart of the parts of ``far_tpu/geometry/epipolar.py`` that RANSAC
+uses. The residuals are written as broadcast arithmetic, so (B, H, N)
+hypothesis x point grids never build (B, H, N, 3) intermediates.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -48,3 +49,30 @@ def symmetrical_epipolar_distance(pts1, pts2, Fm, eps: float = 1e-8):
     num, a, b, d, e = _epipolar_terms(pts1, pts2, Fm)
     inv = 1.0 / (a ** 2 + b ** 2 + eps) + 1.0 / (d ** 2 + e ** 2 + eps)
     return num ** 2 * inv
+
+
+def decompose_essential_matrix(
+        E: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SVD decomposition E = U diag(1, 1, 0) V^T into R1 = U W V^T,
+    R2 = U W^T V^T and t = u3, with U and V^T sign-fixed to proper
+    rotations. E (..., 3, 3) -> (R1, R2, t)."""
+    U, _, Vh = torch.linalg.svd(E)
+    one = torch.ones(E.shape[:-2] + (2,), dtype=E.dtype, device=E.device)
+
+    def flip(M):  # -1 on the last singular vector where det(M) < 0
+        sign = torch.where(torch.linalg.det(M) < 0.0, -1.0, 1.0).to(E.dtype)
+        return torch.cat([one, sign[..., None]], dim=-1)
+
+    U = U * flip(U)[..., None, :]
+    Vh = Vh * flip(Vh)[..., :, None]
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    return U @ W @ Vh, U @ W.t() @ Vh, U[..., :, -1]
+
+
+def motion_from_essential(E: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four candidate motions [R1,+t], [R1,-t], [R2,+t], [R2,-t] of the
+    SVD decomposition: Rs (..., 4, 3, 3), ts (..., 4, 3)."""
+    R1, R2, t = decompose_essential_matrix(E)
+    return (torch.stack([R1, R1, R2, R2], dim=-3),
+            torch.stack([t, -t, t, -t], dim=-2))

@@ -1,11 +1,12 @@
-"""Weighted 8-point solver, SVD-free decomposition and cheirality vote.
+"""Weighted 8-point solver, essential decompositions and cheirality vote.
 
-Counterpart of the ``linalg='fast'`` 8-point path of
-``far_tpu/geometry/solvers.py``: Hartley normalization, the DLT normal
-equations solved by inverse iteration (``impl='power'``) or
-``torch.linalg.eigh`` (``impl='eigh'``, the polish step), the adjugate
-decomposition of E and the recoverPose cheirality vote. Everything is
-batched over leading axes; invalid correspondences carry weight 0.
+Counterpart of the solver parts of ``far_tpu/geometry/solvers.py``:
+Hartley normalization, the DLT normal equations solved by inverse
+iteration (``impl='power'``) or ``torch.linalg.eigh`` (``impl='eigh'``,
+the polish step and ``linalg='exact'``), the SVD-free adjugate
+decomposition of E, and the recoverPose cheirality vote over the fast or
+the SVD decomposition. Everything is batched over leading axes; invalid
+correspondences carry weight 0.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from far_tpu_torch.geometry.epipolar import cross_product_matrix
+from far_tpu_torch.geometry.epipolar import (
+    cross_product_matrix,
+    motion_from_essential,
+)
 from far_tpu_torch.geometry.rotations import (
     matrix_to_rotation_6d,
     rotation_6d_to_matrix,
@@ -183,11 +187,16 @@ def cheirality_counts(Rs, ts, x1, x2, weights=None,
 
 
 def recover_pose_from_essential(E, x1, x2, weights=None,
-                                distance_thresh: float = 1e9):
-    """E -> best (R, t) by the cheirality vote (recoverPose), with the
-    SVD-free decomposition (``method='fast'`` of the JAX package).
-    Returns R (..., 3, 3), t (..., 3), n_good (...,), good (..., N)."""
-    Rs, ts = fast_motion_from_essential(E)
+                                distance_thresh: float = 1e9,
+                                method: str = "svd"):
+    """E -> best (R, t) by the cheirality vote (recoverPose) over the four
+    motions of the SVD decomposition (``method='svd'``) or of the SVD-free
+    one (``'fast'``). Returns R (..., 3, 3), t (..., 3), n_good (...,),
+    good (..., N)."""
+    if method == "fast":
+        Rs, ts = fast_motion_from_essential(E)
+    else:
+        Rs, ts = motion_from_essential(E)
     counts, good = cheirality_counts(Rs, ts, x1, x2, weights, distance_thresh)
     best = counts.argmax(dim=-1)  # first index on ties, as jnp.argmax
 

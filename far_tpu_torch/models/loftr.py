@@ -1,16 +1,19 @@
 """FARLoFTR: the LoFTR matcher + FAR regressor (eval).
 
 Counterpart of ``far_tpu/models/loftr.py:FARLoFTR`` (``match``,
-``regress_features``, ``regress_fuse``). Child modules carry the
-reference's names (``backbone``, ``loftr_coarse``, ``fine_preprocess``,
-``loftr_fine``, ``loftr_regress``), so a reference state dict with its
-``matcher.`` prefix stripped loads with ``strict=True``.
+``regress_features``, ``regress_fuse``) and of its
+``TranslationScaleHead``. Child modules carry the reference's names
+(``backbone``, ``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``,
+``loftr_regress``), so a reference state dict with its ``matcher.``
+prefix stripped loads with ``strict=True``; the optional scale head is
+``ts_head``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from far_tpu_torch.models.backbone import ResNetFPN_8_2
 from far_tpu_torch.models.constants import compute_normalized_6d
@@ -21,7 +24,7 @@ from far_tpu_torch.models.fine import (
 )
 from far_tpu_torch.models.matching import coarse_match
 from far_tpu_torch.models.position import add_sine_position_encoding
-from far_tpu_torch.models.regressor import PoseRegressorEMM
+from far_tpu_torch.models.regressor import PoseRegressorEMM, lin
 from far_tpu_torch.models.transformer import LocalFeatureTransformer
 from far_tpu_torch.types import MatcherOutput, MatchResult, PairBatch, SolverSummary
 from far_tpu_torch.utils.config import FARConfig
@@ -31,6 +34,41 @@ def compute_dtype(cfg: FARConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+class TranslationScaleHead(nn.Module):
+    """Metric translation scale (B,) float32 from the backbone's coarse maps
+    of both images: per image 2x2 max-pool, 1x1 conv 128 + relu, 2x2
+    max-pool, 1x1 convs 64 and 16 + relu (weights shared by the two
+    images), then an MLP 512-512-1 over both flattened maps. The maps are
+    flattened in (h, w, c) order, as the JAX package's NHWC maps are, so
+    its ``fc1`` weights line up."""
+
+    def __init__(self, c_in: int, coarse_hw):
+        super().__init__()
+        h, w = coarse_hw[0] // 4, coarse_hw[1] // 4
+        self.c1 = nn.Conv2d(c_in, 128, 1)
+        self.c2 = nn.Conv2d(128, 64, 1)
+        self.c3 = nn.Conv2d(64, 16, 1)
+        self.fc1 = nn.Linear(2 * 16 * h * w, 512)
+        self.fc2 = nn.Linear(512, 512)
+        self.fc3 = nn.Linear(512, 1)
+
+    def _shrink(self, x: torch.Tensor) -> torch.Tensor:
+        def conv(m, t):
+            return F.conv2d(t, m.weight.to(t.dtype), m.bias.to(t.dtype))
+
+        x = F.relu(conv(self.c1, F.max_pool2d(x, 2)))
+        x = F.relu(conv(self.c2, F.max_pool2d(x, 2)))
+        x = F.relu(conv(self.c3, x))
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor) -> torch.Tensor:
+        """feat_c0/feat_c1 (B, C, h, w) -> (B,) float32."""
+        y = torch.cat([self._shrink(feat_c0), self._shrink(feat_c1)], dim=-1)
+        y = F.relu(lin(self.fc1, y))
+        y = F.relu(lin(self.fc2, y))
+        return lin(self.fc3, y)[..., 0].float()
+
+
 class FARLoFTR(nn.Module):
     def __init__(self, cfg: FARConfig):
         super().__init__()
@@ -38,8 +76,6 @@ class FARLoFTR(nn.Module):
             raise NotImplementedError("the port has the 8/2 backbone only")
         if cfg.match.match_type != "dual_softmax":
             raise NotImplementedError("the port has dual-softmax matching only")
-        if cfg.predict_translation_scale:
-            raise NotImplementedError("TranslationScaleHead is not ported yet")
         if cfg.backbone.norm != "batch":
             raise NotImplementedError("the port has BatchNorm only")
         for stack in (cfg.coarse, cfg.fine):
@@ -57,6 +93,9 @@ class FARLoFTR(nn.Module):
             window_tokens=cfg.fine.window_size ** 2)
         if cfg.regress_rt:
             self.loftr_regress = PoseRegressorEMM(cfg.regress, cfg.coarse_hw)
+        if cfg.predict_translation_scale:
+            self.ts_head = TranslationScaleHead(cfg.backbone.block_dims[2],
+                                                cfg.coarse_hw)
 
     def coarse_features(self, image0: torch.Tensor, image1: torch.Tensor):
         """Backbone + position encoding + coarse transformer.
@@ -88,8 +127,12 @@ class FARLoFTR(nn.Module):
         """Backbone + coarse transformer + coarse/fine matching."""
         cfg = self.config
         hc, wc = cfg.coarse_hw
-        _, feat_f0, feat_f1, t0, t1 = self.coarse_features(
+        feat_c, feat_f0, feat_f1, t0, t1 = self.coarse_features(
             batch.image0, batch.image1)
+        B = batch.image0.shape[0]
+        translation_scale = None
+        if cfg.predict_translation_scale:  # from the maps before the transformer
+            translation_scale = self.ts_head(feat_c[:B], feat_c[B:])
         i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = coarse_match(
             t0, t1, (hc, wc), (hc, wc), float(cfg.backbone.resolution[0]),
             cfg.match, scale0=batch.scale0, scale1=batch.scale1)
@@ -102,7 +145,8 @@ class FARLoFTR(nn.Module):
             i_ids=i_ids, j_ids=j_ids, mconf=mconf, valid=valid,
             mkpts0=mkpts0, mkpts1=mkpts1, mkpts0_f=mkpts0, mkpts1_f=mkpts1_f,
             expec_f=expec_f)
-        return MatcherOutput(matches=matches, feat_c0=t0, feat_c1=t1)
+        return MatcherOutput(matches=matches, feat_c0=t0, feat_c1=t1,
+                             translation_scale=translation_scale)
 
     def solver_pose_in(self, summary: SolverSummary) -> torch.Tensor:
         """Normalized 9D solver pose + correspondence counts / 500."""

@@ -6,8 +6,11 @@ F = v^T (softmax_rows(S) * softmax_cols(S)) v with S = scale q k^T, a
 (Dv, Dv) float32 matrix; the (N, N) attention is never stored. The CUDA
 source is ``far_tpu_torch/csrc/bilinear_attention.cu``. Two routes:
 
-- float32, on the CUDA cores: a row/column statistics pass over 64x64
-  tiles of S, then G = v^T A accumulated in shared memory per 64 columns.
+- CUDA cores: a row/column statistics pass over 64x64 tiles of S, then
+  G = v^T A accumulated in shared memory per 64 columns. It takes
+  float32, and the bfloat16 shapes the tensor-core route is not built
+  for (D > 64, Dv > 72 or scale <= 0, chosen by shape before any launch);
+  in bfloat16 it rounds P and H = G / csum to bf16 as the TPU kernel does.
 - bfloat16, on the tensor cores (wgmma, cp.async), three launches: a
   row-statistics pass, a main pass that keeps the running column max
   and sum per key column with the TPU kernel's rescale and feeds
@@ -80,13 +83,12 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require(q.is_contiguous() and k.is_contiguous()
                    and v.is_contiguous(), "q, k, v must be contiguous")
     out = torch.empty((B, H, Dv, Dv), dtype=torch.float32, device=q.device)
+    tc = False
     if code == 1:
         width = _build.bind_size("bilinear_attention", "far_bilinear_tc_width", 1)
         d_tc, dv_tc = width(0), width(1)
-        _build.require(D <= d_tc and Dv <= dv_tc and scale > 0,
-                       f"the bfloat16 route takes D <= {d_tc}, Dv <= {dv_tc} "
-                       f"and scale > 0, got q {tuple(q.shape)}, v "
-                       f"{tuple(v.shape)}, scale {scale}")
+        tc = D <= d_tc and Dv <= dv_tc and scale > 0
+    if tc:
         if D < d_tc:
             q, k = pad_columns(q, d_tc), pad_columns(k, d_tc)
         # v^T (B, H, dv_tc, ldn), zero past Dv and past N (ldn: N to a
@@ -104,10 +106,10 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         size = _build.bind_size("bilinear_attention", "far_bilinear_scratch", 3)
         fn = _build.bind("bilinear_attention", "far_bilinear_dual_softmax",
-                         5, 4, 1)
+                         5, 5, 1)
         scratch = _build.scratch(size(B * H, N, Dv), q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), B * H, N, D, Dv, float(scale),
+                 scratch.data_ptr(), B * H, N, D, Dv, code, float(scale),
                  _build.stream_of(q))
         _build.check(err, "bilinear_dual_softmax")
     bilinear_dual_softmax.launches += 1
@@ -115,4 +117,4 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 bilinear_dual_softmax.launches = 0     # launches of either route
-bilinear_dual_softmax.launches_tc = 0  # launches of the bfloat16 tensor-core route
+bilinear_dual_softmax.launches_tc = 0  # launches of the tensor-core route (bfloat16)

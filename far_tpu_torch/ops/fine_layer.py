@@ -9,7 +9,8 @@ confined to each s-token window. The kernel is bound by operations
 
 - float32, and bfloat16 shapes outside the tensor-core set: the CUDA
   cores, a block keeping 2 windows in shared memory as f32 through all
-  four applications.
+  four applications, or 1 where 2 do not fit (C >= 192 at s = 25, C =
+  128 at s = 81; the kernel asks the card's per-block limit).
 - bfloat16 with C in {64, 128}, a head width of 16, 32 or 64 and s <= 64
   (``FAR_K3_TC_SHAPES``, asked through
   ``far_fine_transformer_tc_supports`` before any launch): the tensor

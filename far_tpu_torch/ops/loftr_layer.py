@@ -5,10 +5,13 @@ Replaces ``far_tpu/ops/loftr_layer.py:fused_loftr_layer`` (its
 ``far_tpu_torch/csrc/loftr_layer.cu``. The layer is bound by operations
 (~6.5 GFLOP per pair at L=S=4800, C=256). Two routes:
 
-- float32: 11 launches on the CUDA cores (tiled products, a k^T v
-  reduction, a message kernel, LayerNorms), intermediates in device
-  memory.
-- bfloat16: 3 launches on the tensor cores (wgmma, cp.async): a k^T v
+- CUDA cores, 11 launches (tiled products, a k^T v reduction, a message
+  kernel, LayerNorms), intermediates in device memory: float32, and the
+  bfloat16 shapes the tensor-core route is not built for (C = 32 or 96,
+  a head width of 24, ...), chosen by that shape check before any
+  launch. In bfloat16 every product accumulates in float32 and q, k, v,
+  KV, msg, m, y and out round to bf16 where the TPU kernel casts them.
+- bfloat16 on the tensor cores, 3 launches (wgmma, cp.async): a k^T v
   pass over 64-row chunks of src, a fixed-order reduction, and a row
   pass per 128 rows that keeps the x tile, msg and m in shared memory,
   q, y and every accumulator in registers, and streams the weights
@@ -17,8 +20,7 @@ Replaces ``far_tpu/ops/loftr_layer.py:fused_loftr_layer`` (its
   KV, q, msg, m, y and out to bf16, where the TPU kernel casts them;
   sum(k), z and the LayerNorms stay float32. It takes C in {64, 128, 192,
   256} with a head width C / nhead dividing 64 (``FAR_K1_TC_SHAPES`` in
-  the source, asked through ``far_loftr_layer_tc_supports``); other
-  shapes raise.
+  the source, asked through ``far_loftr_layer_tc_supports``).
 
 Weights use torch's Linear layout (out, in), the layout of the modules
 that own them (``models/transformer.py``):
@@ -94,7 +96,8 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
                 nhead: int) -> torch.Tensor:
     """One LoFTR encoder layer: ``x`` (B, L, C) attends to ``source``
     (B, S, C). CPU tensors take the plain version; CUDA tensors launch
-    the float32 or the bfloat16 route of the kernel."""
+    the tensor-core route for the bfloat16 shapes it is built for, else
+    the CUDA-core route."""
     if _build.on_cpu(x, source):
         return loftr_layer_plain(x, source, params, nhead)
     B, L, C = x.shape
@@ -107,33 +110,29 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
     _build.require(C % nhead == 0, f"C={C} not divisible by nhead={nhead}")
     _build.require(x.is_contiguous() and source.is_contiguous(),
                    "x and source must be contiguous")
-    tc = code == 1
-    if tc:
-        supports = _build.bind_size("loftr_layer", "far_loftr_layer_tc_supports", 2)
-        _build.require(supports(C, nhead) == 1,
-                       f"the bfloat16 route does not take x {tuple(x.shape)} "
-                       f"with nhead={nhead} (its shapes: FAR_K1_TC_SHAPES in "
-                       f"csrc/loftr_layer.cu)")
+    tc = code == 1 and _build.bind_size(
+        "loftr_layer", "far_loftr_layer_tc_supports", 2)(C, nhead) == 1
     w = pack_params(params, x.dtype)  # no copies when already packed
     for k, shape in (("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)),
                      ("wm", (C, C)), ("w0", (2 * C, 2 * C)),
                      ("w1", (C, 2 * C)), ("ln1", (2, C)), ("ln2", (2, C))):
         _build.require(tuple(w[k].shape) == shape,
                        f"{k} has shape {tuple(w[k].shape)}, not {shape}")
-    name = "far_loftr_layer_tc" if tc else "far_loftr_layer"
     if tc:
+        name, tail = "far_loftr_layer_tc", ()
         size = _build.bind_size("loftr_layer", "far_loftr_layer_tc_scratch", 4)
         nbytes = size(B, S, C, nhead)
     else:
-        size = _build.bind_size("loftr_layer", "far_loftr_layer_scratch", 5)
-        nbytes = size(B, L, S, C, nhead)
-    fn = _build.bind("loftr_layer", name, 12, 5)
+        name, tail = "far_loftr_layer", (code,)
+        size = _build.bind_size("loftr_layer", "far_loftr_layer_scratch", 6)
+        nbytes = size(code, B, L, S, C, nhead)
+    fn = _build.bind("loftr_layer", name, 12, 5 + len(tail))
     out = torch.empty_like(x)
     scratch = _build.scratch(nbytes, x)
     err = fn(x.data_ptr(), source.data_ptr(),
              *(w[k].data_ptr() for k in WEIGHTS), w["ln1"].data_ptr(),
              w["ln2"].data_ptr(), out.data_ptr(), scratch.data_ptr(),
-             B, L, S, C, nhead, _build.stream_of(x))
+             B, L, S, C, nhead, *tail, _build.stream_of(x))
     _build.check(err, name)
     loftr_layer.launches += 1
     loftr_layer.launches_tc += int(tc)
@@ -141,4 +140,4 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
 
 
 loftr_layer.launches = 0     # launches of either route
-loftr_layer.launches_tc = 0  # launches of the bfloat16 tensor-core route
+loftr_layer.launches_tc = 0  # launches of the tensor-core route (bfloat16)

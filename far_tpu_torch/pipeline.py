@@ -68,12 +68,17 @@ def far_forward(
 
     Round 0 solves without a prior; each of the config's
     ``fine_pred_steps - 1`` later rounds re-solves with the previous
-    fused pose as a prior and re-fuses.
+    fused pose as a prior and re-fuses. With
+    ``predict_translation_scale`` every round's t is scaled by the
+    matcher's predicted scale.
 
     Args:
         generator: the RANSAC sampler's generator (on the model's device).
-        uniforms: optional sampler draws, one (B, H_round, 8) tensor per
-            round, in place of the generator's.
+        uniforms: optional sampler draws in place of the generator's, one
+            (B, n_samples, S) tensor per round: S = 5 and n_samples =
+            max(H // 20, 1) for the 5-point solver, S = 8 and n_samples =
+            H for the 8-point one, H the round's hypothesis budget
+            (``RansacConfig.sampling``).
         prior_pcl: optional (P, 3) probe cloud of the prior rounds.
     """
     cfg = model.config
@@ -94,7 +99,8 @@ def far_forward(
     for i in range(steps):
         est = estimate_pose(
             m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid,
-            prior_rt=prior_rt, cfg=first_cfg if i == 0 else refine_cfg,
+            prior_rt=prior_rt, translation_scale=out.translation_scale,
+            cfg=first_cfg if i == 0 else refine_cfg,
             prior_pcl=prior_pcl,
             uniforms=None if uniforms is None else uniforms[i],
             generator=generator)
@@ -105,7 +111,7 @@ def far_forward(
         R=prior_rt[..., :3, :3], t=prior_rt[..., :3, 3], solver_rt=est.rt34,
         regressed_9d=pose_9d, prior_rt=prior_rt, matches=m,
         num_inliers=est.num_inliers, success=est.success, E=est.E,
-        gating=gate)
+        gating=gate, translation_scale=out.translation_scale)
 
 
 def build_inference_fn(model: FARLoFTR) -> Callable[..., FarOutput]:

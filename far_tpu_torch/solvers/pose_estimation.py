@@ -2,7 +2,8 @@
 
 Counterpart of ``far_tpu/solvers/pose_estimation.py``: normalize the
 keypoints by the intrinsics, choose the threshold and the prior, run one
-RANSAC round. Too few valid matches give ``success=False`` and an
+RANSAC round, and scale t by a predicted metric translation scale when
+one is given. Too few valid matches give ``success=False`` and an
 identity pose.
 """
 
@@ -68,6 +69,7 @@ def estimate_pose(
     K1: torch.Tensor,
     valid: torch.Tensor,
     prior_rt: Optional[torch.Tensor] = None,
+    translation_scale: Optional[torch.Tensor] = None,
     cfg: SolverConfig = SolverConfig(),
     prior_pcl: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
@@ -78,6 +80,7 @@ def estimate_pose(
     Args:
         kpts0/kpts1: (B, N, 2) pixel correspondences; K0/K1: (B, 3, 3).
         valid: (B, N) bool mask; prior_rt: (B, 3, 4) pose prior.
+        translation_scale: (B,) optional metric scale multiplier of t.
         prior_pcl: (P, 3) probe cloud (default: ``default_prior_pcl``).
         uniforms / generator: the sampler's draws (see ``prior_ransac``).
     """
@@ -94,5 +97,8 @@ def estimate_pose(
         f = torch.stack([K0[..., 0, 0], K1[..., 1, 1], K0[..., 0, 0],
                          K1[..., 1, 1]], -1).mean(-1)
         inl_th = (cfg.pixel_thr / f) ** 2
-    return prior_ransac(kp0n, kp1n, valid, prior, cfg.ransac_config(use_prior),
-                        inl_th=inl_th, uniforms=uniforms, generator=generator)
+    est = prior_ransac(kp0n, kp1n, valid, prior, cfg.ransac_config(use_prior),
+                       inl_th=inl_th, uniforms=uniforms, generator=generator)
+    if translation_scale is None:
+        return est
+    return dataclasses.replace(est, t=est.t * translation_scale[..., None])

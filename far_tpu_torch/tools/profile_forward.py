@@ -3,14 +3,17 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 -m far_tpu_torch.tools.profile_forward [--dtype bfloat16] [--batch 4]
+        [--solver 5pt|8pt]
 
-The model is ``FARConfig`` at its defaults (480x640, full width) with the
-8-point solver and random weights from seed 0. After two warm-up
-requests it times one request by stage with CUDA events (backbone,
-coarse transformer, coarse match, fine stage, EMM features, each solver
-round, each MoE fusion, the rest), then traces one more request with
-``torch.profiler`` and prints the device time of the busiest kernels and
-the share of the request's wall time in which the card ran no kernel.
+The model is ``FARConfig`` at its defaults (480x640, full width, the
+5-point solver unless ``--solver 8pt``) with random weights from seed 0.
+After two warm-up requests it times one request by stage with CUDA
+events (backbone, coarse transformer, coarse match, fine stage, EMM
+features, each solver round, each MoE fusion, the rest), then traces one
+more request with ``torch.profiler`` and prints the device time of the
+busiest kernels, the share of the request's wall time in which the card
+ran no kernel, and the kernels launched and their device time inside
+each solver round.
 """
 
 from __future__ import annotations
@@ -84,10 +87,30 @@ def busy_ms(prof) -> float:
     return total / 1e3
 
 
+def round_profile(call):
+    """(kernels launched, their device ms, host ms) of one solver round,
+    traced alone: every kernel in the trace belongs to it (copies and
+    memsets are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    dev_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    return len(kernels), dev_ms, wall
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--solver", default=FARConfig().solver.minimal_solver,
+                    choices=("5pt", "8pt"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
@@ -96,7 +119,7 @@ def main() -> int:
     # would otherwise run f32 convolutions in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = FARConfig(solver=SolverOptions(minimal_solver="8pt"), dtype=args.dtype)
+    cfg = FARConfig(solver=SolverOptions(minimal_solver=args.solver), dtype=args.dtype)
     model = init_model(cfg, seed=0, device=dev)
     fn = build_inference_fn(model)
     batch = synthetic_batch(args.batch, *cfg.image_size, dev)
@@ -114,8 +137,14 @@ def main() -> int:
     model.regress_features = timer.wrap("EMM features (K4)", model.regress_features)
     model.regress_fuse = timer.wrap("MoE fusion", model.regress_fuse)
     saved = (loftr_mod.coarse_match, pipeline_mod.estimate_pose)
+    rounds = []  # each solver round's arguments, replayed alone below
+
+    def solver_round(*a, **kw):
+        rounds.append((a, kw))
+        return saved[1](*a, **kw)
+
     loftr_mod.coarse_match = timer.wrap("coarse match (K2, top-k)", saved[0])
-    pipeline_mod.estimate_pose = timer.wrap("solver round", saved[1])
+    pipeline_mod.estimate_pose = timer.wrap("solver round", solver_round)
     try:
         t0 = time.perf_counter()
         whole = timer.wrap("request", fn)
@@ -125,7 +154,7 @@ def main() -> int:
     finally:
         loftr_mod.coarse_match, pipeline_mod.estimate_pose = saved
     request = stages.pop("request")
-    print(f"far_forward {args.dtype} B={args.batch} {cfg.image_size[0]}x"
+    print(f"far_forward {args.dtype} {args.solver} B={args.batch} {cfg.image_size[0]}x"
           f"{cfg.image_size[1]}: request {request:.3f} ms on the device clock, "
           f"{wall:.3f} ms on the host clock")
     for name, ms in stages.items():
@@ -144,6 +173,12 @@ def main() -> int:
     busy = busy_ms(prof)
     print(f"traced request: {traced:.3f} ms wall, device busy {busy:.3f} ms, "
           f"idle share {1 - busy / traced:.3f}")
+    for i, (a, kw) in enumerate(rounds):
+        with torch.inference_mode():
+            n, dev_ms, wall = round_profile(lambda: saved[1](*a, **kw))
+        print(f"solver round {i} ({kw['cfg'].num_hypotheses} hypotheses, "
+              f"{args.solver}) traced alone: {n} kernels, {dev_ms:.3f} ms of "
+              f"device time, {wall:.3f} ms wall")
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)

@@ -45,6 +45,7 @@ class MatcherOutput:
     matches: MatchResult
     feat_c0: torch.Tensor   # (B, L, C) transformed coarse features
     feat_c1: torch.Tensor   # (B, S, C)
+    translation_scale: Optional[torch.Tensor] = None  # (B,)
 
 
 @dataclasses.dataclass
@@ -73,3 +74,4 @@ class FarOutput:
     success: torch.Tensor           # (B,)
     E: torch.Tensor                 # (B, 3, 3) last solver essential matrix
     gating: Optional[torch.Tensor] = None
+    translation_scale: Optional[torch.Tensor] = None  # (B,)

@@ -7,12 +7,16 @@ state dict (``matcher.`` prefix stripped) loads with ``strict=True``.
 ``flax_to_state_dict`` runs it backwards, turning the JAX package's
 ``{"params", "batch_stats"}`` tree (numpy arrays) into a torch-keyed
 state dict: HWIO -> OIHW for convolutions, (in, out) -> (out, in) for
-linears. ``init_weights`` gives a model deterministic random weights
-from an explicit ``torch.Generator``.
+linears. ``load_flax_npz`` reads such a tree from an ``.npz`` written with
+``jax.tree_util.keystr`` keys (``assets/tiny_guard.npz``), without JAX.
+``init_weights`` gives a model deterministic random weights from an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import ast
+import json
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -186,6 +190,14 @@ def build_loftr_mapping(cfg) -> Tuple[list, list]:
             P += _stack_entries(
                 f"{src}.loftr", r + ("loftr_extra",),
                 tuple(cfg.regress.layer_names) * cfg.regress.num_loftr_layers)
+
+    # ----- translation-scale head (Flax TranslationScaleHead) -------------
+    if cfg.predict_translation_scale:
+        for name in ("c1", "c2", "c3"):
+            P.append((f"ts_head.{name}.weight", ("ts_head", name, "kernel"), _conv))
+            P.append((f"ts_head.{name}.bias", ("ts_head", name, "bias"), _ident))
+        for name in ("fc1", "fc2", "fc3"):
+            P += _lin_entries(f"ts_head.{name}", ("ts_head", name))
     return P, S
 
 
@@ -210,6 +222,26 @@ def flax_to_state_dict(variables_np: Dict[str, Any], cfg) -> Dict[str, np.ndarra
                 counter = torch_key[:-len("running_mean")] + "num_batches_tracked"
                 out[counter] = np.zeros((), np.int64)
     return out
+
+
+def load_flax_npz(path) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(variables, meta) from an ``.npz`` of a Flax tree flattened with
+    ``jax.tree_util.keystr`` keys such as ``['params']['backbone']
+    ['Conv_0']['kernel']``: the nested ``{"params", "batch_stats"}`` dict
+    of numpy arrays, and the JSON of its ``__meta__`` entry (or {})."""
+    variables: Dict[str, Any] = {}
+    meta: Dict[str, Any] = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            if key == "__meta__":
+                meta = json.loads(str(z[key]))
+                continue
+            path_ = [ast.literal_eval(part) for part in key[1:-1].split("][")]
+            node = variables
+            for k in path_[:-1]:
+                node = node.setdefault(k, {})
+            node[path_[-1]] = z[key]
+    return variables, meta
 
 
 @torch.no_grad()

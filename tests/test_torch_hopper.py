@@ -385,11 +385,25 @@ def test_loftr_layer_bf16_route_on_card(card, B, L, S, C, H):
 
 
 @pytest.mark.cuda
-def test_loftr_layer_bf16_route_names_a_shape_it_lacks(card):
-    x = torch.zeros(1, 16, 32, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"\(1, 16, 32\) with nhead=4"):
-        loftr_layer(x, x, pack_params(_params(32, torch.Generator(), card),
-                                      torch.bfloat16), 4)
+@pytest.mark.parametrize("B,L,S,C,H", [(2, 300, 200, 32, 4), (1, 257, 130, 96, 4),
+                                       (1, 64, 64, 32, 8)])
+def test_loftr_layer_bf16_outside_the_set_takes_cuda_cores(card, B, L, S, C, H):
+    """bf16 shapes the tensor-core route is not built for (C = 32, the
+    guard's coarse stack; C = 96 with a head width of 24) run the
+    CUDA-core kernel, chosen by the shape check: launches + 1,
+    launches_tc unchanged, tolerance 6e-2 max|ref| as above."""
+    g = torch.Generator().manual_seed(B * L + S + C + H)
+    x = torch.randn(B, L, C, generator=g).to(card, torch.bfloat16)
+    src = torch.randn(B, S, C, generator=g).to(card, torch.bfloat16)
+    p = _params(C, g, card)
+    ref = loftr_layer_plain(x.float(), src.float(), p, H)
+    before, before_tc = loftr_layer.launches, loftr_layer.launches_tc
+    out = loftr_layer(x, src, pack_params(p, torch.bfloat16), H)
+    torch.cuda.synchronize()
+    assert loftr_layer.launches == before + 1
+    assert loftr_layer.launches_tc == before_tc
+    err = float((out.float() - ref).abs().max())
+    assert err <= 6e-2 * float(ref.abs().max()), err
 
 
 @pytest.mark.cuda
@@ -409,6 +423,29 @@ def test_bilinear_bf16_route_on_card(card, B, N, D):
     torch.cuda.synchronize()
     assert bilinear_dual_softmax.launches_tc == before + 1
     assert out.shape == (B, 4, D + 6, D + 6)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-2 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,Dv", [(1, 300, 128, 128), (2, 257, 64, 80),
+                                      (1, 130, 96, 40)])
+def test_bilinear_bf16_outside_the_set_takes_cuda_cores(card, B, N, D, Dv):
+    """bf16 with D > 64 or Dv > 72 runs the CUDA-core kernel (launches_tc
+    unchanged); it rounds P and H to bf16 as the tensor-core route does,
+    so the tolerance is the same 1e-2 max|ref|."""
+    g = torch.Generator().manual_seed(N + D + Dv)
+    q, k = (torch.randn(B, 4, N, D, generator=g).to(card, torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(B, 4, N, Dv, generator=g).to(card, torch.bfloat16)
+    scale = D ** -0.5
+    ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), scale)
+    before, before_tc = bilinear_dual_softmax.launches, bilinear_dual_softmax.launches_tc
+    out = bilinear_dual_softmax(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert bilinear_dual_softmax.launches == before + 1
+    assert bilinear_dual_softmax.launches_tc == before_tc
+    assert out.shape == (B, 4, Dv, Dv)
     err = float((out - ref).abs().max())
     assert err <= 1e-2 * float(ref.abs().max()), err
 
@@ -473,12 +510,13 @@ def test_fine_transformer_bf16_route_on_card(card, n, s, C, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,C,H", [(9, 25, 32, 4), (5, 9, 192, 8), (4, 81, 32, 4),
-                                     (5, 25, 128, 16)])
+                                     (5, 25, 128, 16), (5, 25, 192, 8), (3, 25, 256, 8),
+                                     (3, 81, 128, 8)])
 def test_fine_transformer_bf16_outside_the_set_takes_cuda_cores(card, n, s, C, H):
-    """bf16 shapes the tensor-core route is not built for (C = 32 or 192,
-    a head width of 8 or 24, s = 81) run the CUDA-core kernel, chosen by
-    the explicit shape check. (That kernel keeps 2 windows in f32 in shared
-    memory, so it refuses C >= 192 at s = 25 as before.)"""
+    """bf16 shapes the tensor-core route is not built for (C = 32, 192 or
+    256, a head width of 8 or 24, s = 81) run the CUDA-core kernel, chosen
+    by the explicit shape check; it keeps 1 window a block where 2 exceed
+    the card's shared memory (C >= 192 at s = 25, C = 128 at s = 81)."""
     g = torch.Generator().manual_seed(n + C)
     x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
     p = [_params(C, g, card) for _ in range(2)]
@@ -491,3 +529,23 @@ def test_fine_transformer_bf16_outside_the_set_takes_cuda_cores(card, n, s, C, H
     assert fine_transformer.launches_tc == before_tc
     tol = 6e-2 * float(max(r0.abs().max(), r1.abs().max()))
     assert float(max((o0.float() - r0).abs().max(), (o1.float() - r1).abs().max())) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,C,H", [(7, 25, 128, 8), (5, 25, 256, 8), (4, 25, 192, 8),
+                                     (3, 81, 128, 8)])
+def test_fine_transformer_f32_every_window_size(card, n, s, C, H):
+    """float32 on the CUDA cores, 2 windows a block at the main shape and 1
+    where 2 do not fit: tolerance 1e-4 max|ref| (summation order only)."""
+    g = torch.Generator().manual_seed(n * s + C)
+    x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
+    p = [_params(C, g, card) for _ in range(2)]
+    names = ("self", "cross")
+    r0, r1 = fine_transformer_plain(x0, x1, p, names, H)
+    before, before_tc = fine_transformer.launches, fine_transformer.launches_tc
+    o0, o1 = fine_transformer(x0, x1, p, names, H)
+    torch.cuda.synchronize()
+    assert fine_transformer.launches == before + 1
+    assert fine_transformer.launches_tc == before_tc
+    tol = 1e-4 * float(max(r0.abs().max(), r1.abs().max()))
+    assert float(max((o0 - r0).abs().max(), (o1 - r1).abs().max())) <= tol

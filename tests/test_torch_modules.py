@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from far_tpu.models import matching as jmatching
+from far_tpu.models.fine import fine_coords_to_kpts as jfine_coords_to_kpts
 from far_tpu.models.fine import fine_softargmax as jfine_softargmax
 from far_tpu.models.fine import gather_windows as jgather
 from far_tpu.models.loftr import FARLoFTR as JFARLoFTR
@@ -317,3 +318,78 @@ def test_match_end_to_end(ctx):
     close(m.mkpts1_f, rm.mkpts1_f)
     v = rm.valid
     close(m.expec_f.numpy()[v], rm.expec_f[v])
+
+
+def _ts_pair():
+    """A small config with the translation-scale head: JAX's own Flax init
+    carried into the port through flax_to_state_dict (strict load)."""
+    jcfg = small_config(jconfig, predict_translation_scale=True)
+    tcfg = small_config(tconfig, predict_translation_scale=True)
+    jb = JPairBatch(image0=jnp.zeros((1, 64, 64, 1)), image1=jnp.zeros((1, 64, 64, 1)),
+                    K0=jnp.eye(3)[None], K1=jnp.eye(3)[None])
+    jmodel = JFARLoFTR(jcfg)
+    variables = jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(2), jb))
+    port = FARLoFTR(tcfg).eval()
+    sd = flax_to_state_dict(variables, tcfg)
+    port.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    return jmodel, variables, port
+
+
+def test_translation_scale_head():
+    """The head alone on the same NHWC coarse maps: the port (NCHW inside,
+    flattened in JAX's (h, w, c) order) gives JAX's scale to 1e-5; and
+    match() returns it from the backbone's maps, to 1e-4 max(1, |ref|)
+    as the other match() outputs."""
+    jmodel, variables, port = _ts_pair()
+    rng = np.random.default_rng(7)
+    f0, f1 = (rng.standard_normal((2, 8, 8, 32)).astype(np.float32) for _ in range(2))
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(f0), jnp.asarray(f1),
+                                  method=lambda m, a, b: m.ts_head(a, b)))
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        out = port.ts_head(nchw(f0), nchw(f1))
+    assert out.shape == (2,) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+    im0, im1 = smooth_images(np.random.default_rng(8), 2, 64, 64)
+    K = np.tile(np.eye(3, dtype=np.float32)[None], (2, 1, 1))
+    jb = JPairBatch(image0=jnp.asarray(im0), image1=jnp.asarray(im1),
+                    K0=jnp.asarray(K), K1=jnp.asarray(K))
+    jout = jax.jit(functools.partial(jmodel.apply, method=JFARLoFTR.match))(variables, jb)
+    with torch.no_grad():
+        tout = port.match(PairBatch(image0=torch.from_numpy(im0),
+                                    image1=torch.from_numpy(im1),
+                                    K0=torch.from_numpy(K), K1=torch.from_numpy(K)))
+    close(tout.translation_scale, np.asarray(jout.translation_scale))
+
+
+def test_match_with_resize_scales(ctx):
+    """The two places match() applies per-pair resize scales (B, 2) <w, h>
+    agree with JAX's: coarse_match on features with real mutual matches
+    (as test_coarse_match makes them; the random-weight model's own
+    features hold almost none, so its match() would only scale zeros),
+    and the fine refinement of image 1's keypoints."""
+    rng = np.random.default_rng(9)
+    hw = (8, 10)
+    L = hw[0] * hw[1]
+    f1 = rng.standard_normal((2, L, 32)).astype(np.float32)
+    perm = np.stack([rng.permutation(L) for _ in range(2)])
+    f0 = np.take_along_axis(f1, perm[..., None], axis=1) \
+        + 0.3 * rng.standard_normal((2, L, 32)).astype(np.float32)
+    scale0 = np.array([[1.5, 2.0], [0.5, 1.25]], np.float32)
+    scale1 = np.array([[2.0, 1.0], [1.0, 0.75]], np.float32)
+    ref = jmatching.coarse_match(jnp.asarray(f0), jnp.asarray(f1), hw, hw, 8.0,
+                                 ctx["jcfg"].match, scale0=jnp.asarray(scale0),
+                                 scale1=jnp.asarray(scale1))
+    out = tmatching.coarse_match(t(f0), t(f1), hw, hw, 8.0, ctx["tcfg"].match,
+                                 scale0=t(scale0), scale1=t(scale1))
+    ri, rj, rc, rv, rk0, rk1 = [np.asarray(a) for a in ref]
+    assert rv.sum() >= 8
+    np.testing.assert_array_equal(out[3].numpy(), rv)
+    np.testing.assert_array_equal(out[1].numpy(), rj)
+    close(out[4], rk0)
+    close(out[5], rk1)
+    expec = rng.uniform(-1, 1, (2, out[0].shape[1], 3)).astype(np.float32)
+    kp = fine_coords_to_kpts(t(expec), out[5], 5, 2.0, t(scale1))
+    close(kp, jfine_coords_to_kpts(jnp.asarray(expec), jnp.asarray(rk1), 5, 2.0,
+                                   jnp.asarray(scale1)))

@@ -29,10 +29,10 @@ from far_tpu.solvers.pose_estimation import default_prior_pcl
 from far_tpu.types import PairBatch as JPairBatch
 from far_tpu.utils import config as jconfig
 from far_tpu.utils.convert_weights import convert_loftr_state_dict
-from far_tpu_torch.pipeline import far_forward, init_model
+from far_tpu_torch.pipeline import far_forward, init_model, make_solver_configs
 from far_tpu_torch.types import MatcherOutput, MatchResult, PairBatch
 from far_tpu_torch.utils import config as tconfig
-from far_tpu_torch.utils.convert_weights import init_weights
+from far_tpu_torch.utils.convert_weights import build_loftr_mapping, init_weights
 from test_torch_modules import build_pair, small_config, smooth_images
 
 torch.set_num_threads(2)
@@ -40,11 +40,14 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _init_weights_pair(jcfg, tcfg):
-    """The port's own deterministic init, carried into the JAX model."""
+    """The port's own deterministic init, carried into the JAX model. The
+    JAX package's converter has no entries for the translation-scale
+    head; its weights go through the port's mapping, turned forward."""
     from far_tpu_torch.models.loftr import FARLoFTR
 
     port = init_weights(FARLoFTR(tcfg).eval(), seed=0)
-    sd = {f"matcher.{k}": v.numpy() for k, v in port.state_dict().items()}
+    state = {k: v.numpy() for k, v in port.state_dict().items()}
+    sd = {f"matcher.{k}": v for k, v in state.items() if not k.startswith("ts_head.")}
     H, W = jcfg.image_size
     jb = JPairBatch(image0=jnp.zeros((1, H, W, 1)), image1=jnp.zeros((1, H, W, 1)),
                     K0=jnp.eye(3)[None], K1=jnp.eye(3)[None])
@@ -53,6 +56,13 @@ def _init_weights_pair(jcfg, tcfg):
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     variables, report = convert_loftr_state_dict(sd, zeros, jcfg)
     assert not report["missing"] and not report["unused"], report
+    for torch_key, path, tf in build_loftr_mapping(tcfg)[0]:
+        if torch_key.startswith("ts_head."):
+            node = variables["params"]
+            for k in path[:-1]:
+                node = node[k]
+            assert node[path[-1]].shape == tf(state[torch_key]).shape
+            node[path[-1]] = tf(state[torch_key])
     return jmodel, variables, port
 
 
@@ -97,11 +107,14 @@ def _rotvec_to_matrix(a):
     return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
 
 
-@pytest.mark.parametrize("weights,size,scene", [
-    ("synth", (64, 64), False),
-    ("port_init", (128, 160), True),
+@pytest.mark.parametrize("weights,size,scene,solver,scale_head", [
+    ("synth", (64, 64), False, "8pt", False),
+    ("port_init", (128, 160), True, "8pt", False),
+    ("port_init", (128, 160), True, "5pt", False),
+    ("port_init", (128, 160), True, "8pt", True),
 ])
-def test_far_forward_matches_jax(weights, size, scene, monkeypatch):
+def test_far_forward_matches_jax(weights, size, scene, solver, scale_head,
+                                 monkeypatch):
     """Without ``scene``: the whole slice from the images. With it, both
     packages' matchers are handed one MatcherOutput (JAX's coarse
     features, a rigid scene's correspondences): with random weights
@@ -110,9 +123,22 @@ def test_far_forward_matches_jax(weights, size, scene, monkeypatch):
     two libraries' summation orders. On a scene the winning hypothesis
     is well-conditioned and everything after the matcher (EMM features,
     both RANSAC rounds, the MoE fusion) is compared on equal inputs;
-    the matcher itself is held to JAX in test_torch_modules.py."""
-    jcfg = small_config(jconfig, image_size=size)
-    tcfg = small_config(tconfig, image_size=size)
+    the matcher itself is held to JAX in test_torch_modules.py. The
+    5-point case (FARConfig's solver) draws 51 samples a round (1024
+    hypotheses) on a scene seen at f = 2000 px, where its 0.1 px noise
+    is no borderline inlier, so each round's polish re-fits the same
+    inliers in both packages (tests/test_torch_fivepoint.py). With
+    ``scale_head`` the matcher also predicts a metric translation scale
+    that every round multiplies into the solver's t: both packages'
+    final t and the scale agree to 1e-3."""
+    over = {"predict_translation_scale": scale_head}
+    if solver == "5pt":
+        over["solver"] = tconfig.SolverOptions(
+            num_hypotheses=1024, refine_num_hypotheses=1024, minimal_solver="5pt")
+    jcfg = small_config(jconfig, image_size=size, **{
+        k: jconfig.SolverOptions(**dataclasses.asdict(v)) if k == "solver" else v
+        for k, v in over.items()})
+    tcfg = small_config(tconfig, image_size=size, **over)
     if weights == "synth":
         jmodel, variables, port, _, _ = build_pair(jcfg, tcfg)
     else:
@@ -121,7 +147,7 @@ def test_far_forward_matches_jax(weights, size, scene, monkeypatch):
     B = 2
     im0, im1 = smooth_images(rng, B, *size, shift=(8, 16))
     H, W = size
-    f = 500.0 if scene else 70.0
+    f = (2000.0 if solver == "5pt" else 500.0) if scene else 70.0
     K1 = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
     K = np.tile(K1[None], (B, 1, 1))
     key = jax.random.PRNGKey(3)
@@ -140,15 +166,19 @@ def test_far_forward_matches_jax(weights, size, scene, monkeypatch):
             match=lambda module, batch, train=False: jout,
             regress_features=JFARLoFTR.regress_features,
             regress_fuse=JFARLoFTR.regress_fuse))
-        port.match = lambda batch: _as_torch_matcher_output(jout)
+        own_match = port.match  # its scale head's output is the port's own
+        port.match = lambda batch: dataclasses.replace(
+            _as_torch_matcher_output(jout),
+            translation_scale=own_match(batch).translation_scale)
     ref = jbuild(jmodel)(variables, jb, key)
 
     # the JAX sampler's draws, split as far_tpu/pipeline.py:94,106 does
     so = jcfg.solver
     k0, k1 = jax.random.split(key)
     refine_keys = jax.random.split(k1, so.fine_pred_steps - 1)
-    uniforms = [jax.random.uniform(k0, (B, so.num_hypotheses, 8))]
-    uniforms += [jax.random.uniform(k, (B, so.refine_num_hypotheses, 8))
+    first, refine = make_solver_configs(tcfg)
+    uniforms = [jax.random.uniform(k0, (B, *first.ransac_config(False).sampling()[:2]))]
+    uniforms += [jax.random.uniform(k, (B, *refine.ransac_config(True).sampling()[:2]))
                  for k in refine_keys]
     tb = PairBatch(image0=torch.from_numpy(im0), image1=torch.from_numpy(im1),
                    K0=torch.from_numpy(K), K1=torch.from_numpy(K))
@@ -165,7 +195,13 @@ def test_far_forward_matches_jax(weights, size, scene, monkeypatch):
     np.testing.assert_array_equal(out.success.numpy(), np.asarray(ref.success))
     np.testing.assert_array_equal(out.num_inliers.numpy(),
                                   np.asarray(ref.num_inliers))
-    for name in ("R", "t", "gating", "solver_rt"):
+    names = ("R", "t", "gating", "solver_rt")
+    if scale_head:
+        names += ("translation_scale",)
+        assert abs(float(np.asarray(ref.translation_scale).mean())) > 1e-2
+    else:
+        assert out.translation_scale is None
+    for name in names:
         np.testing.assert_allclose(getattr(out, name).numpy(),
                                    np.asarray(getattr(ref, name)), rtol=0,
                                    atol=1e-3, err_msg=name)
@@ -217,6 +253,60 @@ def test_solver_essential_up_to_sign():
                                       np.asarray(ref.num_inliers))
         np.testing.assert_allclose(out.R.numpy(), np.asarray(ref.R), atol=1e-3)
         np.testing.assert_allclose(out.t.numpy(), np.asarray(ref.t), atol=1e-3)
+
+
+@pytest.mark.parametrize("option,tol", [
+    (dict(scoring="magsac"), 1e-3), (dict(error_fn="symmetric"), 1e-3),
+    (dict(polish=False), 5e-3), (dict(linalg="exact"), 1e-3),
+])
+def test_ransac_options_match_jax(option, tol):
+    """Each RansacConfig option on one scene (8-point, 256 hypotheses, the
+    JAX sampler's uniforms handed to the port): num_inliers equal, R, t
+    and E (up to sign) within ``tol``. linalg='exact' scores unprojected
+    DLT hypotheses (eigh) and recovers the pose through the SVD
+    decomposition. Without the polish the answer is a raw 8-point
+    hypothesis, solved by 4 steps of f32 inverse iteration on a nearly
+    singular 9x9 system: the two packages' agree to 2e-3 there (5e-3
+    allowed), the polished least-squares fits to 1e-4."""
+    from far_tpu.solvers.ransac import RansacConfig as JRansacConfig
+    from far_tpu.solvers.ransac import prior_ransac as jprior_ransac
+    from far_tpu_torch.solvers.ransac import RansacConfig, prior_ransac
+
+    rng = np.random.default_rng(4)
+    # f = 2000 px: the scene's 0.1 px noise makes no borderline inlier
+    K = np.array([[2000.0, 0, 320], [0, 2000.0, 240], [0, 0, 1]], np.float32)
+    kp0, kp1, valid = _scene_matches(rng, 4, K, 64, 48, 6)
+    norm = lambda kp: ((kp - K[:2, 2]) / K[0, 0]).astype(np.float32)
+    kp0n, kp1n = norm(kp0), norm(kp1)
+    key = jax.random.PRNGKey(5)
+    u = jax.random.uniform(key, (4, 256, 8))
+    ref = jprior_ransac(key, jnp.asarray(kp0n), jnp.asarray(kp1n), jnp.asarray(valid),
+                        cfg=JRansacConfig(num_hypotheses=256, **option))
+    out = prior_ransac(torch.from_numpy(kp0n), torch.from_numpy(kp1n),
+                       torch.from_numpy(valid), cfg=RansacConfig(num_hypotheses=256, **option),
+                       uniforms=torch.from_numpy(np.array(u)))
+    assert (np.asarray(ref.num_inliers) >= 30).all()
+    np.testing.assert_array_equal(out.num_inliers.numpy(), np.asarray(ref.num_inliers))
+    np.testing.assert_allclose(out.R.numpy(), np.asarray(ref.R), rtol=0, atol=tol)
+    np.testing.assert_allclose(out.t.numpy(), np.asarray(ref.t), rtol=0, atol=tol)
+    E, jE = out.E.numpy(), np.asarray(ref.E)
+    d = np.minimum(np.abs(E - jE).max(axis=(1, 2)), np.abs(E + jE).max(axis=(1, 2)))
+    assert (d <= tol).all(), d
+
+
+def test_ransac_config_copies_agree():
+    """The port's RansacConfig has the JAX package's fields and defaults,
+    and rejects an unknown option by name."""
+    from far_tpu.solvers.ransac import RansacConfig as JRansacConfig
+    from far_tpu_torch.solvers.ransac import RansacConfig
+
+    assert [f.name for f in dataclasses.fields(RansacConfig)] == \
+        [f.name for f in dataclasses.fields(JRansacConfig)]
+    assert dataclasses.asdict(RansacConfig()) == dataclasses.asdict(JRansacConfig())
+    assert RansacConfig(minimal_solver="5pt").sampling() == (102, 5, 20)
+    assert RansacConfig(minimal_solver="5pt", num_hypotheses=1024).sampling()[0] == 51
+    with pytest.raises(ValueError, match="scoring"):
+        RansacConfig(scoring="lmeds")
 
 
 def _imports_of(path: pathlib.Path):
