@@ -29,7 +29,14 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    8-point, and the 5-point minimal solver on 64 exact problems;
 7. the network guard: ``assets/tiny_guard.npz`` (trained tiny weights)
    through ``far_forward`` on 16 synthetic pairs, float32 and bfloat16,
-   held to the JAX package's gate (bench.py).
+   held to the JAX package's gate (bench.py);
+8. training (``far_tpu_torch.train.Trainer``): (a) the differentiable
+   forms of K1, K4 and K3 at the main shapes in float32 and bfloat16
+   against autograd through their plain versions on the card; (b) one
+   step's losses, gradients and BatchNorm statistics at a small width, the
+   card against the CPU; (c) ``FARConfig()`` at 480x640, 10 steps on one
+   batch in float32 and in bfloat16, with the launch counters set to 0
+   before each step and read after it (K1 16, K4 2, K2 and K3 0).
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -685,6 +692,275 @@ def network_guard(dev) -> dict:
     return out
 
 
+# ---- phase 8: training -------------------------------------------------
+
+
+def train_functions(dev):
+    """Phase 8 (a): the differentiable forms of K1, K4 and K3 at the main
+    shapes, float32 and bfloat16. Each Function's output equals its
+    wrapper's bit for bit; the gradients of every input and weight equal
+    autograd through the plain function its backward recomputes (K4 from
+    N = 1024: the streaming twin), run on the card, within 1e-5 max|ref|
+    per tensor; the launch counters grow by exactly the forward launches.
+    In float32 K4's gradients are also held to autograd through the
+    full-matrix plain version (summation order: 1e-4 max|ref|)."""
+    import torch
+
+    from far_tpu_torch.ops.bilinear_attention import (
+        bilinear_dual_softmax, bilinear_dual_softmax_auto, bilinear_dual_softmax_plain,
+        bilinear_dual_softmax_streaming, pick_block)
+    from far_tpu_torch.ops.fine_layer import (
+        fine_transformer, fine_transformer_auto, fine_transformer_plain)
+    from far_tpu_torch.ops.loftr_layer import (
+        PARAM_KEYS, loftr_layer, loftr_layer_auto, loftr_layer_plain)
+
+    g = torch.Generator().manual_seed(8)
+    fns = counters()
+    failures = []
+
+    def grads(fn, inputs, cots):
+        leaves = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in inputs]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        torch.autograd.backward(outs, cots)
+        return [o.detach() for o in outs], [x.grad for x in leaves]
+
+    def check(name, dt, fn, wrapper, plain, inputs, launches, tc, extra_plain=None):
+        cots = None
+        before = {k: (f.launches, getattr(f, "launches_tc", 0)) for k, f in fns.items()}
+        outs_w = wrapper(*inputs)
+        outs_w = outs_w if isinstance(outs_w, tuple) else (outs_w,)
+        cots = [torch.randn(o.shape, generator=g).to(dev, o.dtype) for o in outs_w]
+        outs_f, g_f = grads(fn, inputs, cots)
+        torch.cuda.synchronize()
+        grew = {k: (f.launches - before[k][0], getattr(f, "launches_tc", 0) - before[k][1])
+                for k, f in fns.items()}
+        want = {k: (0, 0) for k in fns}
+        want[launches] = (2, 2 if tc else 0)   # the wrapper's launch + the Function's
+        _, g_p = grads(plain, inputs, cots)
+        same = all(torch.equal(a, b) for a, b in zip(outs_f, outs_w))
+        err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(g_f, g_p) if b is not None)
+        msg = (f"train fn {name} {dt}: output equal to the wrapper's {same}, grads "
+               f"max rel err {err:.3e} (tol 1e-5), launches {grew[launches]}")
+        ok = same and err <= 1e-5 and grew == want
+        if extra_plain is not None:
+            _, g_x = grads(extra_plain, inputs, cots)
+            err_x = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(g_f, g_x) if b is not None)
+            msg += f", vs the full-matrix plain version {err_x:.3e} (tol 1e-4)"
+            ok = ok and err_x <= 1e-4
+        print(msg + (" ok" if ok else " FAILED"), flush=True)
+        if not ok:
+            failures.append(f"{name} {dt}: {grew} vs {want}")
+        del outs_w, outs_f, g_f, g_p
+        torch.cuda.empty_cache()
+
+    B, L, C, H = B_KERNEL, L_COARSE, C_COARSE, H_COARSE
+    p = layer_params(C, g, dev)
+    x32 = torch.randn(B, L, C, generator=g).to(dev)
+    s32 = torch.randn(B, L, C, generator=g).to(dev)
+    Dv = D_EMM + 6
+    q32, k32 = (torch.randn(B, H_EMM, L, D_EMM, generator=g).to(dev) for _ in range(2))
+    v32 = torch.randn(B, H_EMM, L, Dv, generator=g).to(dev)
+    n = B * K_MATCH
+    fp = [layer_params(C_FINE, g, dev) for _ in range(2)]
+    w0, w1 = (torch.randn(n, WW, C_FINE, generator=g).to(dev) for _ in range(2))
+    names = ("self", "cross")
+    nk = len(PARAM_KEYS)
+    block = pick_block(L)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        tc = dt == torch.bfloat16
+        wts = [p[k] for k in PARAM_KEYS]
+        check("K1_loftr_layer", tag,
+              lambda x, s, *w: loftr_layer_auto(x, s, dict(zip(PARAM_KEYS, w)), H),
+              lambda x, s, *w: loftr_layer(x, s, dict(zip(PARAM_KEYS, w)), H),
+              lambda x, s, *w: loftr_layer_plain(x, s, dict(zip(PARAM_KEYS, w)), H),
+              [x32.to(dt), s32.to(dt)] + wts, "K1_loftr_layer", tc)
+        check("K4_bilinear_dual_softmax", tag,
+              lambda a, b, c: bilinear_dual_softmax_auto(a, b, c, 0.125),
+              lambda a, b, c: bilinear_dual_softmax(a, b, c, 0.125),
+              lambda a, b, c: bilinear_dual_softmax_streaming(a, b, c, 0.125, block),
+              [q32.to(dt), k32.to(dt), v32.to(dt)], "K4_bilinear_dual_softmax", tc,
+              extra_plain=(lambda a, b, c: bilinear_dual_softmax_plain(a, b, c, 0.125))
+              if dt == torch.float32 else None)
+        fw = [lp[k] for lp in fp for k in PARAM_KEYS]
+        dicts = lambda w: [dict(zip(PARAM_KEYS, w[:nk])), dict(zip(PARAM_KEYS, w[nk:]))]
+        check("K3_fine_transformer", tag,
+              lambda a, b, *w: fine_transformer_auto(a, b, dicts(w), names, H_FINE),
+              lambda a, b, *w: fine_transformer(a, b, dicts(w), names, H_FINE),
+              lambda a, b, *w: fine_transformer_plain(a, b, dicts(w), names, H_FINE),
+              [w0.to(dt), w1.to(dt)] + fw, "K3_fine_transformer", tc)
+    if failures:
+        fail(f"training Functions: {failures}")
+
+
+def _train_cfg(image_size=(480, 640), small=False, dtype="float32"):
+    from far_tpu_torch.utils.config import (
+        AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
+        RegressConfig, SolverOptions)
+
+    if not small:
+        return FARConfig(dtype=dtype)
+    # tests/test_torch_modules.py:small_config's widths
+    return FARConfig(
+        image_size=image_size,
+        backbone=BackboneConfig(initial_dim=16, block_dims=(16, 24, 32)),
+        coarse=AttentionStackConfig(d_model=32, nhead=4),
+        match=MatchConfig(max_matches=32, thr=0.0),
+        fine=FineConfig(d_model=16, nhead=4),
+        regress=RegressConfig(d_model=32, emm_heads=4, hidden=64),
+        solver=SolverOptions(num_hypotheses=64, minimal_solver="8pt"), dtype=dtype)
+
+
+def _fixed_estimate(B, dev):
+    """A solver result independent of the matches, for comparing two
+    devices' steps (RANSAC on a random model's matches picks among
+    near-ties, where summation order decides)."""
+    import types
+
+    import torch
+
+    c, s = math.cos(0.2), math.sin(0.2)
+    rt = torch.tensor([[c, 0, s, 0.3], [0, 1, 0, -0.1], [-s, 0, c, 0.9]]).expand(B, 3, 4)
+    fields = dict(rt34=rt.contiguous(), num_inliers=torch.full((B,), 17.0),
+                  num_tight=torch.full((B,), 3.0), num_ultra_tight=torch.zeros(B),
+                  success=torch.ones(B, dtype=torch.bool))
+    est = types.SimpleNamespace(**{k: v.to(dev) for k, v in fields.items()})
+    return lambda *a, **kw: est
+
+
+def train_small_agreement(dev):
+    """Phase 8 (b): one train step's forward and backward at the small
+    widths (96x128, f32, TF32 off), K1 and K4 on the card against the
+    plain versions on the CPU, with the same weights, batch and a stubbed
+    solver: every loss within 1e-4 relative, every parameter's gradient
+    within 1e-3 max|g_cpu| of its tensor, the BatchNorm running statistics
+    within 1e-5 relative, and the card's K1 and K4 counters read."""
+    import torch
+
+    import far_tpu_torch.train.trainer as trainer_mod
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset, collate
+    from far_tpu_torch.train.trainer import Trainer
+
+    cfg = _train_cfg((96, 128), small=True)
+    ds = SyntheticPairDataset(n=2, hw=cfg.image_size, seed=1)
+    samples = [ds[i] for i in range(2)]
+    fns = counters()
+    saved = trainer_mod.estimate_pose
+    res = {}
+    try:
+        for device in (dev, "cpu"):
+            trainer_mod.estimate_pose = _fixed_estimate(2, device)
+            tr = Trainer(cfg, device=device).init(seed=2)
+            batch, _ = collate(samples, device)
+            before = {k: f.launches for k, f in fns.items()}
+            losses, _ = tr.loss(batch)
+            losses.total.backward()
+            launched = {k: f.launches - before[k] for k, f in fns.items()}
+            sd = tr.model.state_dict()
+            res[str(device)] = dict(
+                losses={k: float(v.detach()) for k, v in losses.scalars().items()},
+                grads={n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+                       if p.grad is not None},
+                stats={n: v.cpu() for n, v in sd.items()
+                       if n.endswith(("running_mean", "running_var"))},
+                launched=launched)
+    finally:
+        trainer_mod.estimate_pose = saved
+    card, cpu = res[str(dev)], res["cpu"]
+    loss_err = max(abs(card["losses"][k] - v) / max(abs(v), 1e-30)
+                   for k, v in cpu["losses"].items() if v != 0.0)
+    grad_err = max(max_err(card["grads"][n], g) / max(float(g.abs().max()), 1e-30)
+                   for n, g in cpu["grads"].items() if float(g.abs().max()) > 0)
+    stat_err = max(max_err(card["stats"][n], s) / max(float(s.abs().max()), 1e-30)
+                   for n, s in cpu["stats"].items())
+    same_keys = set(card["grads"]) == set(cpu["grads"])
+    print(f"train step small width, card vs CPU: losses {card['losses']}, max rel err "
+          f"{loss_err:.3e} (tol 1e-4); grads of {len(cpu['grads'])} tensors, max err "
+          f"{grad_err:.3e} of max|g_cpu| (tol 1e-3); BatchNorm statistics {stat_err:.3e} "
+          f"(tol 1e-5); card launches {card['launched']}", flush=True)
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and stat_err <= 1e-5 and same_keys):
+        fail("the small train step on the card disagrees with the CPU's")
+    if card["launched"]["K1_loftr_layer"] != 16 or card["launched"]["K4_bilinear_dual_softmax"] != 2:
+        fail(f"small train step: K1/K4 launches {card['launched']}, expected 16 and 2")
+
+
+TRAIN_STEPS = 10
+TRAIN_LR = 5e-5
+B_TRAIN = 2
+
+
+def train_full(dev, card: str):
+    """Phase 8 (c): Trainer(FARConfig()).step at 480x640, B=2 synthetic
+    pairs with depth, the 5-point solver and fine_pred_steps 2, 10 steps
+    on one fixed batch with the same sampler draws in float32 and in
+    bfloat16, AdamW at lr 5e-5 with no warm-up and no schedule. Fails unless every metric and gradient is
+    finite, the parameters moved, step 10's loss is below step 1's, and
+    every step launched K1 16 times, K4 twice, K2 and K3 never (the
+    tensor-core routes in bf16: K1 16, K4 2). Returns the launches a step."""
+    import torch
+
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset, collate
+    from far_tpu_torch.train.optim import OptimConfig
+    from far_tpu_torch.train.trainer import Trainer
+
+    fns = counters()
+    per_step = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _train_cfg(dtype=dtype)
+        ds = SyntheticPairDataset(n=B_TRAIN, hw=cfg.image_size, seed=0)
+        batch, _ = collate([ds[i] for i in range(B_TRAIN)], dev)
+        tr = Trainer(cfg, OptimConfig(lr=TRAIN_LR, warmup_steps=0, scheduler="none"),
+                     device=dev).init(seed=0)
+        start = [p.detach().clone() for p in tr.model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times = [], []
+        for step in range(TRAIN_STEPS):
+            for k, f in fns.items():
+                f.launches = 0
+                f.launches_tc = 0
+            t0 = time.perf_counter()
+            # the same sampler draws every step: the loss moves with the
+            # parameters only
+            m = tr.step(batch, generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+            got = {k: (f.launches, f.launches_tc) for k, f in fns.items()}
+            tc = int(dtype == "bfloat16")
+            want = {"K1_loftr_layer": (16, 16 * tc), "K2_dual_softmax_rowcol": (0, 0),
+                    "K3_fine_transformer": (0, 0), "K4_bilinear_dual_softmax": (2, 2 * tc)}
+            if got != want:
+                fail(f"train {dtype} step {step}: launches {got}, expected {want}")
+            finite = all(math.isfinite(v) for v in m.values()) and all(
+                bool(torch.isfinite(p.grad).all()) for p in tr.model.parameters()
+                if p.grad is not None)
+            if not finite:
+                fail(f"train {dtype} step {step}: non-finite metrics or gradients {m}")
+        per_step = {k: v[0] for k, v in want.items()}
+        moved = sum(not torch.equal(a, p.detach()) for a, p in zip(start, tr.model.parameters()))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = statistics.median(times[1:])
+        losses = [round(x["loss"], 6) for x in metrics]
+        matches = [x["num_matches"] for x in metrics]
+        print(f"train {dtype} FARConfig() B={B_TRAIN} 480x640: ms/step median {ms:.2f} "
+              f"(steps 2-{TRAIN_STEPS}; first {times[0]:.2f}), peak memory {peak:.3f} GiB, "
+              f"loss by step {losses}, loss_c {metrics[-1]['loss_c']:.6f}, num_matches by "
+              f"step {matches}, grad_norm {metrics[0]['grad_norm']:.4f} -> "
+              f"{metrics[-1]['grad_norm']:.4f}, {moved}/{len(start)} parameter tensors "
+              f"moved, lr {TRAIN_LR}, on {card}", flush=True)
+        if moved == 0:
+            fail(f"train {dtype}: no parameter moved")
+        if not metrics[-1]["loss"] < metrics[0]["loss"]:
+            fail(f"train {dtype}: loss did not fall ({losses[0]} -> {losses[-1]})")
+        del tr, start, batch
+        torch.cuda.empty_cache()
+    return per_step
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -713,6 +989,9 @@ def main() -> int:
         solver_guard(dev, minimal_solver)
     minimal_problems(dev)
     network_guard(dev)
+    train_functions(dev)
+    train_small_agreement(dev)
+    train_launches = train_full(dev, card)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -737,6 +1016,9 @@ def main() -> int:
             "dtype": main, other: entries[name][other]})
         if name in launches_tc:
             kernels[-1]["launches_tc"] = launches_tc[name]
+        # launches a training step (phase 8 (c)); backward recomputes the
+        # plain version, so it launches none
+        kernels[-1]["launches_train_step"] = train_launches[name]
         if "cuda_core_shapes" in entries[name]:
             kernels[-1]["cuda_core_shapes"] = entries[name]["cuda_core_shapes"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",

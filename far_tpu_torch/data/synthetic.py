@@ -101,12 +101,13 @@ class SyntheticPairDataset:
 
 
 def collate(samples: Sequence[Dict], device=None) -> Tuple[PairBatch, torch.Tensor]:
-    """(PairBatch of the images and intrinsics, T_0to1 (B, 4, 4)) on
-    ``device``, all float32."""
+    """(PairBatch, T_0to1 (B, 4, 4)) on ``device``, all float32; the batch
+    carries the images, intrinsics, both poses and both depth maps."""
     def stack(key):
         arr = np.stack([np.asarray(s[key], np.float32) for s in samples])
         return torch.from_numpy(arr).to(device)
 
-    batch = PairBatch(image0=stack("image0"), image1=stack("image1"),
-                      K0=stack("K0"), K1=stack("K1"))
-    return batch, stack("T_0to1")
+    batch = PairBatch(**{k: stack(k) for k in ("image0", "image1", "K0", "K1",
+                                               "T_0to1", "T_1to0", "depth0",
+                                               "depth1")})
+    return batch, batch.T_0to1

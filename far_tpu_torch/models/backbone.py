@@ -1,4 +1,4 @@
-"""ResNet-FPN 8/2 feature backbone (NCHW inside, eval BatchNorm).
+"""ResNet-FPN 8/2 feature backbone (NCHW inside).
 
 Counterpart of ``far_tpu/models/backbone.py:ResNetFPN_8_2``, with the
 reference's module names (``conv1``, ``layer1.0.conv1``,
@@ -8,6 +8,13 @@ package's space-to-depth ``_StemConv`` computes the same thing in a form
 shaped for the TPU. The x2 upsample is bilinear with align_corners=True,
 as ``resize_bilinear_align_corners`` is. Parameters stay float32 and are
 cast to the input's dtype where they are used, as Flax does.
+
+BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9)``: in eval it
+normalises with the running statistics; in training (``self.training``)
+with the batch's, computed in float32 whatever the compute dtype, the
+variance biased (E[x^2] - mu^2, clipped at 0) in the normalisation and in
+the running update ``running = 0.9 running + 0.1 batch``. That is not
+``F.batch_norm(training=True)``, whose running variance is unbiased.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+MOMENTUM = 0.9  # Flax's: the share of the old running statistics
+
 
 def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding)
@@ -25,8 +34,18 @@ def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
 
 def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
     dt = x.dtype
-    return F.batch_norm(x, m.running_mean.to(dt), m.running_var.to(dt),
-                        m.weight.to(dt), m.bias.to(dt), False, 0.0, m.eps)
+    if not m.training:
+        return F.batch_norm(x, m.running_mean.to(dt), m.running_var.to(dt),
+                            m.weight.to(dt), m.bias.to(dt), False, 0.0, m.eps)
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        m.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
+        m.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)
+    mul = torch.rsqrt(var + m.eps) * m.weight
+    y = (x32 - mean[:, None, None]) * mul[:, None, None] + m.bias[:, None, None]
+    return y.to(dt)
 
 
 def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:

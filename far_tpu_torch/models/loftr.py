@@ -1,8 +1,12 @@
-"""FARLoFTR: the LoFTR matcher + FAR regressor (eval).
+"""FARLoFTR: the LoFTR matcher + FAR regressor.
 
 Counterpart of ``far_tpu/models/loftr.py:FARLoFTR`` (``match``,
 ``regress_features``, ``regress_fuse``) and of its
-``TranslationScaleHead``. Child modules carry the reference's names
+``TranslationScaleHead``. ``match`` follows the module's mode: in
+training (``model.train()``) the backbone's BatchNorms use the batch's
+statistics, the coarse match goes through the dense confidence matrix
+(returned as ``conf_matrix`` for the loss) and the fine transformer runs
+layer by layer; in eval K2 and K3 run. Child modules carry the reference's names
 (``backbone``, ``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``,
 ``loftr_regress``), so a reference state dict with its ``matcher.``
 prefix stripped loads with ``strict=True``; the optional scale head is
@@ -133,9 +137,12 @@ class FARLoFTR(nn.Module):
         translation_scale = None
         if cfg.predict_translation_scale:  # from the maps before the transformer
             translation_scale = self.ts_head(feat_c[:B], feat_c[B:])
-        i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = coarse_match(
+        res = coarse_match(
             t0, t1, (hc, wc), (hc, wc), float(cfg.backbone.resolution[0]),
-            cfg.match, scale0=batch.scale0, scale1=batch.scale1)
+            cfg.match, scale0=batch.scale0, scale1=batch.scale1,
+            return_conf=self.training)
+        i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = res[:6]
+        conf = res[6] if self.training else None
         expec_f = self.fine_stage(feat_f0, feat_f1, t0, t1, i_ids, j_ids)
         mkpts1_f = fine_coords_to_kpts(
             expec_f, mkpts1, cfg.fine.window_size,
@@ -146,6 +153,7 @@ class FARLoFTR(nn.Module):
             mkpts0=mkpts0, mkpts1=mkpts1, mkpts0_f=mkpts0, mkpts1_f=mkpts1_f,
             expec_f=expec_f)
         return MatcherOutput(matches=matches, feat_c0=t0, feat_c1=t1,
+                             conf_matrix=conf,
                              translation_scale=translation_scale)
 
     def solver_pose_in(self, summary: SolverSummary) -> torch.Tensor:

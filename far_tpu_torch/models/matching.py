@@ -1,8 +1,10 @@
-"""Coarse dual-softmax matching with static top-k selection (eval).
+"""Coarse dual-softmax matching with static top-k selection.
 
-Counterpart of the eval branch of ``far_tpu/models/matching.py``: the
-row/column reductions of the dual-softmax confidences come from kernel
-K2 (``ops/matching_kernel.py``) without storing the (L, S) matrix; the
+Counterpart of ``far_tpu/models/matching.py``. In eval the row/column
+reductions of the dual-softmax confidences come from kernel K2
+(``ops/matching_kernel.py``) without storing the (L, S) matrix; in
+training (``return_conf``) the dense (B, L, S) matrix is computed in
+plain torch, as the loss needs it, and K2 does not run. Either way the
 border, threshold and mutual-nearest-neighbour tests and a static top-k
 over rows make exactly K match slots per pair.
 """
@@ -41,6 +43,35 @@ def topk_stable(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     lower index first among equal scores (every empty slot scores 0)."""
     vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def dual_softmax_confidence(feat0: torch.Tensor, feat1: torch.Tensor,
+                            temperature: float) -> torch.Tensor:
+    """conf = softmax_rows(sim) * softmax_cols(sim), sim = <f0, f1> / C / T
+    (each side scaled by C^-1/2 first). Returns (B, L, S) float32."""
+    C = feat0.shape[-1]
+    f0 = (feat0 / C ** 0.5).float()
+    f1 = (feat1 / C ** 0.5).float()
+    sim = torch.einsum("nlc,nsc->nls", f0, f1) / temperature
+    return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def select_topk_matches(conf: torch.Tensor, hw0: Tuple[int, int],
+                        hw1: Tuple[int, int], cfg: MatchConfig):
+    """Static-K mutual-NN match selection from a dense confidence matrix.
+
+    Returns (i_ids, j_ids, mconf, valid), all (B, K)."""
+    L = conf.shape[1]
+    bm0 = border_mask(*hw0, cfg.border_rm, device=conf.device)
+    bm1 = border_mask(*hw1, cfg.border_rm, device=conf.device)
+    mutual = (conf == conf.amax(dim=2, keepdim=True)) \
+        & (conf == conf.amax(dim=1, keepdim=True))
+    ok = mutual & (conf > cfg.thr) & bm0[None, :, None] & bm1[None, None, :]
+    score = torch.where(ok, conf, torch.zeros_like(conf))
+    row_score, j_ids = score.max(dim=2)   # first index among ties, as argmax
+    k = min(cfg.max_matches, L)
+    mconf, i_ids = topk_stable(row_score, k)
+    return i_ids, torch.gather(j_ids, 1, i_ids), mconf, mconf > 0.0
 
 
 def select_topk_matches_streamed(
@@ -82,14 +113,24 @@ def coarse_match(
     cfg: MatchConfig,
     scale0: Optional[torch.Tensor] = None,
     scale1: Optional[torch.Tensor] = None,
+    return_conf: bool = False,
 ):
-    """Coarse matching stage (eval).
+    """Coarse matching stage.
 
-    Returns (i_ids, j_ids, mconf, valid, mkpts0, mkpts1)."""
-    i_ids, j_ids, mconf, valid = select_topk_matches_streamed(
-        feat0, feat1, hw0, hw1, cfg)
+    Returns (i_ids, j_ids, mconf, valid, mkpts0, mkpts1[, conf]): with
+    ``return_conf`` (training) through the dense confidence matrix, which
+    is returned too; else through K2."""
+    conf = None
+    if return_conf:
+        conf = dual_softmax_confidence(feat0, feat1, cfg.dsmax_temperature)
+        i_ids, j_ids, mconf, valid = select_topk_matches(conf, hw0, hw1, cfg)
+    else:
+        i_ids, j_ids, mconf, valid = select_topk_matches_streamed(
+            feat0, feat1, hw0, hw1, cfg)
     mkpts0 = ids_to_coords(i_ids, hw0[1], coarse_scale, scale0)
     mkpts1 = ids_to_coords(j_ids, hw1[1], coarse_scale, scale1)
     mkpts0 = mkpts0 * valid[..., None]
     mkpts1 = mkpts1 * valid[..., None]
+    if return_conf:
+        return i_ids, j_ids, mconf, valid, mkpts0, mkpts1, conf
     return i_ids, j_ids, mconf, valid, mkpts0, mkpts1

@@ -3,7 +3,8 @@
 Counterpart of ``far_tpu/models/regressor.py`` with the reference's
 module names (``emm.cross_attn.qkv``, ``encoder.0``, ``moe_predictor.4``,
 ...). The dual-softmax bilinear form v^T (softmax_r(S) * softmax_c(S)) v
-is kernel K4 (``ops/bilinear_attention.py``), called twice per pair.
+is kernel K4 (``ops/bilinear_attention.py``), called twice per pair
+through ``bilinear_dual_softmax_auto``, which gives it a gradient.
 Parameters stay float32 and are cast to the activations' dtype where
 they are used, as Flax does.
 """
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from far_tpu_torch.models.constants import POSE_MEAN_6D, POSE_STD_6D
 from far_tpu_torch.models.transformer import LocalFeatureTransformer
-from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax
+from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_auto
 from far_tpu_torch.utils.config import RegressConfig
 
 
@@ -91,8 +92,8 @@ class CrossAttentionEMM(nn.Module):
         v1p = torch.cat([v1, pos], dim=-1).contiguous()
         v2p = torch.cat([v2, pos], dim=-1).contiguous()
         # f1: image-2 queries over image-1 keys and values; f2 the reverse
-        f1 = bilinear_dual_softmax(q2, k1, v1p, D ** -0.5)  # (B, H, Dv, Dv)
-        f2 = bilinear_dual_softmax(q1, k2, v2p, D ** -0.5)
+        f1 = bilinear_dual_softmax_auto(q2, k1, v1p, D ** -0.5)  # (B, H, Dv, Dv)
+        f2 = bilinear_dual_softmax_auto(q1, k2, v2p, D ** -0.5)
 
         def proj(fh):
             fh = fh.to(dt).reshape(B, H * Dv, Dv).transpose(-1, -2)

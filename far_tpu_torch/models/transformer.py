@@ -1,10 +1,13 @@
 """LoFTR encoder layers and the self/cross attention stack.
 
-Counterpart of ``far_tpu/models/transformer.py`` (eval, linear
-attention, no masks). Every coarse layer runs through kernel K1
-(``ops/loftr_layer.py``); a stack over independent windows (the fine
-stage) runs whole through kernel K3 (``ops/fine_layer.py``). Module
-names follow the reference (``layers.3.q_proj``, ``layers.3.mlp.0``).
+Counterpart of ``far_tpu/models/transformer.py``. Every coarse layer runs
+through kernel K1 (``ops/loftr_layer.py``, differentiable through
+``loftr_layer_auto``); in eval a stack over independent windows (the fine
+stage) runs whole through kernel K3 (``ops/fine_layer.py``,
+``fine_transformer_auto``). In training the window stack runs layer by
+layer on the dense path, as the JAX package does (:192-216): plain torch
+over ``models/attention.py``. Module names follow the reference
+(``layers.3.q_proj``, ``layers.3.mlp.0``).
 """
 
 from __future__ import annotations
@@ -14,8 +17,21 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from far_tpu_torch.ops.fine_layer import fine_transformer
-from far_tpu_torch.ops.loftr_layer import loftr_layer
+from far_tpu_torch.models.attention import linear_attention
+from far_tpu_torch.ops.fine_layer import fine_transformer_auto
+from far_tpu_torch.ops.loftr_layer import loftr_layer_auto
+
+
+def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's dense-path LayerNorm: statistics in float32 (the
+    variance as E[x^2] - mu^2), the normalising arithmetic in x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 * x32).mean(dim=-1, keepdim=True) - mu * mu
+    dt = x.dtype
+    inv = torch.rsqrt(var + eps).to(dt)
+    return (x - mu.to(dt)) * inv * weight.to(dt) + bias.to(dt)
 
 
 class LoFTREncoderLayer(nn.Module):
@@ -46,7 +62,33 @@ class LoFTREncoderLayer(nn.Module):
         }
 
     def forward(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
-        return loftr_layer(x, source, self.raw(), self.nhead)
+        return loftr_layer_auto(x, source, self.raw(), self.nhead)
+
+    def dense(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+        """The layer in plain torch, in x's dtype (the JAX package's XLA
+        path, :123-149, with linear attention and no masks): one wide
+        projection product where x is source."""
+        B, L, C = x.shape
+        H = self.nhead
+        dt = x.dtype
+        p = self.raw()
+
+        def dense(a, w):
+            return a.to(dt) @ w.to(dt).t()
+
+        if x is source:
+            q, k, v = dense(x, torch.cat([p["wq"], p["wk"], p["wv"]])).chunk(3, dim=-1)
+        else:
+            q = dense(x, p["wq"])
+            k, v = dense(source, torch.cat([p["wk"], p["wv"]])).chunk(2, dim=-1)
+        q = q.reshape(B, L, H, C // H)
+        k = k.reshape(B, -1, H, C // H)
+        v = v.reshape(B, -1, H, C // H)
+        message = linear_attention(q, k, v)
+        message = _layer_norm(dense(message.reshape(B, L, C), p["wm"]), *p["ln1"])
+        y = torch.relu(dense(torch.cat([x.to(dt), message], dim=-1), p["w0"]))
+        y = _layer_norm(dense(y, p["w1"]), *p["ln2"])
+        return x + y
 
 
 class LocalFeatureTransformer(nn.Module):
@@ -54,7 +96,8 @@ class LocalFeatureTransformer(nn.Module):
     sequential (feat1's update consumes the updated feat0).
 
     With ``window_tokens`` set, the (N, s, C) inputs are independent
-    windows of s tokens and the whole stack is one K3 launch."""
+    windows of s tokens: in eval the whole stack is one K3 launch, in
+    training a loop over the layers' dense path."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
                  window_tokens: Optional[int] = None):
@@ -70,16 +113,18 @@ class LocalFeatureTransformer(nn.Module):
 
     def forward(self, feat0: torch.Tensor, feat1: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.window_tokens is not None:
-            return fine_transformer(
+        windows = self.window_tokens is not None
+        if windows and not self.training:
+            return fine_transformer_auto(
                 feat0.contiguous(), feat1.contiguous(),
                 [layer.raw() for layer in self.layers], self.layer_names,
                 self.nhead)
         for name, layer in zip(self.layer_names, self.layers):
+            run = layer.dense if windows else layer
             if name == "self":
-                feat0 = layer(feat0, feat0)
-                feat1 = layer(feat1, feat1)
+                feat0 = run(feat0, feat0)
+                feat1 = run(feat1, feat1)
             else:
-                feat0 = layer(feat0, feat1)
-                feat1 = layer(feat1, feat0)
+                feat0 = run(feat0, feat1)
+                feat1 = run(feat1, feat0)
         return feat0, feat1

@@ -24,14 +24,25 @@ source is ``far_tpu_torch/csrc/bilinear_attention.cu``. Two routes:
   the wrapper pads q and k with zero columns to 64 and v to 72
   (``pad_columns``) and passes v^T, so it takes D <= 64, Dv <= 72 and
   scale > 0.
+
+``bilinear_dual_softmax_auto`` is the differentiable form (the JAX
+package's ``bilinear_dual_softmax`` is a ``jax.custom_vjp``): K4 forward,
+and a backward that differentiates the streaming twin
+``bilinear_dual_softmax_streaming`` (row blocks, each recomputed under
+``torch.utils.checkpoint``, so no (N, N) matrix is kept), or the plain
+version below N = 1024, as the JAX VJP does.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from far_tpu_torch.ops import _build
+from far_tpu_torch.ops.loftr_layer import recompute_grads
+
+_NEG_INF = -1e30
 
 
 def bilinear_dual_softmax_plain(q: torch.Tensor, k: torch.Tensor,
@@ -50,6 +61,79 @@ def bilinear_dual_softmax_plain(q: torch.Tensor, k: torch.Tensor,
             vf = v[b, h].float()
             out[b, h] = vf.t() @ (A @ vf)
     return out
+
+
+def pick_block(n: int) -> int:
+    """The row block of the streaming twin for N rows (the JAX package's
+    ``_pick_block``: 480 at N = 4800), 0 where none divides N."""
+    for b in (512, 480, 400, 320, 256, 240, 160, 128, 96, 64, 32, 16, 8):
+        if n % b == 0:
+            return b
+    return 0
+
+
+def _stream_block(G, cmax, csum, qb, kt, vb, scale: float):
+    """One row block: its exact row softmax, the running column max and
+    sum rescaled flash-style, and G += vb^T P."""
+    s = (qb.float() @ kt) * scale                       # (B, H, block, N)
+    rmax = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - rmax)
+    rinv = 1.0 / e.sum(dim=-1, keepdim=True)
+    cnew = torch.maximum(cmax, s.amax(dim=-2, keepdim=True))
+    fix = torch.exp(cmax - cnew)
+    E = torch.exp(s - cnew)
+    csum = csum * fix + E.sum(dim=-2, keepdim=True)
+    G = G * fix + vb.float().transpose(-1, -2) @ ((e * rinv) * E)
+    return G, cnew, csum
+
+
+def bilinear_dual_softmax_streaming(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, scale: float,
+                                    block: int) -> torch.Tensor:
+    """Plain twin of K4 over row blocks of ``block`` rows (port of
+    ``bilinear_dual_softmax_streaming``): each block's body runs under
+    ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``, so
+    autograd through it keeps a (Dv, N) carry a block instead of the
+    (N, N) attention."""
+    B, H, N, _ = q.shape
+    Dv = v.shape[-1]
+    kt = k.float().transpose(-1, -2)
+    G = q.new_zeros((B, H, Dv, N), dtype=torch.float32)
+    cmax = q.new_full((B, H, 1, N), _NEG_INF, dtype=torch.float32)
+    csum = q.new_zeros((B, H, 1, N), dtype=torch.float32)
+    for i in range(N // block):
+        rows = slice(i * block, (i + 1) * block)
+        G, cmax, csum = checkpoint(_stream_block, G, cmax, csum, q[:, :, rows],
+                                   kt, v[:, :, rows], scale, use_reentrant=False)
+    return (G / csum) @ v.float()
+
+
+class _BilinearFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return bilinear_dual_softmax(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale = ctx.scale
+        q = ctx.saved_tensors[0]
+        block = pick_block(q.shape[2])
+        if q.shape[2] < 1024 or block == 0:
+            def plain(a, b, c):
+                return bilinear_dual_softmax_plain(a, b, c, scale)
+        else:
+            def plain(a, b, c):
+                return bilinear_dual_softmax_streaming(a, b, c, scale, block)
+        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], (g,))
+        return (*grads, None)
+
+
+def bilinear_dual_softmax_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """``bilinear_dual_softmax`` with a gradient (see the module note)."""
+    return _BilinearFn.apply(q, k, v, scale)
 
 
 def pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:

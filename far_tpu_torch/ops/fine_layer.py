@@ -24,6 +24,12 @@ confined to each s-token window. The kernel is bound by operations
 
 Each layer's weights are a dict in the layout of ``ops/loftr_layer.py``;
 ``pack_fine_params`` casts and concatenates them once for the kernel.
+
+``fine_transformer_auto`` is the differentiable form (the JAX package's
+``fine_transformer_auto``, a ``jax.custom_vjp``): K3 forward, backward by
+recomputing ``fine_transformer_plain``. (Under differentiation the JAX
+package runs its reference forward instead of the kernel; the port keeps
+the kernel forward, and the gradients are the same.)
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from far_tpu_torch.ops import _build
-from far_tpu_torch.ops.loftr_layer import WEIGHTS, loftr_layer_plain
+from far_tpu_torch.ops.loftr_layer import (
+    PARAM_KEYS,
+    WEIGHTS,
+    loftr_layer_plain,
+    recompute_grads,
+)
 
 Params = Dict[str, torch.Tensor]
 _MAX_LAYERS = 30  # bits of the kernel's cross-layer mask
@@ -129,3 +140,35 @@ def fine_transformer(f0: torch.Tensor, f1: torch.Tensor,
 
 fine_transformer.launches = 0     # launches of either route
 fine_transformer.launches_tc = 0  # launches of the bfloat16 tensor-core route
+
+
+def _layer_dicts(weights: Sequence[torch.Tensor]):
+    n = len(PARAM_KEYS)
+    return [dict(zip(PARAM_KEYS, weights[i:i + n])) for i in range(0, len(weights), n)]
+
+
+class _FineFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f0, f1, layer_names, nhead, *weights):
+        ctx.layer_names, ctx.nhead = layer_names, nhead
+        ctx.save_for_backward(f0, f1, *weights)
+        return fine_transformer(f0, f1, _layer_dicts(weights), layer_names, nhead)
+
+    @staticmethod
+    def backward(ctx, g0, g1):
+        names, nhead = ctx.layer_names, ctx.nhead
+
+        def plain(f0, f1, *weights):
+            return fine_transformer_plain(f0, f1, _layer_dicts(weights), names, nhead)
+
+        needs = ctx.needs_input_grad
+        grads = recompute_grads(plain, ctx.saved_tensors, needs[:2] + needs[4:], (g0, g1))
+        return (grads[0], grads[1], None, None, *grads[2:])
+
+
+def fine_transformer_auto(f0: torch.Tensor, f1: torch.Tensor,
+                          params: Sequence[Params], layer_names: Sequence[str],
+                          nhead: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fine_transformer`` with a gradient (see the module note)."""
+    flat = [p[k] for p in params for k in PARAM_KEYS]
+    return _FineFn.apply(f0, f1, tuple(layer_names), nhead, *flat)

@@ -29,11 +29,18 @@ that own them (``models/transformer.py``):
 ``pack_params`` casts them to the kernels' types (weights in the compute
 dtype, LayerNorm in float32), contiguous. The wrapper calls it on every
 launch; given a pack, it copies nothing.
+
+``loftr_layer_auto`` is the differentiable layer (the counterpart of the
+JAX package's ``loftr_layer_auto``, a ``jax.custom_vjp``): its forward is
+the wrapper above, its backward recomputes ``loftr_layer_plain`` from the
+saved inputs and weights and differentiates that, as the JAX VJP
+differentiates its jnp reference. The JAX package has no backward kernel,
+so neither has the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -141,3 +148,49 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
 
 loftr_layer.launches = 0     # launches of either route
 loftr_layer.launches_tc = 0  # launches of the tensor-core route (bfloat16)
+
+PARAM_KEYS = WEIGHTS + ("ln1", "ln2")
+
+
+def recompute_grads(plain, inputs: Sequence[torch.Tensor], needs: Sequence[bool],
+                    grad_out: Sequence[torch.Tensor]) -> List:
+    """The gradients of ``plain(*inputs)`` (one output or a tuple, with
+    ``grad_out`` one gradient for each) for the inputs in ``needs``, from
+    a fresh recompute: each input becomes a leaf of its own (so an
+    input passed twice, as x and source of a self layer, gets both of its
+    gradients and autograd adds them up), in its own dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        out = plain(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wanted, grad_out)) if wanted else iter(())
+    return [next(grads) if n else None for n in needs]
+
+
+class _LoftrLayerFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, source, nhead, *weights):
+        ctx.nhead = nhead
+        ctx.save_for_backward(x, source, *weights)
+        return loftr_layer(x, source, dict(zip(PARAM_KEYS, weights)), nhead)
+
+    @staticmethod
+    def backward(ctx, g):
+        nhead = ctx.nhead
+
+        def plain(x, source, *weights):
+            return loftr_layer_plain(x, source, dict(zip(PARAM_KEYS, weights)), nhead)
+
+        needs = ctx.needs_input_grad
+        grads = recompute_grads(plain, ctx.saved_tensors, needs[:2] + needs[3:], (g,))
+        return (grads[0], grads[1], None, *grads[2:])
+
+
+def loftr_layer_auto(x: torch.Tensor, source: torch.Tensor, params: Params,
+                     nhead: int) -> torch.Tensor:
+    """``loftr_layer`` with a gradient: K1 (or, on the CPU, the plain
+    version) forward; backward by recomputing the plain version. The
+    weights enter as tensors of their own, so their gradients reach the
+    modules' parameters through ``raw()``."""
+    return _LoftrLayerFn.apply(x, source, nhead, *(params[k] for k in PARAM_KEYS))

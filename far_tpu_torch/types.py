@@ -15,12 +15,17 @@ import torch
 
 @dataclasses.dataclass
 class PairBatch:
-    """A batch of image pairs; NHWC grayscale images in [0, 1]."""
+    """A batch of image pairs; NHWC grayscale images in [0, 1]. Depth and
+    pose are needed only for training's supervision."""
 
     image0: torch.Tensor                     # (B, H, W, 1)
     image1: torch.Tensor                     # (B, H, W, 1)
     K0: torch.Tensor                         # (B, 3, 3)
     K1: torch.Tensor                         # (B, 3, 3)
+    T_0to1: Optional[torch.Tensor] = None    # (B, 4, 4) or (B, 3, 4)
+    T_1to0: Optional[torch.Tensor] = None
+    depth0: Optional[torch.Tensor] = None    # (B, H, W)
+    depth1: Optional[torch.Tensor] = None
     scale0: Optional[torch.Tensor] = None    # (B, 2) resize scale <w, h>
     scale1: Optional[torch.Tensor] = None
 
@@ -45,6 +50,7 @@ class MatcherOutput:
     matches: MatchResult
     feat_c0: torch.Tensor   # (B, L, C) transformed coarse features
     feat_c1: torch.Tensor   # (B, S, C)
+    conf_matrix: Optional[torch.Tensor] = None        # (B, L, S), training only
     translation_scale: Optional[torch.Tensor] = None  # (B,)
 
 
