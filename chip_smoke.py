@@ -36,7 +36,23 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    step's losses, gradients and BatchNorm statistics at a small width, the
    card against the CPU; (c) ``FARConfig()`` at 480x640, 10 steps on one
    batch in float32 and in bfloat16, with the launch counters set to 0
-   before each step and read after it (K1 16, K4 2, K2 and K3 0).
+   before each step and read after it (K1 16, K4 2, K2 and K3 0); (a) also
+   holds that each bare wrapper (K1, K3, K4) refuses CUDA inputs that
+   require grad in grad mode, where its output would carry no gradient;
+9. validation (``far_tpu_torch.train.validation.validate_far``): (a) the
+   network guard's weights on its 16 pairs, float32 and bfloat16, the
+   table's median rotation error equal to phase 7's to 0.01 deg and under
+   its gate; (b) ``FARConfig()`` in bfloat16 at 480x640 and full width, 16
+   pairs at B=4: 16 pairs in the table, every entry finite, K1/K2/K3/K4
+   launched 16/1/1/2 times a batch, and the pass's pairs/s;
+10. Sinkhorn matching and backbone remat at 480x640 and full width: (a) a
+   Sinkhorn request at B=4 in float32 and bfloat16 (K2 0 launches, K1/K3/
+   K4 16/1/2); (b) one Sinkhorn training step at B=2 in bfloat16, with a
+   finite nonzero gradient of the dustbin score; (c) one bfloat16 step at
+   B=2 under remat False, "full" and "selective" from the same weights
+   and draws: gradients and BatchNorm statistics against the step without
+   remat, and each step's peak memory ("full" below False); (d) one step
+   at B=8 with remat "full", its peak memory and time.
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -432,6 +448,12 @@ def counters():
             "K4_bilinear_dual_softmax": bilinear_dual_softmax}
 
 
+def reset_counters():
+    for f in counters().values():
+        f.launches = 0
+        f.launches_tc = 0
+
+
 # kernels with a tensor-core route (counted by launches_tc), and the dtypes
 # of the requests that go through it (K2 takes bf16 in every request)
 TC_ROUTES = {"K1_loftr_layer": ("bfloat16",),
@@ -470,10 +492,7 @@ def run_main_path(dev, card: str):
         gen = torch.Generator(device=dev).manual_seed(0)
         fn(batch, generator=gen)  # warm-up: cuDNN plans, allocator
         torch.cuda.synchronize()
-        for k, f in fns.items():
-            f.launches = 0
-            if k in TC_ROUTES:
-                f.launches_tc = 0
+        reset_counters()
         times = []
         outs = []
         for _ in range(N_REQUESTS):
@@ -769,6 +788,28 @@ def train_functions(dev):
     names = ("self", "cross")
     nk = len(PARAM_KEYS)
     block = pick_block(L)
+    # a bare wrapper on inputs that require grad, in grad mode, raises
+    # before it launches (its output would carry no grad_fn); the *_auto
+    # Functions are checked below
+    before = {k: f.launches for k, f in fns.items()}
+    leaf = lambda x: x.detach().clone().requires_grad_(True)
+    bare = {"K1_loftr_layer": lambda: loftr_layer(leaf(x32), s32, p, H),
+            "K4_bilinear_dual_softmax": lambda: bilinear_dual_softmax(
+                q32, leaf(k32), v32, 0.125),
+            "K3_fine_transformer": lambda: fine_transformer(
+                w0, w1, [{**fp[0], "wq": leaf(fp[0]["wq"])}, fp[1]], names, H_FINE)}
+    for name, call in bare.items():
+        try:
+            call()
+            refused = False
+        except RuntimeError as e:
+            refused = "_auto" in str(e)
+        print(f"train fn {name}: the bare wrapper refuses inputs that require grad "
+              f"{refused}", flush=True)
+        if not refused:
+            failures.append(f"{name}: the bare wrapper ran on inputs that require grad")
+    if {k: f.launches for k, f in fns.items()} != before:
+        failures.append("a refused bare wrapper launched its kernel")
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
         tc = dt == torch.bfloat16
@@ -919,9 +960,7 @@ def train_full(dev, card: str):
         torch.cuda.reset_peak_memory_stats()
         metrics, times = [], []
         for step in range(TRAIN_STEPS):
-            for k, f in fns.items():
-                f.launches = 0
-                f.launches_tc = 0
+            reset_counters()
             t0 = time.perf_counter()
             # the same sampler draws every step: the loss moves with the
             # parameters only
@@ -961,6 +1000,239 @@ def train_full(dev, card: str):
     return per_step
 
 
+# ---- phase 9: validation -------------------------------------------------
+
+
+def validation(dev, card: str, guard_medians: dict):
+    """Phase 9. (a) validate_far with the network guard's weights on its
+    16 pairs (seed 4242, 16 scenes, rotations up to 12 deg, B=8) in float32
+    and bfloat16, the sampler's generator seeded as phase 7's: the table's
+    'rot median err' within 0.01 deg of phase 7's median and under the
+    gate. (b) FARConfig() in bfloat16, init_model(seed=0), 16 synthetic
+    pairs at 480x640 and B=4: dset size 16, every entry of the table
+    finite, K1/K2/K3/K4 launched 16/1/1/2 times a batch; the pass's pairs/s
+    on the host clock, data made on the host included."""
+    import torch
+
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset
+    from far_tpu_torch.pipeline import init_model
+    from far_tpu_torch.tools.guard import gate_deg, load_guard
+    from far_tpu_torch.train.validation import validate_far
+    from far_tpu_torch.utils.config import FARConfig
+
+    for dtype in ("float32", "bfloat16"):
+        model, meta = load_guard(dtype=dtype, device=dev)
+        ds = SyntheticPairDataset(n=16, hw=model.config.image_size, seed=meta["eval_seed"],
+                                  n_scenes=16, max_angle_deg=12.0)
+        table = validate_far(model, ds, 8, generator=torch.Generator(device=dev).manual_seed(7))
+        med, gate = table["rot median err"], gate_deg(meta)
+        gap = abs(med - guard_medians[dtype])
+        print(f"validation guard {dtype}: {json.dumps(table)}; rot median err {med} against "
+              f"phase 7's {guard_medians[dtype]:.4f} (gap {gap:.4f}, tol 0.01), gate "
+              f"{gate:.2f} deg", flush=True)
+        if not (gap <= 0.01 and med < gate and table["dset size"] == 16):
+            fail(f"validation guard {dtype}: table {table} against phase 7's median "
+                 f"{guard_medians[dtype]}")
+
+    cfg = FARConfig(dtype="bfloat16")
+    model = init_model(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # warm-up on one batch of its own (cuDNN plans, the allocator)
+    validate_far(model, SyntheticPairDataset(n=B_REQUEST, hw=cfg.image_size, seed=1),
+                 B_REQUEST, generator=gen)
+    ds = SyntheticPairDataset(n=16, hw=cfg.image_size, seed=0)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    table = validate_far(model, ds, B_REQUEST, generator=gen)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = {k: f.launches for k, f in counters().items()}
+    n_batches = 16 // B_REQUEST
+    want = {"K1_loftr_layer": 16 * n_batches, "K2_dual_softmax_rowcol": n_batches,
+            "K3_fine_transformer": n_batches, "K4_bilinear_dual_softmax": 2 * n_batches}
+    print(f"validation FARConfig() bfloat16 480x640, 16 pairs at B={B_REQUEST}: "
+          f"{json.dumps(table)}; {16 / sec:.2f} pairs/s ({sec * 1e3:.1f} ms, host clock, "
+          f"synthetic data made on the host included), launches {got} on {card}", flush=True)
+    if got != want:
+        fail(f"validation: launches {got}, expected {want}")
+    if table["dset size"] != 16 or not all(math.isfinite(v) for v in table.values()):
+        fail(f"validation: table {table}")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---- phase 10: Sinkhorn and remat --------------------------------------------
+
+
+def sinkhorn_requests(dev, card: str):
+    """Phase 10 (a): far_forward with match_type='sinkhorn' at B=4,
+    480x640, FARConfig() otherwise, in float32 and bfloat16: two requests
+    after a warm-up, finite outputs, K1/K3/K4 launched 16/1/2 times a
+    request and K2 never."""
+    import torch
+
+    from far_tpu_torch.pipeline import build_inference_fn, init_model
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig, MatchConfig
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = FARConfig(match=MatchConfig(match_type="sinkhorn"), dtype=dtype)
+        model = init_model(cfg, seed=0, device=dev)
+        fn = build_inference_fn(model)
+        batch = synthetic_batch(B_REQUEST, *cfg.image_size, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        fn(batch, generator=gen)
+        torch.cuda.synchronize()
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = fn(batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: f.launches for k, f in counters().items()}
+        want = {"K1_loftr_layer": 32, "K2_dual_softmax_rowcol": 0,
+                "K3_fine_transformer": 2, "K4_bilinear_dual_softmax": 4}
+        finite = all(bool(torch.isfinite(getattr(out, k)).all())
+                     for k in ("R", "t", "regressed_9d", "gating", "num_inliers", "E"))
+        print(f"sinkhorn request {dtype} B={B_REQUEST} 480x640: ms/request {times} "
+              f"(host clock), peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+              f"GiB, launches in 2 requests {got}, outputs finite {finite}, valid matches "
+              f"{out.matches.valid.sum(-1).tolist()} on {card}", flush=True)
+        if got != want or not finite:
+            fail(f"sinkhorn request {dtype}: launches {got} (expected {want}), finite {finite}")
+        del model, fn, out
+        torch.cuda.empty_cache()
+
+
+def _train_batch(dev, n: int):
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset, collate
+
+    ds = SyntheticPairDataset(n=n, hw=(480, 640), seed=0)
+    return collate([ds[i] for i in range(n)], dev)[0]
+
+
+def _timed_step(tr, batch, dev):
+    """(metrics, ms on the host clock, peak GiB) of one Trainer.step with
+    the sampler seeded at 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = tr.step(batch, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return m, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def sinkhorn_train(dev, card: str):
+    """Phase 10 (b): one Trainer.step with match_type='sinkhorn' at B=2,
+    480x640, bfloat16: every loss finite and the dustbin score's gradient
+    finite and nonzero."""
+    import torch
+
+    from far_tpu_torch.train.trainer import Trainer
+    from far_tpu_torch.utils.config import FARConfig, MatchConfig
+
+    cfg = FARConfig(match=MatchConfig(match_type="sinkhorn"), dtype="bfloat16")
+    tr = Trainer(cfg, device=dev).init(seed=0)
+    m, ms, peak = _timed_step(tr, _train_batch(dev, B_TRAIN), dev)
+    g = tr.model.bin_score.grad
+    ok = g is not None and bool(torch.isfinite(g)) and float(g) != 0.0 \
+        and all(math.isfinite(v) for v in m.values())
+    print(f"sinkhorn train step bfloat16 B={B_TRAIN} 480x640: {m}, bin_score grad "
+          f"{None if g is None else float(g)}, {ms:.1f} ms (first step, host clock), peak "
+          f"memory {peak:.3f} GiB on {card}", flush=True)
+    if not ok:
+        fail("sinkhorn train step: non-finite losses or no dustbin gradient")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def remat_steps(dev, card: str):
+    """Phase 10 (c), (d). (c) Two bfloat16 Trainer.steps at B=2, 480x640,
+    FARConfig() with remat False, then False again, "full" and
+    "selective", each from init_weights(seed=0) with the same batch and
+    sampler draws. The second step's gradients, losses and running
+    statistics are compared: the no-remat run twice gives their
+    run-to-run floor (cuDNN's backward and the fine gather's scatter need
+    not be bit-reproducible), and per tensor a remat step must be within
+    1e-5 max|g| + 2 x that floor. The second step's time is reported (the
+    first allocates AdamW's state), the peak is over both; "full" must
+    peak below False. (d) The same at B=8 with remat "full"."""
+    import torch
+
+    from far_tpu_torch.train.trainer import Trainer
+    from far_tpu_torch.utils.config import FARConfig
+
+    batch = _train_batch(dev, B_TRAIN)
+    runs = {}
+    for key, remat in (("plain", False), ("plain again", False), ("full", "full"),
+                       ("selective", "selective")):
+        tr = Trainer(FARConfig(dtype="bfloat16", remat=remat), device=dev).init(seed=0)
+        _, _, peak1 = _timed_step(tr, batch, dev)
+        m, ms, peak = _timed_step(tr, batch, dev)
+        peak = max(peak, peak1)
+        runs[key] = dict(
+            losses={k: v for k, v in m.items() if k.startswith("loss")}, ms=ms, peak=peak,
+            grads={n: p.grad.detach().float() for n, p in tr.model.named_parameters()
+                   if p.grad is not None},
+            stats={n: v.detach().clone() for n, v in tr.model.state_dict().items()
+                   if n.endswith(("running_mean", "running_var"))})
+        del tr
+        torch.cuda.empty_cache()
+
+    def errs(a, b):
+        out = {n: max_err(a["grads"][n], b["grads"][n]) for n in b["grads"]}
+        out.update({n: max_err(a["stats"][n], b["stats"][n]) for n in b["stats"]})
+        out.update({k: abs(a["losses"][k] - v) for k, v in b["losses"].items()})
+        return out
+
+    plain = runs["plain"]
+    scale = {n: float(g.abs().max()) for n, g in plain["grads"].items()}
+    scale.update({n: float(s.abs().max()) for n, s in plain["stats"].items()})
+    scale.update({k: abs(v) for k, v in plain["losses"].items()})
+    floor = errs(runs["plain again"], plain)
+    failures = []
+    for key in ("full", "selective"):
+        e = errs(runs[key], plain)
+        if e.keys() != floor.keys():
+            failures.append(f"{key}: other tensors have gradients")
+            continue
+        bad = [n for n in e if e[n] > 1e-5 * scale[n] + 2 * floor[n]]
+        worst = max(e, key=lambda n: e[n] / max(scale[n], 1e-30))
+        print(f"remat {key} bf16 B={B_TRAIN}: losses {runs[key]['losses']}, worst relative "
+              f"error {e[worst] / max(scale[worst], 1e-30):.3e} ({worst}; no-remat floor "
+              f"{floor[worst] / max(scale[worst], 1e-30):.3e}), {len(bad)} tensors over "
+              f"1e-5 max|g| + 2 x floor", flush=True)
+        if bad:
+            failures.append(f"{key}: {bad[:5]}")
+    floor_max = max(floor[n] / max(scale[n], 1e-30) for n in floor)
+    print(f"remat bf16 B={B_TRAIN} 480x640: peak memory GiB / ms of step 2 (host "
+          f"clock): "
+          + ", ".join(f"{k} {r['peak']:.3f} / {r['ms']:.1f}" for k, r in runs.items())
+          + f"; no-remat run-to-run max relative difference {floor_max:.3e} on {card}",
+          flush=True)
+    if not runs["full"]["peak"] < runs["plain"]["peak"]:
+        failures.append("remat 'full' does not lower the peak memory")
+    if failures:
+        fail(f"remat: {failures}")
+
+    tr = Trainer(FARConfig(dtype="bfloat16", remat="full"), device=dev).init(seed=0)
+    big = _train_batch(dev, 8)
+    _, ms1, peak1 = _timed_step(tr, big, dev)
+    m, ms2, peak2 = _timed_step(tr, big, dev)
+    print(f"remat full bf16 B=8 480x640: step 2 {ms2:.1f} ms (step 1 {ms1:.1f} ms, host "
+          f"clock), peak memory {max(peak1, peak2):.3f} GiB, losses finite "
+          f"{all(math.isfinite(v) for v in m.values())} on {card}", flush=True)
+    if not all(math.isfinite(v) for v in m.values()):
+        fail(f"remat full B=8: non-finite metrics {m}")
+    del tr, big
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -988,10 +1260,14 @@ def main() -> int:
     for minimal_solver in ("5pt", "8pt"):
         solver_guard(dev, minimal_solver)
     minimal_problems(dev)
-    network_guard(dev)
+    guard_medians = network_guard(dev)
     train_functions(dev)
     train_small_agreement(dev)
     train_launches = train_full(dev, card)
+    validation(dev, card, guard_medians)
+    sinkhorn_requests(dev, card)
+    sinkhorn_train(dev, card)
+    remat_steps(dev, card)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",

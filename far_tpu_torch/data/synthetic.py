@@ -4,8 +4,10 @@ The port's own numpy copy of ``far_tpu/data/datasets.py:
 SyntheticPairDataset``: the same draws from the same seeds, so both
 packages see the same pairs (a test holds the arrays equal). A textured
 surface with smooth depth relief is splatted into two views; the relief
-keeps essential-matrix estimation away from the planar degeneracy.
-``collate`` stacks samples into a ``PairBatch`` on a device.
+keeps essential-matrix estimation away from the planar degeneracy. A
+sample also names its scene, its pair (``pair_names``, which validation
+joins into the pair's identifier) and its dataset. ``collate`` stacks
+samples into a ``PairBatch`` on a device.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from far_tpu_torch.data.loader import collate_pairs, to_device
 from far_tpu_torch.types import PairBatch
 
 
@@ -97,17 +100,15 @@ class SyntheticPairDataset:
         return {"image0": img0, "image1": img1, "depth0": depth0,
                 "depth1": depth1, "K0": K, "K1": K, "T_0to1": T,
                 "T_1to0": np.linalg.inv(T).astype(np.float32),
-                "pair_id": np.asarray(idx, np.int64)}
+                "scene": f"synthetic_{idx % self.n_scenes}",
+                "pair_id": np.asarray(idx, np.int64),
+                "pair_names": (f"syn_{idx}_0", f"syn_{idx}_1"),
+                "dataset_name": "synthetic"}
 
 
 def collate(samples: Sequence[Dict], device=None) -> Tuple[PairBatch, torch.Tensor]:
-    """(PairBatch, T_0to1 (B, 4, 4)) on ``device``, all float32; the batch
-    carries the images, intrinsics, both poses and both depth maps."""
-    def stack(key):
-        arr = np.stack([np.asarray(s[key], np.float32) for s in samples])
-        return torch.from_numpy(arr).to(device)
-
-    batch = PairBatch(**{k: stack(k) for k in ("image0", "image1", "K0", "K1",
-                                               "T_0to1", "T_1to0", "depth0",
-                                               "depth1")})
+    """(PairBatch, T_0to1 (B, 4, 4)) on ``device``: ``collate_pairs``'s
+    batch (images, intrinsics, both poses and depths, pair ids) moved
+    there."""
+    batch = to_device(collate_pairs(list(samples)), device)
     return batch, batch.T_0to1

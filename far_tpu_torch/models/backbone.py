@@ -15,11 +15,21 @@ with the batch's, computed in float32 whatever the compute dtype, the
 variance biased (E[x^2] - mu^2, clipped at 0) in the normalisation and in
 the running update ``running = 0.9 running + 0.1 batch``. That is not
 ``F.batch_norm(training=True)``, whose running variance is unbiased.
+
+Under ``deferred_running_stats(sink)`` a train-mode BatchNorm appends
+(module, batch mean, batch variance) to ``sink`` instead of updating its
+running statistics; ``update_running_stats(sink)`` applies them. The
+remat path (``models/loftr.py``) needs that: a checkpointed backbone runs
+its forward again in the backward pass, and an in-place update there
+would move the statistics twice (momentum 0.81, not 0.9), where Flax's
+functional ``nn.remat`` updates them once.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+import contextvars
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,6 +42,28 @@ def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding)
 
 
+_DEFERRED: contextvars.ContextVar = contextvars.ContextVar("bn_deferred", default=None)
+
+
+@contextlib.contextmanager
+def deferred_running_stats(sink: List):
+    """Within, train-mode ``bn`` appends its (module, mean, var) to ``sink``
+    and leaves the running statistics alone."""
+    token = _DEFERRED.set(sink)
+    try:
+        yield sink
+    finally:
+        _DEFERRED.reset(token)
+
+
+@torch.no_grad()
+def update_running_stats(stats) -> None:
+    """``running = 0.9 running + 0.1 batch`` for each (module, mean, var)."""
+    for m, mean, var in stats:
+        m.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
+        m.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)
+
+
 def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
     dt = x.dtype
     if not m.training:
@@ -40,9 +72,11 @@ def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
     x32 = x.float()
     mean = x32.mean(dim=(0, 2, 3))
     var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-    with torch.no_grad():
-        m.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
-        m.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)
+    sink = _DEFERRED.get()
+    if sink is None:
+        update_running_stats([(m, mean, var)])
+    else:
+        sink.append((m, mean.detach(), var.detach()))
     mul = torch.rsqrt(var + m.eps) * m.weight
     y = (x32 - mean[:, None, None]) * mul[:, None, None] + m.bias[:, None, None]
     return y.to(dt)

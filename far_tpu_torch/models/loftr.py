@@ -6,7 +6,14 @@ Counterpart of ``far_tpu/models/loftr.py:FARLoFTR`` (``match``,
 training (``model.train()``) the backbone's BatchNorms use the batch's
 statistics, the coarse match goes through the dense confidence matrix
 (returned as ``conf_matrix`` for the loss) and the fine transformer runs
-layer by layer; in eval K2 and K3 run. Child modules carry the reference's names
+layer by layer; in eval K2 and K3 run. With ``match.match_type ==
+"sinkhorn"`` the coarse match is optimal transport with a learned dustbin
+score (``bin_score``) in plain torch in both modes, and K2 does not run.
+In training, ``cfg.remat`` checkpoints the backbone (``True`` or
+``"full"``: all of it is recomputed in the backward pass;
+``"selective"``: the convolutions' outputs are kept and the BatchNorms
+and activations between them recomputed), with the BatchNorms' running
+statistics updated once per step. Child modules carry the reference's names
 (``backbone``, ``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``,
 ``loftr_regress``), so a reference state dict with its ``matcher.``
 prefix stripped loads with ``strict=True``; the optional scale head is
@@ -15,18 +22,34 @@ prefix stripped loads with ``strict=True``; the optional scale head is
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from far_tpu_torch.models.backbone import ResNetFPN_8_2
+from far_tpu_torch.models.backbone import (
+    ResNetFPN_8_2,
+    deferred_running_stats,
+    update_running_stats,
+)
 from far_tpu_torch.models.constants import compute_normalized_6d
 from far_tpu_torch.models.fine import (
     FinePreprocess,
     fine_coords_to_kpts,
     fine_matching,
 )
-from far_tpu_torch.models.matching import coarse_match
+from far_tpu_torch.models.matching import (
+    coarse_match,
+    ids_to_coords,
+    select_topk_matches,
+    sinkhorn_confidence,
+)
 from far_tpu_torch.models.position import add_sine_position_encoding
 from far_tpu_torch.models.regressor import PoseRegressorEMM, lin
 from far_tpu_torch.models.transformer import LocalFeatureTransformer
@@ -36,6 +59,14 @@ from far_tpu_torch.utils.config import FARConfig
 
 def compute_dtype(cfg: FARConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """remat='selective': keep the convolutions' outputs (the JAX package's
+    'bb_conv' names), recompute every other op."""
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class TranslationScaleHead(nn.Module):
@@ -78,8 +109,8 @@ class FARLoFTR(nn.Module):
         super().__init__()
         if cfg.backbone.resolution != (8, 2):
             raise NotImplementedError("the port has the 8/2 backbone only")
-        if cfg.match.match_type != "dual_softmax":
-            raise NotImplementedError("the port has dual-softmax matching only")
+        if cfg.match.match_type not in ("dual_softmax", "sinkhorn"):
+            raise ValueError(f"unknown match_type {cfg.match.match_type!r}")
         if cfg.backbone.norm != "batch":
             raise NotImplementedError("the port has BatchNorm only")
         for stack in (cfg.coarse, cfg.fine):
@@ -91,6 +122,9 @@ class FARLoFTR(nn.Module):
                                       tuple(cfg.backbone.block_dims))
         self.loftr_coarse = LocalFeatureTransformer(
             cfg.coarse.d_model, cfg.coarse.nhead, cfg.coarse.layer_names)
+        if cfg.match.match_type == "sinkhorn":
+            self.bin_score = nn.Parameter(
+                torch.tensor(cfg.match.skh_init_bin_score, dtype=torch.float32))
         self.fine_preprocess = FinePreprocess(cfg.fine, cfg.coarse.d_model)
         self.loftr_fine = LocalFeatureTransformer(
             cfg.fine.d_model, cfg.fine.nhead, cfg.fine.layer_names,
@@ -111,13 +145,37 @@ class FARLoFTR(nn.Module):
         hc, wc = cfg.coarse_hw
         B = image0.shape[0]
         imgs = torch.cat([image0, image1], dim=0).permute(0, 3, 1, 2)
-        feat_c, feat_f = self.backbone(imgs.to(self.dtype))
+        feat_c, feat_f = self.run_backbone(imgs.to(self.dtype))
         feat_c_hwc = feat_c.permute(0, 2, 3, 1)
         feat_f = feat_f.permute(0, 2, 3, 1).contiguous()
         t = add_sine_position_encoding(feat_c_hwc, cfg.coarse.temp_bug_fix)
         t = t.reshape(2 * B, hc * wc, -1).contiguous()
         t0, t1 = self.loftr_coarse(t[:B], t[B:])
         return feat_c, feat_f[:B], feat_f[B:], t0, t1
+
+    def run_backbone(self, imgs: torch.Tensor):
+        """The backbone, under ``torch.utils.checkpoint`` in training when
+        ``cfg.remat`` asks for it (eval ignores the field). The BatchNorms'
+        running updates of the first pass are applied once, after it; those
+        of the backward pass's recompute are dropped."""
+        remat = self.config.remat
+        if not (self.training and remat):
+            return self.backbone(imgs)
+        passes = []
+
+        def run(x):
+            with deferred_running_stats([]) as stats:
+                out = self.backbone(x)
+            passes.append(stats)
+            return out
+
+        context = {}
+        if remat == "selective":
+            context["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_convolutions)
+        out = checkpoint(run, imgs, use_reentrant=False, **context)
+        update_running_stats(passes[0])
+        return out
 
     def fine_stage(self, feat_f0, feat_f1, t0, t1, i_ids, j_ids):
         """Window gather + fine transformer + soft-argmax -> expec_f."""
@@ -137,12 +195,21 @@ class FARLoFTR(nn.Module):
         translation_scale = None
         if cfg.predict_translation_scale:  # from the maps before the transformer
             translation_scale = self.ts_head(feat_c[:B], feat_c[B:])
-        res = coarse_match(
-            t0, t1, (hc, wc), (hc, wc), float(cfg.backbone.resolution[0]),
-            cfg.match, scale0=batch.scale0, scale1=batch.scale1,
-            return_conf=self.training)
-        i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = res[:6]
-        conf = res[6] if self.training else None
+        stride = float(cfg.backbone.resolution[0])
+        if cfg.match.match_type == "sinkhorn":
+            conf = sinkhorn_confidence(t0, t1, self.bin_score, cfg.match.skh_iters)
+            i_ids, j_ids, mconf, valid = select_topk_matches(
+                conf, (hc, wc), (hc, wc), cfg.match)
+            mkpts0 = ids_to_coords(i_ids, wc, stride, batch.scale0) * valid[..., None]
+            mkpts1 = ids_to_coords(j_ids, wc, stride, batch.scale1) * valid[..., None]
+            if not self.training:
+                conf = None
+        else:
+            res = coarse_match(
+                t0, t1, (hc, wc), (hc, wc), stride, cfg.match,
+                scale0=batch.scale0, scale1=batch.scale1, return_conf=self.training)
+            i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = res[:6]
+            conf = res[6] if self.training else None
         expec_f = self.fine_stage(feat_f0, feat_f1, t0, t1, i_ids, j_ids)
         mkpts1_f = fine_coords_to_kpts(
             expec_f, mkpts1, cfg.fine.window_size,

@@ -1,4 +1,4 @@
-"""Coarse dual-softmax matching with static top-k selection.
+"""Coarse matching with static top-k selection.
 
 Counterpart of ``far_tpu/models/matching.py``. In eval the row/column
 reductions of the dual-softmax confidences come from kernel K2
@@ -6,11 +6,15 @@ reductions of the dual-softmax confidences come from kernel K2
 training (``return_conf``) the dense (B, L, S) matrix is computed in
 plain torch, as the loss needs it, and K2 does not run. Either way the
 border, threshold and mutual-nearest-neighbour tests and a static top-k
-over rows make exactly K match slots per pair.
+over rows make exactly K match slots per pair. The Sinkhorn option
+(``log_sinkhorn``, ``sinkhorn_confidence``: optimal transport with a
+learned dustbin) is plain torch in both modes, as in the JAX package, and
+goes through the dense selection; K2 does not run on it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -54,6 +58,41 @@ def dual_softmax_confidence(feat0: torch.Tensor, feat1: torch.Tensor,
     f1 = (feat1 / C ** 0.5).float()
     sim = torch.einsum("nlc,nsc->nls", f0, f1) / temperature
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def log_sinkhorn(scores: torch.Tensor, bin_score: torch.Tensor,
+                 iters: int) -> torch.Tensor:
+    """Log-domain Sinkhorn with a dustbin row and column (SuperGlue's).
+
+    scores (B, L, S) float32, bin_score a scalar -> the (B, L+1, S+1) log
+    assignment matrix after ``iters`` row/column normalisations."""
+    B, L, S = scores.shape
+    b = bin_score.to(scores.dtype).expand(B, 1, 1)
+    couplings = torch.cat([torch.cat([scores, b.expand(B, L, 1)], dim=2),
+                           torch.cat([b.expand(B, 1, S), b], dim=2)], dim=1)
+    norm = -math.log(L + S)
+    log_mu = scores.new_full((B, L + 1), norm)
+    log_mu[:, L] = math.log(S) + norm
+    log_nu = scores.new_full((B, S + 1), norm)
+    log_nu[:, S] = math.log(L) + norm
+    u = scores.new_zeros((B, L + 1))
+    v = scores.new_zeros((B, S + 1))
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
+    return couplings + u[:, :, None] + v[:, None, :] - norm
+
+
+def sinkhorn_confidence(feat0: torch.Tensor, feat1: torch.Tensor,
+                        bin_score: torch.Tensor, iters: int = 3) -> torch.Tensor:
+    """The Sinkhorn confidence matrix (B, L, S) float32 of sim = <f0, f1> / C
+    (each side scaled by C^-1/2 first), the dustbin row and column
+    dropped."""
+    C = feat0.shape[-1]
+    f0 = (feat0 / C ** 0.5).float()
+    f1 = (feat1 / C ** 0.5).float()
+    sim = torch.einsum("nlc,nsc->nls", f0, f1)
+    return torch.exp(log_sinkhorn(sim, bin_score, iters))[:, :-1, :-1]
 
 
 def select_topk_matches(conf: torch.Tensor, hw0: Tuple[int, int],

@@ -129,6 +129,17 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
                      f"device, got {sorted(map(str, devices))}")
 
 
+def refuse_grad(what: str, tensors: Iterable[torch.Tensor]) -> None:
+    """A kernel's output has no ``grad_fn``: in grad mode, an input that
+    requires grad raises here instead of losing its gradient silently.
+    ``<what>_auto`` is the differentiable form (it calls the wrapper from
+    its ``forward``, where grad mode is off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no gradient and an input requires "
+            f"grad; call {what}_auto, or run under torch.no_grad()")
+
+
 def dtype_code(t: torch.Tensor) -> int:
     """0 for float32, 1 for bfloat16: the storage types the kernels take."""
     if t.dtype == torch.float32:

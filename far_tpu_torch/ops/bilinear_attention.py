@@ -152,9 +152,13 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k: (B, H, N, D); v: (B, H, N, Dv).
     Returns:
         (B, H, Dv, Dv) float32.
+
+    On CUDA, inputs that require grad raise in grad mode
+    (``bilinear_dual_softmax_auto`` is the differentiable form).
     """
     if _build.on_cpu(q, k, v):
         return bilinear_dual_softmax_plain(q, k, v, scale)
+    _build.refuse_grad("bilinear_dual_softmax", (q, k, v))
     B, H, N, D = q.shape
     Dv = v.shape[-1]
     code = _build.dtype_code(q)

@@ -93,12 +93,15 @@ def fine_transformer(f0: torch.Tensor, f1: torch.Tensor,
 
     ``pack`` (from ``pack_fine_params(params, f0.dtype)``) saves the
     kernel path its per-call cast of the weights; the plain version on
-    the CPU reads ``params``."""
+    the CPU reads ``params``. On CUDA, inputs that require grad raise in
+    grad mode (``fine_transformer_auto`` is the differentiable form)."""
     for name in layer_names:
         if name not in ("self", "cross"):
             raise KeyError(name)
     if _build.on_cpu(f0, f1):
         return fine_transformer_plain(f0, f1, params, layer_names, nhead)
+    _build.refuse_grad("fine_transformer",
+                       (f0, f1, *(w for p in params for w in p.values())))
     n, s, C = f0.shape
     code = _build.dtype_code(f0)
     _build.require(f1.dtype == f0.dtype and f1.shape == f0.shape,

@@ -104,9 +104,11 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
     """One LoFTR encoder layer: ``x`` (B, L, C) attends to ``source``
     (B, S, C). CPU tensors take the plain version; CUDA tensors launch
     the tensor-core route for the bfloat16 shapes it is built for, else
-    the CUDA-core route."""
+    the CUDA-core route. On CUDA, inputs that require grad raise in grad
+    mode (``loftr_layer_auto`` is the differentiable form)."""
     if _build.on_cpu(x, source):
         return loftr_layer_plain(x, source, params, nhead)
+    _build.refuse_grad("loftr_layer", (x, source, *params.values()))
     B, L, C = x.shape
     S = source.shape[1]
     code = _build.dtype_code(x)

@@ -1,0 +1,111 @@
+"""Validation during training for FARLoFTR.
+
+Counterpart of ``far_tpu/train/validation.py:validate_far``: one pass over
+a validation set in sequential shards, the per-pair pose errors and the
+per-match symmetric epipolar distances of the K-normalised keypoints
+against the ground truth's essential matrix, the gather across processes
+(the identity in one) and the Matterport table. Its ``rot mean err`` is
+the signal a trainer keeps its best checkpoint by. The JAX package can
+also dump match figures of the first batch; that needs matplotlib, which
+the port does not import, so it is left out (ROADMAP, with
+``eval/visualise.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from far_tpu_torch.data.loader import Loader, to_device
+from far_tpu_torch.data.sampler import sequential_indices
+from far_tpu_torch.eval.metrics import aggregate_metrics, relative_pose_error
+from far_tpu_torch.geometry.epipolar import (
+    essential_from_pose34,
+    symmetrical_epipolar_distance,
+)
+from far_tpu_torch.geometry.transforms import normalize_kpts_by_K
+from far_tpu_torch.models.loftr import FARLoFTR
+from far_tpu_torch.parallel.comm import (
+    all_gather_metrics,
+    decode_strings,
+    encode_strings,
+    process_count,
+    process_index,
+)
+from far_tpu_torch.pipeline import build_inference_fn
+
+_KEYS = ("identifiers", "R_errs", "t_errs", "t_errs_abs", "successful_fits",
+         "epi_errs")
+
+
+def validate_far(
+    model: FARLoFTR,
+    dataset,
+    batch_size: int,
+    max_matches: Optional[int] = None,
+    max_batches: int = 0,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    prior_pcl: Optional[torch.Tensor] = None,
+) -> Dict:
+    """One validation pass of ``model`` (``build_inference_fn``, on the
+    model's device) over ``dataset`` -> the Matterport table.
+
+    Args:
+        dataset: items with the images, intrinsics, ``T_0to1`` and
+            ``pair_names`` (joined with '#' into each pair's identifier).
+        max_matches: width of each pair's NaN-padded epipolar row (the
+            config's ``match.max_matches`` by default).
+        max_batches: stop after this many batches (0: all).
+        generator: the RANSAC sampler's generator, on the model's device.
+        uniforms: optional sampler draws in place of the generator's: for
+            each batch the per-round list that ``far_forward`` takes.
+        prior_pcl: optional probe cloud of the prior rounds.
+    Returns:
+        the table of ``aggregate_metrics``, with 'rot mean err'.
+    """
+    device = next(model.parameters()).device
+    max_matches = max_matches or model.config.match.max_matches
+    fn = build_inference_fn(model)
+    idx = sequential_indices(len(dataset), rank=process_index(),
+                             world_size=process_count())
+    acc = {k: [] for k in _KEYS}
+    for bi, (batch, meta) in enumerate(Loader(dataset, idx, batch_size, keep_meta=True)):
+        if max_batches and bi >= max_batches:
+            break
+        batch = to_device(batch, device)
+        out = fn(batch, generator=generator,
+                 uniforms=None if uniforms is None else uniforms[bi],
+                 prior_pcl=prior_pcl)
+        m = out.matches
+        with torch.inference_mode():
+            E_gt = essential_from_pose34(batch.T_0to1[:, :3, :4])
+            p0 = normalize_kpts_by_K(m.mkpts0_f.float(), batch.K0)
+            p1 = normalize_kpts_by_K(m.mkpts1_f.float(), batch.K1)
+            epi = symmetrical_epipolar_distance(p0, p1, E_gt).cpu().numpy()
+        R, t = out.R.float().cpu().numpy(), out.t.float().cpu().numpy()
+        T = batch.T_0to1.cpu().numpy()
+        valid = m.valid.cpu().numpy()
+        success = out.success.cpu().numpy()
+        for b in range(R.shape[0]):
+            t_err, r_err, t_abs = relative_pose_error(T[b], R[b], t[b])
+            acc["identifiers"].append("#".join(meta["pair_names"][b]))
+            acc["R_errs"].append(r_err)
+            acc["t_errs"].append(t_err)
+            acc["t_errs_abs"].append(t_abs)
+            acc["successful_fits"].append(float(success[b]))
+            e = np.full(max_matches, np.nan, np.float32)
+            ev = epi[b][valid[b]][:max_matches]
+            e[: len(ev)] = ev
+            acc["epi_errs"].append(e)
+
+    gathered = all_gather_metrics({
+        **{k: np.asarray(acc[k]) for k in _KEYS if k != "identifiers"},
+        "identifiers": encode_strings(acc["identifiers"]),
+    })
+    acc = {k: list(v) for k, v in gathered.items()}
+    acc["identifiers"] = decode_strings(np.asarray(gathered["identifiers"]))
+    acc["epi_errs"] = [e[~np.isnan(e)] for e in gathered["epi_errs"]]
+    return aggregate_metrics(acc)

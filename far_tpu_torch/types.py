@@ -28,6 +28,7 @@ class PairBatch:
     depth1: Optional[torch.Tensor] = None
     scale0: Optional[torch.Tensor] = None    # (B, 2) resize scale <w, h>
     scale1: Optional[torch.Tensor] = None
+    pair_id: Optional[torch.Tensor] = None   # (B,) int64
 
 
 @dataclasses.dataclass

@@ -2,8 +2,8 @@
 
 The port's own copy of ``far_tpu/utils/config.py``: the same fields and
 defaults (a test holds the two equal), so a config means the same thing
-to both packages. Fields that only the JAX package reads (training,
-remat, TPU layout switches) are kept so the two stay comparable.
+to both packages. Fields that only the JAX package reads (TPU layout
+switches) are kept so the two stay comparable.
 Hierarchy: FARConfig{backbone, coarse, match, fine, regress, solver,
 loss}.
 """
@@ -141,7 +141,7 @@ class FARConfig:
     predict_translation_scale: bool = False
     dtype: str = "float32"  # compute dtype: 'float32' | 'bfloat16'
     # backbone rematerialization in training (False | True | 'full' |
-    # 'selective'); inference ignores it
+    # 'selective': keep the convolutions' outputs); inference ignores it
     remat: Union[bool, str] = False
 
     def __post_init__(self):

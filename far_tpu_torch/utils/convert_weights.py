@@ -144,6 +144,10 @@ def build_loftr_mapping(cfg) -> Tuple[list, list]:
     P += _stack_entries("loftr_fine", ("fine_matching", "loftr_fine"),
                         tuple(cfg.fine.layer_names))
 
+    # ----- Sinkhorn dustbin score (the JAX package's top-level param) -----
+    if cfg.match.match_type == "sinkhorn":
+        P.append(("bin_score", ("bin_score",), _ident))
+
     # ----- fine preprocess ----------------------------------------------
     if cfg.fine.concat_coarse_feat:
         P += _lin_entries("fine_preprocess.down_proj",
@@ -249,13 +253,16 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Deterministic random weights from ``torch.Generator(seed)``, drawn
     on the CPU in sorted key order: LeCun-normal kernels (Flax's default),
     unit norm scales, zero biases and BatchNorm means, unit variances,
-    truncated-normal(0.02) position embeddings."""
+    truncated-normal(0.02) position embeddings, and the Sinkhorn dustbin
+    score at the config's ``skh_init_bin_score``."""
     g = torch.Generator().manual_seed(seed)
     for name, t in sorted(model.state_dict(keep_vars=True).items()):
         if name.endswith("num_batches_tracked") or name.endswith("running_mean"):
             v = torch.zeros(t.shape, dtype=t.dtype)
         elif name.endswith("running_var"):
             v = torch.ones(t.shape)
+        elif name == "bin_score":
+            v = torch.tensor(model.config.match.skh_init_bin_score)
         elif name.endswith("pos_embed"):
             v = (torch.randn(t.shape, generator=g) * 0.02).clamp(-0.04, 0.04)
         elif t.ndim >= 2:

@@ -549,3 +549,42 @@ def test_fine_transformer_f32_every_window_size(card, n, s, C, H):
     assert fine_transformer.launches_tc == before_tc
     tol = 1e-4 * float(max(r0.abs().max(), r1.abs().max()))
     assert float(max((o0 - r0).abs().max(), (o1 - r1).abs().max())) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bare_wrappers_refuse_grad_and_auto_forms_train(card, dtype):
+    """A bare K1, K3 or K4 wrapper on CUDA inputs that require grad raises
+    in grad mode (its output would have no grad_fn), runs under no_grad,
+    and its ``*_auto`` Function gives every input a gradient."""
+    from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_auto
+    from far_tpu_torch.ops.fine_layer import fine_transformer_auto
+    from far_tpu_torch.ops.loftr_layer import loftr_layer_auto
+
+    g = torch.Generator().manual_seed(5)
+    x, src = (torch.randn(2, 96, 64, generator=g).to(card, dtype) for _ in range(2))
+    q, k = (torch.randn(2, 4, 96, 32, generator=g).to(card, dtype) for _ in range(2))
+    v = torch.randn(2, 4, 96, 38, generator=g).to(card, dtype)
+    w0, w1 = (torch.randn(6, 25, 64, generator=g).to(card, dtype) for _ in range(2))
+    p = _params(64, g, card)
+    fp = [_params(64, g, card) for _ in range(2)]
+    names = ("self", "cross")
+    calls = {
+        "loftr_layer": (lambda a, b: loftr_layer(a, b, p, 8),
+                        lambda a, b: loftr_layer_auto(a, b, p, 8), (x, src)),
+        "bilinear_dual_softmax": (lambda *a: bilinear_dual_softmax(*a, 0.2),
+                                  lambda *a: bilinear_dual_softmax_auto(*a, 0.2), (q, k, v)),
+        "fine_transformer": (lambda a, b: fine_transformer(a, b, fp, names, 8)[0],
+                             lambda a, b: fine_transformer_auto(a, b, fp, names, 8)[0],
+                             (w0, w1)),
+    }
+    for what, (bare, auto, inputs) in calls.items():
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        with pytest.raises(RuntimeError, match=f"{what}_auto"):
+            bare(*leaves)
+        with torch.no_grad():
+            assert bare(*leaves).grad_fn is None
+        auto(*leaves).float().sum().backward()
+        torch.cuda.synchronize()
+        for t in leaves:
+            assert t.grad is not None and bool(torch.isfinite(t.grad).all()), what
