@@ -52,7 +52,24 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    B=2 under remat False, "full" and "selective" from the same weights
    and draws: gradients and BatchNorm statistics against the step without
    remat, and each step's peak memory ("full" below False); (d) one step
-   at B=8 with remat "full", its peak memory and time.
+   at B=8 with remat "full", its peak memory and time;
+11. ViTEss (``far_tpu_torch.models.vitess``): (a) ``tests/golden/
+   vitess_seed0.npz`` replayed with weights from ``far_tpu_torch.utils.
+   parity.synth_state_dict``, f32 (TF32 off) with every tap under the CPU
+   tests' gate, and bf16: finite, an orthonormal rotation and within
+   BF16_GATE max|f32| of the f32 replay; (b) ``vitess_forward`` at full
+   width, B=4: ViTEss gated by a ``FARConfig()`` matcher at 480x640 (the
+   launch counters, set to 0 before each request, read K1/K2/K3/K4
+   16/1/1/2) and alone (0/0/0/2), three requests each in f32 and bf16;
+12. map-free 6DReg (``far_tpu_torch.models.sixdreg``): (a)
+   ``tests/golden/sixdreg_seed0.npz`` as in 11 (a); (b) ``mapfree_forward``
+   at full width, B=4: a 720x544 ``FARConfig(regress_rt=False)`` matcher
+   and ``SixDRegConfig()`` at 368x272, three requests each in f32 and
+   bf16, counters 16/1/1/0 a request, finite outputs, R orthonormal to
+   1e-3, and the peak memory.
+Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
+(B=2) and K4 at ViTEss's CrossBlock shape (B=4, 3 heads, N=576, D=64,
+Dv=70) against their plain versions in both dtypes.
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -67,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
 # cores, bf16 tensor cores, HBM3 bandwidth.
@@ -82,6 +100,8 @@ L_COARSE = 60 * 80  # coarse tokens at 480x640
 C_COARSE, H_COARSE = 256, 8
 K_MATCH, WW, C_FINE, H_FINE = 1024, 25, 128, 8
 H_EMM, D_EMM = 4, 64
+L_MAPFREE = 90 * 68          # coarse tokens of the 720x544 map-free matcher
+VITESS_K4 = (4, 3, 576, 64, 70)  # K4 in ViTEss's CrossBlock at B=4: B, H, N, D, Dv
 
 
 def fail(msg: str) -> None:
@@ -147,6 +167,29 @@ def layer_params(C: int, g, device):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def k2_errors(a, b, outs):
+    """K2's outputs against its plain version: (max abs error of the row
+    and column maxima and of the plain confidence at the kernel's row
+    index, tolerance 1e-6 + 1e-4 max|ref|, row indices that differ, mutual
+    pairs of the plain version that the kernel's test drops). An index may
+    differ only where the plain confidence has a near-tie."""
+    import torch
+
+    from far_tpu_torch.ops.matching_kernel import dual_softmax_rowcol_plain
+
+    rv, ri, cm = outs
+    prv, pri, pcm = dual_softmax_rowcol_plain(a, b, 10.0)
+    torch.cuda.synchronize()
+    sim = torch.einsum("blc,bsc->bls", a.float(), b.float()) * 10.0
+    conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
+    idx_gap = float((prv - torch.gather(conf, 2, ri[..., None])[..., 0]).abs().max())
+    del sim, conf
+    lost = int(((torch.gather(pcm, 1, pri) <= prv)
+                & ~(torch.gather(cm, 1, ri) <= rv)).sum())
+    err = max(max_err(rv, prv), max_err(cm, pcm), idx_gap)
+    return err, 1e-6 + 1e-4 * float(prv.abs().max()), int((ri != pri).sum()), lost
 
 
 ROUTES = {  # how each kernel computes in bfloat16
@@ -251,22 +294,7 @@ def check_kernels(dev):
     for dt in (torch.bfloat16, torch.float32):
         a = (f0.to(dt) * scale.to(dt)).to(dev).contiguous()
         b = (f1.to(dt) * scale.to(dt)).to(dev).contiguous()
-        rv, ri, cm = dual_softmax_rowcol(a, b, 10.0)
-        prv, pri, pcm = dual_softmax_rowcol_plain(a, b, 10.0)
-        torch.cuda.synchronize()
-        err = max(max_err(rv, prv), max_err(cm, pcm))
-        # an index may differ only where the plain conf has a near-tie
-        sim = torch.einsum("blc,bsc->bls", a.float(), b.float()) * 10.0
-        conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
-        at_k = torch.gather(conf, 2, ri[..., None])[..., 0]
-        idx_gap = float((prv - at_k).abs().max())
-        n_diff = int((ri != pri).sum())
-        # mutual pairs of the plain version that the kernel's test drops
-        lost = int(((torch.gather(pcm, 1, pri) <= prv)
-                    & ~(torch.gather(cm, 1, ri) <= rv)).sum())
-        del sim, conf
-        err = max(err, idx_gap)
-        tol = 1e-6 + 1e-4 * float(prv.abs().max())
+        err, tol, n_diff, lost = k2_errors(a, b, dual_softmax_rowcol(a, b, 10.0))
         ms = cuda_ms(lambda: dual_softmax_rowcol(a, b, 10.0), 10)
         plain_ms = cuda_ms(lambda: dual_softmax_rowcol_plain(a, b, 10.0), 5)
 
@@ -360,15 +388,8 @@ def check_kernels(dev):
         sc = torch.tensor(1.0 / Cr ** 0.5).to(torch.bfloat16)
         a = (f0.to(torch.bfloat16) * sc).to(dev).contiguous()
         b = (f1.to(torch.bfloat16) * sc).to(dev).contiguous()
-        rv, ri, cm = dual_softmax_rowcol(a, b, 10.0)
-        prv, pri, pcm = dual_softmax_rowcol_plain(a, b, 10.0)
-        torch.cuda.synchronize()
-        sim = torch.einsum("blc,bsc->bls", a.float(), b.float()) * 10.0
-        conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
-        idx_gap = float((prv - torch.gather(conf, 2, ri[..., None])[..., 0]).abs().max())
-        ragged(f"K2_dual_softmax_rowcol bf16 B={Br} L={Lr} S={Sr} C={Cr}",
-               max(max_err(rv, prv), max_err(cm, pcm), idx_gap),
-               1e-6 + 1e-4 * float(prv.abs().max()))
+        err, tol, _, _ = k2_errors(a, b, dual_softmax_rowcol(a, b, 10.0))
+        ragged(f"K2_dual_softmax_rowcol bf16 B={Br} L={Lr} S={Sr} C={Cr}", err, tol)
 
     # ---- the CUDA-core routes at shapes the tensor-core routes lack ------
     # (a generator of its own). The route that ran is read from the
@@ -430,6 +451,81 @@ def check_kernels(dev):
             lambda: fine_transformer_plain(a, b, pr, names, H_FINE), 1e-4,
             4 * n * (20 * sr * Cr ** 2 + 4 * sr * Cr * (Cr // H_FINE)),
             4 * n * sr * Cr * 4 + 2 * 10 * Cr ** 2 * 4)
+
+    # ---- the ViTEss and map-free paths' shapes (a generator of its own) --
+    # K1 and K2 at the 90x68 = 6120 coarse tokens of a 720x544 map-free
+    # matcher image (not a multiple of 64), K4 as ViTEss's CrossBlock runs
+    # it; the route that ran is read from launches_tc
+    gf = torch.Generator().manual_seed(3)
+
+    def family_shape(name, dt, shape, wrapper, call, plain, check, flops, nbytes,
+                     library=None):
+        tc0 = wrapper.launches_tc
+        outs = call()
+        torch.cuda.synchronize()
+        route = "tensor cores" if wrapper.launches_tc > tc0 else "cuda cores"
+        err, tol = check(outs)
+        ms, plain_ms = cuda_ms(call, 10), cuda_ms(plain, 3)
+        lib_ms = None if library is None else cuda_ms(library, 3)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        ok = err <= tol
+        print(f"kernel {name} {tag} {shape}: route {route}, max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}) {'ok' if ok else 'DISAGREES'} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms}",
+              flush=True)
+        if not ok:
+            failures.append(f"{name} {tag} {shape}")
+        entries.setdefault(name, {}).setdefault("family_shapes", []).append(dict(
+            shape=shape, dtype=tag, route=route, max_abs_err=err, tol=tol, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+
+    Lm = L_MAPFREE
+    x32, s32 = (torch.randn(B, Lm, C, generator=gf).to(dev) for _ in range(2))
+    p = layer_params(C, gf, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x, s = x32.to(dt), s32.to(dt)
+        pk = pack_params(p, dt)
+        ref = loftr_layer_plain(x.float(), s.float(), p, H_COARSE)
+        rel = 1e-4 if dt == torch.float32 else 6e-2
+        family_shape(
+            "K1_loftr_layer", dt, f"B={B} L=S={Lm} C={C} nhead={H_COARSE}", loftr_layer,
+            lambda: loftr_layer(x, s, pk, H_COARSE),
+            lambda: loftr_layer_plain(x, s, p, H_COARSE),
+            lambda out: (max_err(out, ref), rel * float(ref.abs().max())),
+            B * (20 * Lm * C * C + 4 * Lm * C * (C // H_COARSE) + 2 * Lm * C),
+            3 * B * Lm * C * x.element_size() + 10 * C * C * x.element_size() + 4 * C * 4)
+    del x32, s32
+    f0 = torch.randn(B, Lm, C, generator=gf)
+    f1 = f0[:, torch.randperm(Lm, generator=gf)] + 0.5 * torch.randn(B, Lm, C, generator=gf)
+    for dt in (torch.bfloat16, torch.float32):
+        a = (f0.to(dt) * scale.to(dt)).to(dev).contiguous()
+        b = (f1.to(dt) * scale.to(dt)).to(dev).contiguous()
+
+        def library():
+            sm = torch.bmm(a, b.transpose(1, 2)).float() * 10.0
+            cf = torch.softmax(sm, 1) * torch.softmax(sm, 2)
+            return cf.max(2), cf.amax(1)
+
+        family_shape(
+            "K2_dual_softmax_rowcol", dt, f"B={B} L=S={Lm} C={C}", dual_softmax_rowcol,
+            lambda: dual_softmax_rowcol(a, b, 10.0),
+            lambda: dual_softmax_rowcol_plain(a, b, 10.0),
+            lambda outs: k2_errors(a, b, outs)[:2], 2 * B * Lm * Lm * C,
+            2 * B * Lm * C * a.element_size() + B * Lm * (4 + 8 + 4), library)
+    Bv, Hv, Nv, Dq, Dvv = VITESS_K4
+    q32, k32 = (torch.randn(Bv, Hv, Nv, Dq, generator=gf).to(dev) for _ in range(2))
+    v32 = torch.randn(Bv, Hv, Nv, Dvv, generator=gf).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+        ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dq ** -0.5)
+        family_shape(
+            "K4_bilinear_dual_softmax", dt, f"B={Bv} H={Hv} N={Nv} D={Dq} Dv={Dvv}",
+            bilinear_dual_softmax, lambda: bilinear_dual_softmax(q, k, v, Dq ** -0.5),
+            lambda: bilinear_dual_softmax_plain(q, k, v, Dq ** -0.5),
+            lambda out: (max_err(out, ref), k4_tol(dt, ref)),
+            Bv * Hv * (2 * Nv * Nv * Dq + 2 * Nv * Nv * Dvv + 2 * Nv * Dvv * Dvv),
+            Bv * Hv * Nv * (2 * Dq + Dvv) * q.element_size() + Bv * Hv * Dvv * Dvv * 4)
 
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -1233,6 +1329,312 @@ def remat_steps(dev, card: str):
     torch.cuda.empty_cache()
 
 
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
+# the bf16 golden replays against the f32 ones on the card, relative to
+# max|f32 output|
+BF16_GATE = 1e-1
+# launches a request: ViTEss gated by a FARConfig() matcher (K4 twice in
+# its CrossBlock), ViTEss alone, map-free (matcher with regress_rt=False)
+VITESS_GATED = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1,
+                "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 2}
+VITESS_UNGATED = {"K1_loftr_layer": 0, "K2_dual_softmax_rowcol": 0,
+                  "K3_fine_transformer": 0, "K4_bilinear_dual_softmax": 2}
+MAPFREE = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1,
+           "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 0}
+
+
+def hooked(model, names):
+    """{tap: [outputs]} filled by forward hooks on the named modules."""
+    got = {}
+    mods = dict(model.named_modules())
+    for tap, mod in names.items():
+        mods[mod].register_forward_hook(
+            lambda m, a, o, tap=tap: got.setdefault(tap, []).append(o))
+    return got
+
+
+def orth_err(R) -> float:
+    import torch
+
+    eye = torch.eye(3, device=R.device)
+    return float((R.float().transpose(-1, -2) @ R.float() - eye).abs().max())
+
+
+def tap_errors(family: str, taps, ours) -> dict:
+    """{tap: (max abs error, the CPU tests' gate)}."""
+    import numpy as np
+
+    from far_tpu_torch.utils.parity import tap_tolerance
+
+    out = {}
+    for name, tap in sorted(taps.items()):
+        ref = np.asarray(tap, np.float32)
+        got = ours[name].float().cpu().numpy().reshape(ref.shape)
+        out[name] = (float(np.abs(got - ref).max()), tap_tolerance(family, name, ref))
+    return out
+
+
+def close_to(what: str, got: dict, ref: dict, names, bad: list) -> None:
+    """Each of ``names`` finite and within BF16_GATE max|ref| of ``ref``."""
+    for name in names:
+        err = max_err(got[name], ref[name])
+        gate = BF16_GATE * float(ref[name].abs().max())
+        finite = bool(got[name].float().isfinite().all())
+        print(f"{what} {name}: max_abs_err={err:.3e} (gate {gate:.3e}) finite {finite}",
+              flush=True)
+        if not (finite and err <= gate):
+            bad.append(f"{what} {name}")
+
+
+def golden_replays(family: str, fixture: str, run, outputs, rot: str, staged=None):
+    """Phases 11 (a), 12 (a). ``run(meta, inputs, dtype, cudnn,
+    encoder_out=None)`` replays the fixture and returns its taps and
+    outputs. The f32 replay runs PyTorch's own (GEMM) convolution, cuDNN
+    off, and holds every tap to the CPU tests' gate: cuDNN's f32 algorithms
+    round differently, and the map-free correlation volume's near-tied
+    softmax rows carry that past the f16 taps' gate. The replay with cuDNN
+    and its distance from the GEMM one are printed beside it. bf16 (cuDNN
+    on, as requests run): finite, ``rot`` orthonormal to 1e-3, ``outputs``
+    within BF16_GATE max|f32|. With ``staged`` (the map-free encoder's
+    maps) the bf16 replay is held in two stages instead: the maps to the
+    f32 replay's, and the outputs to an f32 replay fed the bf16 maps. The
+    end-to-end difference is printed, not gated, beside what one bf16
+    rounding of the f32 maps alone does to the outputs and the correlation
+    logits' largest value and top-2 gap quantiles, which show why."""
+    import torch
+
+    from far_tpu_torch.utils.parity import load_fixture
+
+    meta, inputs, _, taps = load_fixture(GOLDEN / fixture)
+    f32 = run(meta, inputs, "float32", cudnn=False)
+    f32_cudnn = run(meta, inputs, "float32", cudnn=True)
+    bf16 = run(meta, inputs, "bfloat16", cudnn=True)
+    bad = []
+    errs, errs_cudnn = tap_errors(family, taps, f32), tap_errors(family, taps, f32_cudnn)
+    for name, (err, tol) in errs.items():
+        print(f"golden {family} f32 {name}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if err <= tol else 'DISAGREES'}; with cuDNN {errs_cudnn[name][0]:.3e}, "
+              f"cuDNN vs GEMM {max_err(f32_cudnn[name], f32[name]):.3e}", flush=True)
+        if not err <= tol:
+            bad.append(name)
+    if staged is None:
+        close_to(f"golden {family} bf16 vs f32", bf16, f32, outputs, bad)
+    else:
+        close_to(f"golden {family} bf16 vs f32", bf16, f32, staged, bad)
+        fed = run(meta, inputs, "float32", cudnn=False,
+                  encoder_out=[t.float() for t in (bf16[n] for n in staged)])
+        close_to(f"golden {family} bf16 vs f32 fed the bf16 {'/'.join(staged)}", bf16, fed,
+                 outputs, bad)
+        rounded = run(meta, inputs, "float32", cudnn=False,
+                      encoder_out=[f32[n].bfloat16().float() for n in staged])
+        for name in outputs:
+            print(f"golden {family} bf16 vs f32 end to end {name}: max_abs_err="
+                  f"{max_err(bf16[name], f32[name]):.3e}; f32 fed its own maps rounded "
+                  f"to bf16: {max_err(rounded[name], f32[name]):.3e} (not gated)", flush=True)
+        f0, f1 = (f32[n].flatten(2).transpose(1, 2).float() for n in staged)
+        sim = f0 @ f1.transpose(1, 2)
+        top = sim.topk(2, dim=2).values
+        q = torch.quantile((top[..., 0] - top[..., 1]).flatten().cpu(),
+                           torch.tensor([0.01, 0.1, 0.5]))
+        print(f"golden {family} correlation logits: max {float(sim.max()):.1f}, top-2 gap "
+              f"quantiles 1/10/50 % {[round(float(v), 3) for v in q]}", flush=True)
+    if not orth_err(bf16[rot]) <= 1e-3:
+        bad.append(f"bf16 {rot} not orthonormal")
+    if bad:
+        fail(f"golden {family} replay on the card: {bad}")
+
+
+def vitess_golden(dev):
+    """Phase 11 (a): tests/golden/vitess_seed0.npz (gated ViTEss, 224x224)."""
+    import numpy as np
+    import torch
+
+    from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
+    from far_tpu_torch.utils.convert_weights import load_reference_state_dict
+    from far_tpu_torch.utils.parity import synth_state_dict
+
+    def run(meta, inputs, dtype, cudnn, encoder_out=None):
+        # reference input (B, 2, 3, H, W) BGR in [0, 255] -> RGB [0, 1] NHWC
+        im = inputs["images"][:, :, ::-1].transpose(0, 1, 3, 4, 2) / 255.0
+        model = ViTEss(ViTEssConfig(use_loftr_gating=True, dtype=dtype)).eval()
+        load_reference_state_dict(model, synth_state_dict(meta["sd_spec"], meta["sd_seed"]))
+        model = model.to(dev)
+        got = hooked(model, {"resnet": "resnet", "extractor": "extractor_final_conv",
+                             "features": "fusion_transformer"})
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            with torch.inference_mode():
+                tran, R, p9, _ = model(
+                    torch.from_numpy(np.ascontiguousarray(im, np.float32)).to(dev),
+                    torch.from_numpy(inputs["solver_pose"]).to(dev),
+                    torch.from_numpy(inputs["solver_num_corr"]).to(dev))
+        finally:
+            torch.backends.cudnn.enabled = True
+        return {"resnet": got["resnet"][0], "extractor": got["extractor"][0],
+                "features": got["features"][0], "pred_t": tran, "pred_rmtx": R,
+                "pred_r6": p9[..., 3:]}
+
+    golden_replays("vitess", "vitess_seed0.npz", run, ("pred_t", "pred_rmtx", "pred_r6"),
+                   "pred_rmtx")
+
+
+def sixdreg_golden(dev):
+    """Phase 12 (a): tests/golden/sixdreg_seed0.npz (MapfreeRegression,
+    360x270)."""
+    import torch
+
+    from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
+    from far_tpu_torch.utils.convert_weights import load_reference_state_dict
+    from far_tpu_torch.utils.parity import synth_state_dict
+
+    def run(meta, inputs, dtype, cudnn, encoder_out=None):
+        img = lambda k: torch.from_numpy(inputs[k].transpose(0, 2, 3, 1).copy()).to(dev)
+        model = MapfreeRegression(SixDRegConfig(dtype=dtype)).eval()
+        load_reference_state_dict(model, synth_state_dict(meta["sd_spec"], meta["sd_seed"]))
+        model = model.to(dev)
+        if encoder_out is not None:
+            maps = iter(encoder_out)
+            model.encoder.forward = lambda x: next(maps)
+        got = hooked(model, {"vol": "encoder", "gvol": "aggregator", "feats": "head",
+                             "feats_tr": "transformer"})
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            with torch.inference_mode():
+                R, tr, p9, _ = model(img("image0_reg"), img("image1_reg"),
+                                     torch.from_numpy(inputs["solver_rt"]).to(dev),
+                                     torch.from_numpy(inputs["solver_inliers"]).to(dev))
+        finally:
+            torch.backends.cudnn.enabled = True
+        return {"vol0": got["vol"][0], "vol1": got["vol"][1], "gvol": got["gvol"][0],
+                "feats": got["feats"][0], "feats_tr": got["feats_tr"][0].transpose(1, 2),
+                "pred_r6": p9[..., 3:], "pred_t": tr, "R": R}
+
+    golden_replays("sixdreg", "sixdreg_seed0.npz", run, ("pred_t", "pred_r6"), "R",
+                   staged=("vol0", "vol1"))
+
+
+def timed_requests(name: str, dtype: str, fn, want: dict, check, card: str,
+                   totals: dict):
+    """One warm-up request, then N_REQUESTS, each with the launch counters
+    set to 0 just before it and read just after; fails unless every
+    request launches ``want`` (and the tensor-core routes theirs, per
+    TC_ROUTES). Returns the requests' host-clock ms."""
+    import torch
+
+    fns = counters()
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(N_REQUESTS):
+            reset_counters()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = {k: f.launches for k, f in fns.items()}
+            got_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
+            want_tc = {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES}
+            if got != want or got_tc != want_tc:
+                fail(f"{name} {dtype}: launches {got} (tensor cores {got_tc}), expected "
+                     f"{want} ({want_tc}) a request")
+            for k in got:
+                totals[k] += got[k]
+            check(out)
+    ms = statistics.median(times)
+    print(f"{name} {dtype} B={B_REQUEST}: ms/request median {ms:.2f} (runs "
+          f"{[round(t, 2) for t in times]}), pairs/s {B_REQUEST * 1e3 / ms:.2f}, launches "
+          f"a request {got}, tensor-core route {got_tc} on {card}", flush=True)
+    return times
+
+
+def vitess_requests(dev, card: str):
+    """Phase 11 (b): vitess_forward at full width, B=4: ViTEssConfig()
+    with use_loftr_gating=True at 224x224 gated by a FARConfig() matcher
+    at 480x640, and ViTEssConfig() alone, three requests each in f32 and
+    bf16. Returns the launches of the gated and the ungated requests."""
+    import torch
+
+    from far_tpu_torch.models.vitess import ViTEssConfig
+    from far_tpu_torch.pipeline import init_model, init_vitess, vitess_forward
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig
+
+    totals = {kind: {k: 0 for k in counters()} for kind in ("gated", "ungated")}
+    images = torch.rand(B_REQUEST, 2, 224, 224, 3,
+                        generator=torch.Generator().manual_seed(11)).to(dev)
+    batch = synthetic_batch(B_REQUEST, 480, 640, dev)
+
+    def check(out):
+        tran, R, p9, gate = out
+        for v in (tran, R, p9) + (() if gate is None else (gate,)):
+            if not bool(v.isfinite().all()):
+                fail("vitess_forward: non-finite output")
+        if tuple(R.shape) != (B_REQUEST, 3, 3) or orth_err(R) > 1e-3:
+            fail(f"vitess_forward: R of shape {tuple(R.shape)}, orthonormal to "
+                 f"{orth_err(R):.2e}")
+
+    for dtype in ("float32", "bfloat16"):
+        matcher = init_model(FARConfig(dtype=dtype), seed=0, device=dev)
+        gated = init_vitess(ViTEssConfig(use_loftr_gating=True, dtype=dtype), seed=1,
+                            device=dev)
+        ungated = init_vitess(ViTEssConfig(dtype=dtype), seed=1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        timed_requests("vitess_forward gated 224x224 (matcher 480x640)", dtype,
+                       lambda: vitess_forward(gated, images, matcher, batch, generator=gen),
+                       VITESS_GATED, check, card, totals["gated"])
+        timed_requests("vitess_forward ungated 224x224", dtype,
+                       lambda: vitess_forward(ungated, images), VITESS_UNGATED, check,
+                       card, totals["ungated"])
+        del matcher, gated, ungated
+        torch.cuda.empty_cache()
+    return totals
+
+
+def mapfree_requests(dev, card: str):
+    """Phase 12 (b): mapfree_forward at full width, B=4: a 720x544
+    FARConfig(regress_rt=False) matcher and SixDRegConfig() at 368x272,
+    three requests each in f32 and bf16, with the peak memory. Returns the
+    launches."""
+    import torch
+
+    from far_tpu_torch.models.sixdreg import SixDRegConfig
+    from far_tpu_torch.pipeline import init_model, init_sixdreg, mapfree_forward
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig
+
+    totals = {k: 0 for k in counters()}
+    cfg = SixDRegConfig()
+    g = torch.Generator().manual_seed(12)
+    im0, im1 = (torch.rand(B_REQUEST, *cfg.image_hw, 3, generator=g).to(dev)
+                for _ in range(2))
+    batch = synthetic_batch(B_REQUEST, 720, 544, dev)
+
+    def check(out):
+        R, t, gate, est = out
+        for v in (R, t, gate, est.rt34, est.num_inliers):
+            if not bool(v.isfinite().all()):
+                fail("mapfree_forward: non-finite output")
+        if tuple(R.shape) != (B_REQUEST, 3, 3) or orth_err(R) > 1e-3:
+            fail(f"mapfree_forward: R of shape {tuple(R.shape)}, orthonormal to "
+                 f"{orth_err(R):.2e}")
+
+    for dtype in ("float32", "bfloat16"):
+        matcher = init_model(FARConfig(image_size=(720, 544), regress_rt=False,
+                                       dtype=dtype), seed=0, device=dev)
+        reg = init_sixdreg(SixDRegConfig(dtype=dtype), seed=1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        timed_requests("mapfree_forward 368x272 (matcher 720x544)", dtype,
+                       lambda: mapfree_forward(matcher, reg, batch, im0, im1, generator=gen),
+                       MAPFREE, check, card, totals)
+        print(f"mapfree_forward {dtype} B={B_REQUEST}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB on {card}", flush=True)
+        del matcher, reg
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1268,6 +1670,10 @@ def main() -> int:
     sinkhorn_requests(dev, card)
     sinkhorn_train(dev, card)
     remat_steps(dev, card)
+    vitess_golden(dev)
+    vitess_launches = vitess_requests(dev, card)
+    sixdreg_golden(dev)
+    mapfree_launches = mapfree_requests(dev, card)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -1297,6 +1703,13 @@ def main() -> int:
         kernels[-1]["launches_train_step"] = train_launches[name]
         if "cuda_core_shapes" in entries[name]:
             kernels[-1]["cuda_core_shapes"] = entries[name]["cuda_core_shapes"]
+        # the other paths' launches (phases 11 (b), 12 (b)), and the kernel
+        # at the shapes they give it (phase 3)
+        kernels[-1]["launches_vitess"] = vitess_launches["gated"][name]
+        kernels[-1]["launches_vitess_ungated"] = vitess_launches["ungated"][name]
+        kernels[-1]["launches_mapfree"] = mapfree_launches[name]
+        if "family_shapes" in entries[name]:
+            kernels[-1]["family_shapes"] = entries[name]["family_shapes"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

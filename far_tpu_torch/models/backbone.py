@@ -10,7 +10,8 @@ as ``resize_bilinear_align_corners`` is. Parameters stay float32 and are
 cast to the input's dtype where they are used, as Flax does.
 
 BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9)``: in eval it
-normalises with the running statistics; in training (``self.training``)
+normalises with the running statistics, in float32 whatever the input's
+dtype, and rounds the result once; in training (``self.training``)
 with the batch's, computed in float32 whatever the compute dtype, the
 variance biased (E[x^2] - mu^2, clipped at 0) in the normalisation and in
 the running update ``running = 0.9 running + 0.1 batch``. That is not
@@ -39,7 +40,8 @@ MOMENTUM = 0.9  # Flax's: the share of the old running statistics
 
 
 def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
-    return F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding)
+    b = None if m.bias is None else m.bias.to(x.dtype)
+    return F.conv2d(x, m.weight.to(x.dtype), b, m.stride, m.padding)
 
 
 _DEFERRED: contextvars.ContextVar = contextvars.ContextVar("bn_deferred", default=None)
@@ -67,8 +69,10 @@ def update_running_stats(stats) -> None:
 def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
     dt = x.dtype
     if not m.training:
-        return F.batch_norm(x, m.running_mean.to(dt), m.running_var.to(dt),
-                            m.weight.to(dt), m.bias.to(dt), False, 0.0, m.eps)
+        # float32 statistics and affine on x of any dtype: normalised in
+        # float32 and rounded once, as Flax's BatchNorm(dtype=bfloat16) does
+        return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
+                            False, 0.0, m.eps)
     x32 = x.float()
     mean = x32.mean(dim=(0, 2, 3))
     var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)

@@ -57,7 +57,8 @@ from far_tpu_torch.types import MatcherOutput, MatchResult, PairBatch, SolverSum
 from far_tpu_torch.utils.config import FARConfig
 
 
-def compute_dtype(cfg: FARConfig) -> torch.dtype:
+def compute_dtype(cfg) -> torch.dtype:
+    """The compute dtype a model config (any family's) names."""
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 

@@ -41,9 +41,12 @@ def ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 def epipolar_positional_basis(h: int = 60, w: int = 80,
                               fx: float = 517.0 / 9.0,
                               fy: float = 517.0 / 8.0,
-                              cx: float = 40.0, cy: float = 30.0) -> np.ndarray:
-    """6-dim epipolar basis [y^2, x^2, xy, y, x, 1] per coarse cell, in
-    y-major token order, from the K^-1-normalized grid coordinates.
+                              cx: float = 40.0, cy: float = 30.0,
+                              xy_first: bool = False) -> np.ndarray:
+    """6-dim epipolar basis per coarse cell, in y-major token order, from
+    the K^-1-normalized grid coordinates: [y^2, x^2, xy, y, x, 1] (mp3d),
+    or with ``xy_first`` [x^2, y^2, xy, x, y, 1] (the 8-point ViT's
+    trained convention).
 
     Returns (h*w, 6) float32."""
     hpix, wpix = cy * 2.0, cx * 2.0
@@ -53,7 +56,10 @@ def epipolar_positional_basis(h: int = 60, w: int = 80,
     vs = np.linspace(-1.0, 1.0, h, dtype=np.float32)
     x = np.tile(us[None, :], (h, 1)) / fx_norm
     y = np.tile(vs[:, None], (1, w)) / fy_norm
-    feats = [y * y, x * x, x * y, y, x, np.ones_like(x)]
+    if xy_first:
+        feats = [x * x, y * y, x * y, x, y, np.ones_like(x)]
+    else:
+        feats = [y * y, x * x, x * y, y, x, np.ones_like(x)]
     return np.stack(feats, axis=-1).reshape(h * w, 6).astype(np.float32)
 
 
@@ -62,11 +68,13 @@ class CrossAttentionEMM(nn.Module):
 
     def __init__(self, dim: int, num_heads: int,
                  grid_hw: Tuple[int, int] = (60, 80),
-                 grid_f: Tuple[float, float] = (517.0 / 9.0, 517.0 / 8.0)):
+                 grid_f: Tuple[float, float] = (517.0 / 9.0, 517.0 / 8.0),
+                 basis_xy_first: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.grid_hw = grid_hw
         self.grid_f = grid_f
+        self.basis_xy_first = basis_xy_first
         Dv = dim // num_heads + 6
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj_fundamental = nn.Linear(num_heads * Dv, dim)
@@ -87,7 +95,8 @@ class CrossAttentionEMM(nn.Module):
         h, w = self.grid_hw
         fx, fy = self.grid_f
         pos = torch.from_numpy(epipolar_positional_basis(
-            h, w, fx, fy, w / 2.0, h / 2.0)).to(device=x1.device, dtype=dt)
+            h, w, fx, fy, w / 2.0, h / 2.0, self.basis_xy_first)).to(
+                device=x1.device, dtype=dt)
         pos = pos[None, None].expand(B, H, N, 6)
         v1p = torch.cat([v1, pos], dim=-1).contiguous()
         v2p = torch.cat([v2, pos], dim=-1).contiguous()
@@ -113,21 +122,26 @@ class Mlp(nn.Module):
 
 
 class CrossBlockEMM(nn.Module):
-    """Norm + EMM cross-attention + MLP residual (reference CrossBlock)."""
+    """Norm + EMM cross-attention + MLP residual (reference CrossBlock).
+
+    The defaults are mp3d's (LayerNorm eps 1e-5, basis [y^2, x^2, ...]);
+    ViTEss's block takes ``ln_eps=1e-6`` (timm's) and ``basis_xy_first``."""
 
     def __init__(self, dim: int, num_heads: int,
                  grid_hw: Tuple[int, int] = (60, 80),
                  grid_f: Tuple[float, float] = (517.0 / 9.0, 517.0 / 8.0),
-                 use_pos_embedding: bool = False, mlp_ratio: float = 4.0):
+                 use_pos_embedding: bool = False, mlp_ratio: float = 4.0,
+                 ln_eps: float = 1e-5, basis_xy_first: bool = False):
         super().__init__()
         if use_pos_embedding:
             self.pos_embed = nn.Parameter(
                 torch.zeros(1, grid_hw[0] * grid_hw[1], dim))
         else:
             self.pos_embed = None
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.cross_attn = CrossAttentionEMM(dim, num_heads, grid_hw, grid_f)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
+        self.cross_attn = CrossAttentionEMM(dim, num_heads, grid_hw, grid_f,
+                                            basis_xy_first)
+        self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, feat0: torch.Tensor, feat1: torch.Tensor) -> torch.Tensor:
@@ -148,6 +162,13 @@ def _seq(*dims: int) -> nn.Sequential:
             mods.append(nn.ReLU())
         mods.append(nn.Linear(dims[i], dims[i + 1]))
     return nn.Sequential(*mods)
+
+
+def run_seq(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """A ``_seq`` MLP computed in x's dtype."""
+    for m in seq:
+        x = lin(m, x) if isinstance(m, nn.Linear) else torch.relu(x)
+    return x
 
 
 class PoseRegressorEMM(nn.Module):
@@ -189,17 +210,11 @@ class PoseRegressorEMM(nn.Module):
              solver_pose_in: Optional[torch.Tensor] = None):
         """Pose regression + MoE gating -> (pose_9d, gate)."""
         cfg = self.cfg
-
-        def mlp(seq, x):
-            for m in seq:
-                x = lin(m, x) if isinstance(m, nn.Linear) else torch.relu(x)
-            return x
-
         if not cfg.use_simple_moe:
-            return mlp(self.pose_regressor, features).float(), None
+            return run_seq(self.pose_regressor, features).float(), None
 
-        enc = mlp(self.encoder, features)
-        pred_reg_9d = mlp(self.pose_regressor_simple_moe, enc).float()
+        enc = run_seq(self.encoder, features)
+        pred_reg_9d = run_seq(self.pose_regressor_simple_moe, enc).float()
         if solver_pose_in is None:
             raise ValueError("the MoE path needs the solver pose")
         sp = solver_pose_in.float()
@@ -217,7 +232,7 @@ class PoseRegressorEMM(nn.Module):
             solver_t = (solver_t_un * norm_reg / norm_sol - mean_t) / std_t
 
         gate_in = torch.cat([features.float(), pred_reg_9d, sp], dim=-1)
-        gate = torch.sigmoid(mlp(self.moe_predictor,
+        gate = torch.sigmoid(run_seq(self.moe_predictor,
                                  gate_in.to(features.dtype))).float()
         if cfg.use_2wt:
             w_t, w_r = gate[..., 0:1], gate[..., 1:2]

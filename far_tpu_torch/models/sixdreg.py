@@ -1,0 +1,355 @@
+"""Map-free 6DReg: ResUNet encoder, correlation-volume warping, DeepResBlock
+head, vanilla transformer and MoE fusion with the solver pose (NCHW inside).
+
+Counterpart of ``far_tpu/models/sixdreg.py`` (``SixDRegConfig``,
+``PreActBlock``, ``PreActBottleneck``, ``ResUNet``,
+``CorrelationVolumeWarping``, ``DeepResBlockHead`` with
+``full_forward_pass=False``, ``TorchTransformerEncoderLayer``,
+``MapfreeRegression``) with the reference's module names
+(mapfree_6dreg ``lib/models/regression``): ``encoder`` (``firstconv``,
+``encoder1.0.shortcut.0``, ``upconv4.conv1.conv``, ``iconv4.normalize``,
+...), ``head.resblock1-3``, ``transformer.layers.i`` (``self_attn.
+in_proj_weight``, ``linear1``, ``norm1``, ...), ``pose_regressor``,
+``moe_predictor``. The pose and MoE MLPs take the transformer's tokens
+flattened channel-major, (B, C, L), as the reference feeds them, so its
+weights load as they are (the JAX package flattens token-major and
+permutes the first Linear instead); a reference checkpoint loads through
+``utils/convert_weights.load_reference_state_dict``. The aggregator's
+three products are plain ``torch.matmul`` in float32, as the JAX package
+computes them outside any Pallas kernel; no kernel runs in this model.
+Parameters stay float32 and are cast where they are used.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from far_tpu_torch.geometry.rotations import matrix_to_rotation_6d, rotation_6d_to_matrix
+from far_tpu_torch.models.attention import full_attention
+from far_tpu_torch.models.backbone import _up2, bn, conv
+from far_tpu_torch.models.loftr import compute_dtype
+from far_tpu_torch.models.regressor import _seq, lin, ln, run_seq
+
+
+@dataclasses.dataclass(frozen=True)
+class SixDRegConfig:
+    image_hw: Tuple[int, int] = (368, 272)   # padded 360x270 regressor input
+    encoder_blocks: Tuple[int, ...] = (3, 3, 3)
+    encoder_bottleneck: bool = True           # BLOCK_TYPE=1
+    encoder_out_layers: int = 32
+    not_concat: bool = False
+    # aggregator flags (reference config/default.py AGGREGATOR tree)
+    position_encoder: bool = True
+    position_encoder_im1: bool = False
+    max_score_channel: bool = True
+    normalise_dot: bool = False
+    cv_half_channels: bool = False
+    use_vanilla_transformer: bool = True
+    transformer_layers: int = 6
+    transformer_heads: int = 8
+    d_im: int = 256
+    hidden: int = 512
+    use_solver_preds: bool = True             # use_loftr_preds equivalent
+    dtype: str = "bfloat16"
+
+
+class PreActBlock(nn.Module):
+    """Pre-activation block (reference preact.py:13-37); the 1x1 shortcut,
+    where there is one, takes relu(bn1(x))."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.bn1 = nn.BatchNorm2d(cin)
+        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.shortcut = None
+        if stride != 1 or cin != planes:
+            self.shortcut = nn.Sequential(nn.Conv2d(cin, planes, 1, stride, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(bn(x, self.bn1))
+        short = x if self.shortcut is None else conv(out, self.shortcut[0])
+        out = conv(out, self.conv1)
+        out = conv(F.relu(bn(out, self.bn2)), self.conv2)
+        return out + short
+
+
+class PreActBottleneck(nn.Module):
+    """Pre-activation bottleneck, expansion 4 (reference preact.py:40-70)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1):
+        super().__init__()
+        exp = 4 * planes
+        self.bn1 = nn.BatchNorm2d(cin)
+        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, exp, 1, bias=False)
+        self.shortcut = None
+        if stride != 1 or cin != exp:
+            self.shortcut = nn.Sequential(nn.Conv2d(cin, exp, 1, stride, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(bn(x, self.bn1))
+        short = x if self.shortcut is None else conv(out, self.shortcut[0])
+        out = conv(out, self.conv1)
+        out = conv(F.relu(bn(out, self.bn2)), self.conv2)
+        out = conv(F.relu(bn(out, self.bn3)), self.conv3)
+        return out + short
+
+
+class ConvBNElu(nn.Module):
+    """Convolution with bias, BatchNorm, ELU (reference resunet.py ``conv``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, 1, (kernel - 1) // 2)
+        self.normalize = nn.BatchNorm2d(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.elu(bn(conv(x, self.conv), self.normalize))
+
+
+class UpConv(nn.Module):
+    """x2 bilinear (align_corners) upsample, then ``ConvBNElu`` 3x3."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv1 = ConvBNElu(cin, cout, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv1(_up2(x))
+
+
+def skip_connect(up: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Zero-pad ``skip`` to ``up``'s size (odd inputs make them differ by
+    one; split dh // 2, dh - dh // 2) and concatenate [up, skip]."""
+    dh = up.shape[2] - skip.shape[2]
+    dw = up.shape[3] - skip.shape[3]
+    skip = F.pad(skip, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+    return torch.cat([up, skip], dim=1)
+
+
+class ResUNet(nn.Module):
+    """H/2 stem and max-pool, pre-activation stages at H/4, H/8, H/16, a
+    decoder back to H/4 (reference resunet.py:41-128)."""
+
+    def __init__(self, cfg: SixDRegConfig):
+        super().__init__()
+        self.cfg = cfg
+        block = PreActBottleneck if cfg.encoder_bottleneck else PreActBlock
+        exp = block.expansion
+        self.firstconv = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.firstbn = nn.BatchNorm2d(64)
+        cin = 64
+        for name, planes, stride, n in zip(("encoder1", "encoder2", "encoder3"),
+                                           (64, 128, 256), (1, 2, 2), cfg.encoder_blocks):
+            blocks = []
+            for i in range(n):
+                blocks.append(block(cin, planes, stride if i == 0 else 1))
+                cin = planes * exp
+            setattr(self, name, nn.Sequential(*blocks))
+        cat = not cfg.not_concat
+        self.upconv4 = UpConv(256 * exp, 512)
+        self.iconv4 = ConvBNElu(512 + cat * 128 * exp, 512, 3)
+        self.upconv3 = UpConv(512, 256)
+        self.iconv3 = ConvBNElu(256 + cat * 64 * exp, 256, 3)
+        self.outconv = ConvBNElu(256, cfg.encoder_out_layers, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 3, H, W) -> (B, encoder_out_layers, ~H/4, ~W/4)."""
+        x1 = F.max_pool2d(F.relu(bn(conv(x, self.firstconv), self.firstbn)), 3, 2, 1)
+        x2 = self.encoder1(x1)
+        x3 = self.encoder2(x2)
+        x4 = self.encoder3(x3)
+        y = self.upconv4(x4)
+        if not self.cfg.not_concat:
+            y = skip_connect(y, x3)
+        y = self.upconv3(self.iconv4(y))
+        if not self.cfg.not_concat:
+            y = skip_connect(y, x2)
+        return self.outconv(self.iconv3(y))
+
+
+# the FAR configuration's aggregator (reference config/default.py); the
+# JAX package's other values are ROADMAP work
+_FAR_AGGREGATOR = dict(position_encoder=True, position_encoder_im1=False,
+                       max_score_channel=True, normalise_dot=False,
+                       cv_half_channels=False)
+
+
+class CorrelationVolumeWarping(nn.Module):
+    """Global correlation volume softmax(f0 f1^T) over image 1's positions,
+    the warped f1, the expected match position ([-1, 1] grid, ``ij``) and
+    the max score, concatenated to f0: 2 D + 3 channels (reference
+    aggregator.py:6-116, the FAR configuration). No parameters; float32
+    products."""
+
+    def __init__(self, cfg: SixDRegConfig):
+        super().__init__()
+        other = {k: getattr(cfg, k) for k, v in _FAR_AGGREGATOR.items()
+                 if getattr(cfg, k) != v}
+        if other:
+            raise ValueError(f"the port's aggregator is the FAR configuration's; got {other}")
+
+    def forward(self, vol0: torch.Tensor, vol1: torch.Tensor) -> torch.Tensor:
+        B, D, H, W = vol0.shape
+        f0 = vol0.flatten(2).transpose(1, 2).float()       # (B, N, D)
+        f1 = vol1.flatten(2).transpose(1, 2).float()
+        cvol = torch.softmax(f0 @ f1.transpose(1, 2), dim=2)   # (B, N, M)
+        uu, vv = torch.meshgrid(torch.linspace(-1.0, 1.0, H, device=vol0.device),
+                                torch.linspace(-1.0, 1.0, W, device=vol0.device),
+                                indexing="ij")
+        grid = torch.stack([uu, vv], -1).reshape(H * W, 2)
+        out = torch.cat([f0, cvol @ f1, cvol @ grid, cvol.amax(dim=2, keepdim=True)],
+                        dim=-1).to(vol0.dtype)
+        return out.transpose(1, 2).reshape(B, -1, H, W)
+
+
+class DeepResBlockHead(nn.Module):
+    """resblock1-3 of the reference DeepResBlock (head.py:27-55) with
+    ``full_forward_pass=False``: three stride-2 PreActBlocks 64-128-256."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        self.resblock1 = PreActBlock(cin, 64, 2)
+        self.resblock2 = PreActBlock(64, 128, 2)
+        self.resblock3 = PreActBlock(128, 256, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.resblock3(self.resblock2(self.resblock1(x)))
+
+
+class _SelfAttention(nn.Module):
+    """The parameters of ``nn.MultiheadAttention`` under its names."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+
+class TorchTransformerEncoderLayer(nn.Module):
+    """Post-LN encoder layer with ``nn.TransformerEncoderLayer``'s names and
+    defaults (ReLU FFN of ``dim_ff``, LayerNorm eps 1e-5), computed in
+    plain torch with a float32 softmax."""
+
+    def __init__(self, d_model: int, nhead: int, dim_ff: int = 2048):
+        super().__init__()
+        self.nhead = nhead
+        self.self_attn = _SelfAttention(d_model)
+        self.linear1 = nn.Linear(d_model, dim_ff)
+        self.linear2 = nn.Linear(dim_ff, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        sa = self.self_attn
+        qkv = F.linear(x, sa.in_proj_weight.to(x.dtype), sa.in_proj_bias.to(x.dtype))
+        q, k, v = qkv.reshape(B, N, 3, self.nhead, -1).unbind(2)
+        o = lin(sa.out_proj, full_attention(q, k, v).reshape(B, N, C))
+        x = ln(self.norm1, x + o)
+        y = lin(self.linear2, torch.relu(lin(self.linear1, x)))
+        return ln(self.norm2, x + y)
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, d_model: int, nhead: int, n_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [TorchTransformerEncoderLayer(d_model, nhead) for _ in range(n_layers)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+def head_tokens(image_hw: Tuple[int, int]) -> int:
+    """Tokens after the head: the encoder's H/4 map (the decoder pads to
+    twice its H/8 stage) through three stride-2 blocks."""
+    def side(n):
+        n = (n + 1) // 2            # firstconv 7x7/2
+        n = (n + 1) // 2            # max-pool 3/2
+        n = 4 * ((n + 3) // 4)      # encoder2, encoder3, then x2 x2
+        for _ in range(3):
+            n = (n + 1) // 2
+        return n
+    return side(image_hw[0]) * side(image_hw[1])
+
+
+class MapfreeRegression(nn.Module):
+    """A regressor-resolution pair and the solver's summary -> (R (B, 3, 3),
+    t (B, 3), the 9D pose (t, 6D rows) (B, 9), gate (B, 2) or None). The
+    solver t is rescaled toward the regressed norm (ratio clamped to
+    [1e-2, 1e2]) before the MoE blend, and the three inlier counts enter
+    divided by 500 (reference model.py:198-232)."""
+
+    def __init__(self, cfg: Optional[SixDRegConfig] = None):
+        super().__init__()
+        cfg = cfg or SixDRegConfig()
+        self.config = cfg
+        self.dtype = compute_dtype(cfg)
+        self.encoder = ResUNet(cfg)
+        self.aggregator = CorrelationVolumeWarping(cfg)
+        self.head = DeepResBlockHead(2 * cfg.encoder_out_layers + 3)
+        if cfg.use_vanilla_transformer:
+            self.transformer = TransformerEncoder(cfg.d_im, cfg.transformer_heads,
+                                                  cfg.transformer_layers)
+        feat = cfg.d_im * head_tokens(cfg.image_hw)
+        self.pose_regressor = _seq(feat, cfg.hidden, cfg.hidden, 9)
+        if cfg.use_solver_preds:
+            self.moe_predictor = _seq(feat + 9 + 9 + 3, cfg.hidden, cfg.hidden, 2)
+
+    def features(self, image0: torch.Tensor, image1: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images in [0, 1] -> (B, C L) features, flattened
+        channel-major. Independent of the solver."""
+        nchw = lambda im: im.permute(0, 3, 1, 2).contiguous().to(self.dtype)
+        vol0 = self.encoder(nchw(image0))
+        vol1 = self.encoder(nchw(image1))
+        feats = self.head(self.aggregator(vol0, vol1))      # (B, C, Hf, Wf)
+        B = feats.shape[0]
+        tokens = feats.flatten(2).transpose(1, 2)           # (B, L, C)
+        if self.config.use_vanilla_transformer:
+            tokens = self.transformer(tokens)
+        return tokens.transpose(1, 2).reshape(B, -1).float()
+
+    def fuse(self, features: torch.Tensor, solver_rt: Optional[torch.Tensor] = None,
+             solver_inliers: Optional[torch.Tensor] = None):
+        """The pose MLP and the MoE blend with the solver pose."""
+        dt = self.dtype
+        pred_9d = run_seq(self.pose_regressor, features.to(dt)).float()
+        gate = None
+        if self.config.use_solver_preds:
+            if solver_rt is None or solver_inliers is None:
+                raise ValueError("use_solver_preds needs the solver pose and counts")
+            sp_t = solver_rt[..., :3, 3].float()
+            sp_r = matrix_to_rotation_6d(solver_rt[..., :3, :3].float())
+            counts = solver_inliers.float() / 500.0
+            ratio = torch.linalg.norm(pred_9d[..., :3], dim=-1) / torch.linalg.norm(
+                sp_t, dim=-1).clamp(1e-2, 1e2)
+            sp_t = sp_t * ratio.clamp(1e-2, 1e2)[..., None]
+            gin = torch.cat([features, pred_9d, sp_t, sp_r, counts], -1)
+            gate = torch.sigmoid(run_seq(self.moe_predictor, gin.to(dt))).float()
+            pred_9d = torch.cat([
+                gate[..., :1] * pred_9d[..., :3] + (1 - gate[..., :1]) * sp_t,
+                gate[..., 1:] * pred_9d[..., 3:] + (1 - gate[..., 1:]) * sp_r], -1)
+        return rotation_6d_to_matrix(pred_9d[..., 3:]), pred_9d[..., :3], pred_9d, gate
+
+    def forward(self, image0: torch.Tensor, image1: torch.Tensor,
+                solver_rt: Optional[torch.Tensor] = None,
+                solver_inliers: Optional[torch.Tensor] = None):
+        return self.fuse(self.features(image0, image1), solver_rt, solver_inliers)

@@ -1,19 +1,27 @@
-"""Where one far_forward request spends its time on the card.
+"""Where one request of a model family spends its time on the card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 -m far_tpu_torch.tools.profile_forward [--dtype bfloat16] [--batch 4]
-        [--solver 5pt|8pt]
+    python3 -m far_tpu_torch.tools.profile_forward [--family far|vitess|mapfree]
+        [--dtype bfloat16] [--batch 4] [--solver 5pt|8pt]
 
-The model is ``FARConfig`` at its defaults (480x640, full width, the
-5-point solver unless ``--solver 8pt``) with random weights from seed 0.
-After two warm-up requests it times one request by stage with CUDA
-events (backbone, coarse transformer, coarse match, fine stage, EMM
-features, each solver round, each MoE fusion, the rest), then traces one
-more request with ``torch.profiler`` and prints the device time of the
-busiest kernels, the share of the request's wall time in which the card
-ran no kernel, and the kernels launched and their device time inside
-each solver round.
+``--family far`` (the default): ``far_forward`` under ``FARConfig`` at its
+defaults (480x640, full width, the 5-point solver unless ``--solver
+8pt``); stages: backbone, coarse transformer, coarse match, fine stage,
+EMM features, each solver round, each MoE fusion. ``--family vitess``:
+``vitess_forward`` with ``ViTEssConfig(use_loftr_gating=True)`` at
+224x224 gated by a ``FARConfig()`` matcher at 480x640; stages: the gating
+matcher, the solver, trunk + RAFT block, ViT blocks, CrossBlock (K4 x2),
+heads. ``--family mapfree``: ``mapfree_forward`` with a 720x544
+``FARConfig(regress_rt=False)`` matcher and ``SixDRegConfig()`` at
+368x272; stages: the matcher, then per round the solver, ResUNet x2, the
+correlation volume, the head, the transformer, the pose MLP and MoE.
+Random weights from seeds 0 (matcher) and 1 (regressor). After two
+warm-up requests it times one request by stage with CUDA events, then
+traces one more with ``torch.profiler`` and prints the device time of the
+busiest kernels and the share of the request's wall time in which the
+card ran no kernel; for ``far`` also the kernels launched and their
+device time inside each solver round.
 """
 
 from __future__ import annotations
@@ -46,19 +54,23 @@ def synthetic_batch(B: int, H: int, W: int, device, seed: int = 0) -> PairBatch:
 
 
 class StageTimer:
-    """CUDA event pairs around named stages, read after one synchronize."""
+    """CUDA event pairs around named stages, read after one synchronize;
+    ``prefix`` is put before the names of the stages that start while it
+    is set."""
 
     def __init__(self):
         self.events = []
+        self.prefix = ""
 
     def wrap(self, name, fn):
         def timed(*args, **kwargs):
+            label = self.prefix + name
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             end.record()
-            self.events.append((name, start, end))
+            self.events.append((label, start, end))
             return out
         return timed
 
@@ -105,8 +117,132 @@ def round_profile(call):
     return len(kernels), dev_ms, wall
 
 
+def report(title: str, timer: StageTimer, fn, t0: float) -> None:
+    """Print the request's stage table (``fn`` has just run under
+    ``timer``, started at host time ``t0``), then trace one more request."""
+    stages = timer.totals()
+    wall = (time.perf_counter() - t0) * 1e3
+    request = stages.pop("request")
+    print(f"{title}: request {request:.3f} ms on the device clock, {wall:.3f} ms on "
+          f"the host clock")
+    for name, ms in stages.items():
+        print(f"  {name:40s} {ms:9.3f} ms  {100 * ms / request:5.1f} %")
+    rest = request - sum(stages.values())
+    print(f"  {'rest (glue, copies, launches)':40s} {rest:9.3f} ms  "
+          f"{100 * rest / request:5.1f} %")
+    trace(fn)
+
+
+def trace(fn):
+    """One more request under torch.profiler: its idle share and the
+    busiest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof)
+    print(f"traced request: {traced:.3f} ms wall, device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / traced:.3f}")
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    for dev_us, count, key in sorted(rows, reverse=True)[:25]:
+        print(f"  {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def profile_vitess(args, dev) -> None:
+    from far_tpu_torch.models.vitess import ViTEssConfig
+
+    matcher = init_model(FARConfig(dtype=args.dtype), seed=0, device=dev)
+    model = pipeline_mod.init_vitess(ViTEssConfig(use_loftr_gating=True, dtype=args.dtype),
+                                     seed=1, device=dev)
+    batch = synthetic_batch(args.batch, *matcher.config.image_size, dev)
+    images = torch.rand(args.batch, 2, 224, 224, 3,
+                        generator=torch.Generator().manual_seed(11)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fn():
+        with torch.inference_mode():
+            return pipeline_mod.vitess_forward(model, images, matcher, batch, generator=gen)
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    matcher.match = timer.wrap("gating matcher (K1, K2, K3)", matcher.match)
+    for mod in (model.resnet, model.extractor_final_conv):
+        mod.forward = timer.wrap("trunk + RAFT block", mod.forward)
+    blocks = model.fusion_transformer.blocks
+    for blk in blocks[:-1]:
+        blk.forward = timer.wrap("ViT blocks", blk.forward)
+    blocks[-1].forward = timer.wrap("CrossBlock (K4 x2)", blocks[-1].forward)
+    model.heads = timer.wrap("heads (pose MLP, MoE, decode)", model.heads)
+    saved = pipeline_mod.estimate_pose
+    pipeline_mod.estimate_pose = timer.wrap("solver (8pt, no prior)", saved)
+    try:
+        t0 = time.perf_counter()
+        timer.wrap("request", fn)()
+    finally:
+        pipeline_mod.estimate_pose = saved
+    report(f"vitess_forward {args.dtype} B={args.batch} 224x224 (matcher 480x640)",
+           timer, fn, t0)
+
+
+def profile_mapfree(args, dev) -> None:
+    from far_tpu_torch.models.sixdreg import SixDRegConfig
+
+    matcher = init_model(FARConfig(image_size=(720, 544), regress_rt=False,
+                                   dtype=args.dtype), seed=0, device=dev)
+    reg = pipeline_mod.init_sixdreg(SixDRegConfig(dtype=args.dtype), seed=1, device=dev)
+    batch = synthetic_batch(args.batch, *matcher.config.image_size, dev)
+    g = torch.Generator().manual_seed(12)
+    im0, im1 = (torch.rand(args.batch, *reg.config.image_hw, 3, generator=g).to(dev)
+                for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fn():
+        with torch.inference_mode():
+            return pipeline_mod.mapfree_forward(matcher, reg, batch, im0, im1,
+                                                generator=gen)
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    matcher.match = timer.wrap("matcher (K1, K2, K3)", matcher.match)
+    for mod, name in ((reg.encoder, "ResUNet x2"), (reg.aggregator, "correlation volume"),
+                      (reg.head, "head"), (reg.transformer, "transformer")):
+        mod.forward = timer.wrap(name, mod.forward)
+    reg.fuse = timer.wrap("pose MLP and MoE", reg.fuse)
+    saved = pipeline_mod.estimate_pose
+    timed_solver = timer.wrap("solver", saved)
+    rounds = []
+
+    def solver_round(*a, **kw):
+        timer.prefix = f"round {len(rounds)}: "
+        rounds.append(kw["cfg"].solver)
+        return timed_solver(*a, **kw)
+
+    pipeline_mod.estimate_pose = solver_round
+    try:
+        t0 = time.perf_counter()
+        timer.wrap("request", fn)()
+    finally:
+        pipeline_mod.estimate_pose = saved
+    report(f"mapfree_forward {args.dtype} B={args.batch} 368x272 (matcher 720x544), "
+           f"rounds {rounds}", timer, fn, t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", default="far", choices=("far", "vitess", "mapfree"))
     ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--solver", default=FARConfig().solver.minimal_solver,
@@ -119,6 +255,9 @@ def main() -> int:
     # would otherwise run f32 convolutions in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.family != "far":
+        (profile_vitess if args.family == "vitess" else profile_mapfree)(args, dev)
+        return 0
     cfg = FARConfig(solver=SolverOptions(minimal_solver=args.solver), dtype=args.dtype)
     model = init_model(cfg, seed=0, device=dev)
     fn = build_inference_fn(model)
@@ -147,47 +286,17 @@ def main() -> int:
     pipeline_mod.estimate_pose = timer.wrap("solver round", solver_round)
     try:
         t0 = time.perf_counter()
-        whole = timer.wrap("request", fn)
-        whole(batch, generator=gen)
-        stages = timer.totals()
-        wall = (time.perf_counter() - t0) * 1e3
+        timer.wrap("request", fn)(batch, generator=gen)
     finally:
         loftr_mod.coarse_match, pipeline_mod.estimate_pose = saved
-    request = stages.pop("request")
-    print(f"far_forward {args.dtype} {args.solver} B={args.batch} {cfg.image_size[0]}x"
-          f"{cfg.image_size[1]}: request {request:.3f} ms on the device clock, "
-          f"{wall:.3f} ms on the host clock")
-    for name, ms in stages.items():
-        print(f"  {name:40s} {ms:9.3f} ms  {100 * ms / request:5.1f} %")
-    rest = request - sum(stages.values())
-    print(f"  {'rest (glue, copies, launches)':40s} {rest:9.3f} ms  "
-          f"{100 * rest / request:5.1f} %")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(batch, generator=gen)
-        torch.cuda.synchronize()
-        traced = (time.perf_counter() - t0) * 1e3
-    busy = busy_ms(prof)
-    print(f"traced request: {traced:.3f} ms wall, device busy {busy:.3f} ms, "
-          f"idle share {1 - busy / traced:.3f}")
+    report(f"far_forward {args.dtype} {args.solver} B={args.batch} {cfg.image_size[0]}x"
+           f"{cfg.image_size[1]}", timer, lambda: fn(batch, generator=gen), t0)
     for i, (a, kw) in enumerate(rounds):
         with torch.inference_mode():
             n, dev_ms, wall = round_profile(lambda: saved[1](*a, **kw))
         print(f"solver round {i} ({kw['cfg'].num_hypotheses} hypotheses, "
               f"{args.solver}) traced alone: {n} kernels, {dev_ms:.3f} ms of "
               f"device time, {wall:.3f} ms wall")
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    for dev_us, count, key in sorted(rows, reverse=True)[:25]:
-        print(f"  {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     return 0
 
 

@@ -2,12 +2,16 @@
 
 The port's modules carry the reference's torch names, so a reference
 state dict (``matcher.`` prefix stripped) loads with ``strict=True``.
-``build_loftr_mapping`` is the port's own copy of the mapping in
+``build_loftr_mapping``, ``build_vitess_mapping`` and
+``build_sixdreg_mapping`` are the port's own copies of the mappings in
 ``far_tpu/utils/convert_weights.py`` (torch key, Flax path, transform);
-``flax_to_state_dict`` runs it backwards, turning the JAX package's
-``{"params", "batch_stats"}`` tree (numpy arrays) into a torch-keyed
-state dict: HWIO -> OIHW for convolutions, (in, out) -> (out, in) for
-linears. ``load_flax_npz`` reads such a tree from an ``.npz`` written with
+``flax_to_state_dict`` runs the one of its config's family backwards,
+turning the JAX package's ``{"params", "batch_stats"}`` tree (numpy
+arrays) into a torch-keyed state dict: HWIO -> OIHW for convolutions,
+(in, out) -> (out, in) for linears, and the row permutation of
+``_perm_linear`` undone (the JAX package flattens features token-major
+where the reference, and the port, flatten them channel-major).
+``load_flax_npz`` reads such a tree from an ``.npz`` written with
 ``jax.tree_util.keystr`` keys (``assets/tiny_guard.npz``), without JAX.
 ``init_weights`` gives a model deterministic random weights from an
 explicit ``torch.Generator``.
@@ -41,6 +45,41 @@ _INVERSE = {
     _linear: lambda v: np.transpose(np.asarray(v), (1, 0)),
     _ident: lambda v: np.asarray(v),
 }
+
+
+def _perm_linear(C: int, n_extra: int = 0, n_blocks: int = 1):
+    """The transform of a Linear whose flattened input the reference orders
+    channel-major (row c*HW + s) and the JAX package token-major (s*C + c):
+    ``n_blocks`` same-size leading blocks permuted each, ``n_extra``
+    trailing rows as they are. HW comes from the weight's shape. The
+    returned transform carries its ``inverse``."""
+
+    def perm(n_in):
+        hw = (n_in - n_extra) // (n_blocks * C)
+        if hw * n_blocks * C + n_extra != n_in:
+            raise ValueError(f"cannot factor input dim {n_in} as "
+                             f"{n_blocks}*{C}*HW + {n_extra}")
+        base = (np.arange(C)[None, :] * hw + np.arange(hw)[:, None]).reshape(-1)
+        return np.concatenate([base + b * C * hw for b in range(n_blocks)])
+
+    def tf(v):
+        w = _linear(v)                                    # (in, out)
+        p = perm(w.shape[0])
+        return np.concatenate([w[p], w[len(p):]], axis=0)
+
+    def inverse(v):
+        w = np.asarray(v)                                 # (in, out), permuted
+        p = perm(w.shape[0])
+        out = w.copy()
+        out[p] = w[:len(p)]
+        return np.transpose(out, (1, 0))
+
+    tf.inverse = inverse
+    return tf
+
+
+def _inverse(tf):
+    return getattr(tf, "inverse", None) or _INVERSE[tf]
 
 
 def _bn_entries(src_prefix: str, dst_path: Tuple[str, ...]):
@@ -205,6 +244,168 @@ def build_loftr_mapping(cfg) -> Tuple[list, list]:
     return P, S
 
 
+def build_vitess_mapping(cfg) -> Tuple[list, list]:
+    """(param entries, batch_stats entries) for the ViTEss tree, with the
+    port's keys (no ``module.`` prefix; no trunk layer3/layer4/fc). The
+    RAFT block's ``norm3`` appears under both its torch names."""
+    P: List = []
+    S: List = []
+
+    def bn(src, dst):
+        p, s = _bn_entries(src, dst)
+        P.extend(p)
+        S.extend(s)
+
+    P.append(("resnet.conv1.weight", ("resnet", "conv1", "kernel"), _conv))
+    bn("resnet.bn1", ("resnet", "bn1"))
+    for layer in ("layer1", "layer2"):
+        for b in range(2):
+            src = f"resnet.{layer}.{b}"
+            dst = ("resnet", f"{layer}_{b}")
+            P.append((f"{src}.conv1.weight", dst + ("conv1", "kernel"), _conv))
+            P.append((f"{src}.conv2.weight", dst + ("conv2", "kernel"), _conv))
+            bn(f"{src}.bn1", dst + ("bn1",))
+            bn(f"{src}.bn2", dst + ("bn2",))
+            if layer == "layer2" and b == 0:
+                P.append((f"{src}.downsample.0.weight", dst + ("down", "kernel"), _conv))
+                bn(f"{src}.downsample.1", dst + ("bn_down",))
+
+    e = ("extractor_final_conv",)
+    for c in ("conv1", "conv2"):
+        P.append((f"extractor_final_conv.{c}.weight", e + (c, "kernel"), _conv))
+        P.append((f"extractor_final_conv.{c}.bias", e + (c, "bias"), _ident))
+    bn("extractor_final_conv.norm1", e + ("norm1",))
+    bn("extractor_final_conv.norm2", e + ("norm2",))
+    P.append(("extractor_final_conv.downsample.0.weight", e + ("down", "kernel"), _conv))
+    P.append(("extractor_final_conv.downsample.0.bias", e + ("down", "bias"), _ident))
+    bn("extractor_final_conv.norm3", e + ("norm3",))
+    bn("extractor_final_conv.downsample.1", e + ("norm3",))
+
+    if cfg.fusion_transformer:
+        P.append(("fusion_transformer.pos_embed", ("pos_embed",), _ident))
+        for i in range(cfg.depth - 1):
+            src = f"fusion_transformer.blocks.{i}"
+            dst = (f"block_{i}",)
+            P += _ln_entries(f"{src}.norm1", dst + ("norm1",))
+            P += _lin_entries(f"{src}.attn.qkv", dst + ("qkv",))
+            P += _lin_entries(f"{src}.attn.proj", dst + ("proj",))
+            P += _ln_entries(f"{src}.norm2", dst + ("norm2",))
+            P += _lin_entries(f"{src}.mlp.fc1", dst + ("fc1",))
+            P += _lin_entries(f"{src}.mlp.fc2", dst + ("fc2",))
+        src = f"fusion_transformer.blocks.{cfg.depth - 1}"  # the CrossBlock
+        dst = ("cross_block",)
+        P += _ln_entries(f"{src}.norm1", dst + ("norm1",))
+        P += _lin_entries(f"{src}.cross_attn.qkv", dst + ("cross_attn", "qkv"))
+        P += _lin_entries(f"{src}.cross_attn.proj_fundamental",
+                          dst + ("cross_attn", "proj_fundamental"))
+        P += _ln_entries(f"{src}.norm2", dst + ("norm2",))
+        P += _lin_entries(f"{src}.mlp.fc1", dst + ("mlp_fc1",))
+        P += _lin_entries(f"{src}.mlp.fc2", dst + ("mlp_fc2",))
+        P += _ln_entries("fusion_transformer.norm", ("norm",))
+    else:
+        for i, name in ((0, "pool1"), (3, "pool2")):
+            P.append((f"pool_transformer_output.{i}.weight", (name, "kernel"), _conv))
+            P.append((f"pool_transformer_output.{i}.bias", (name, "bias"), _ident))
+        bn("pool_transformer_output.1", ("pool_bn1",))
+        bn("pool_transformer_output.4", ("pool_bn2",))
+
+    def head_entries(src, dst_fmt, n_extra):
+        first = _linear if cfg.fusion_transformer else \
+            _perm_linear(cfg.pool_size, n_extra=n_extra, n_blocks=2)
+        out = []
+        for i, j in ((0, 0), (2, 1), (4, 2)):
+            out += [(f"{src}.{i}.weight", (dst_fmt.format(j), "kernel"),
+                     first if i == 0 else _linear),
+                    (f"{src}.{i}.bias", (dst_fmt.format(j), "bias"), _ident)]
+        return out
+
+    P += head_entries("pose_regressor", "pose_regressor_{}", 0)
+    if cfg.use_loftr_gating:  # [features, pred 9D, solver 9D + count]
+        P += head_entries("moe_predictor", "moe_{}", 19)
+    return P, S
+
+
+def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
+    """(param entries, batch_stats entries) for MapfreeRegression (the
+    reference's keys that the FAR configuration runs)."""
+    P: List = []
+    S: List = []
+
+    def bn(src, dst):
+        p, s = _bn_entries(src, dst)
+        P.extend(p)
+        S.extend(s)
+
+    def preact(src, dst, has_shortcut, n_convs):
+        for c in range(1, n_convs + 1):
+            bn(f"{src}.bn{c}", dst + (f"bn{c}",))
+            P.append((f"{src}.conv{c}.weight", dst + (f"conv{c}", "kernel"), _conv))
+        if has_shortcut:
+            P.append((f"{src}.shortcut.0.weight", dst + ("shortcut", "kernel"), _conv))
+
+    exp = 4 if cfg.encoder_bottleneck else 1
+    n_convs = 3 if cfg.encoder_bottleneck else 2
+    enc = ("encoder",)
+    P.append(("encoder.firstconv.weight", enc + ("firstconv", "kernel"), _conv))
+    bn("encoder.firstbn", enc + ("firstbn",))
+    in_planes = 64
+    for si, (name, planes, stride) in enumerate(
+            (("encoder1", 64, 1), ("encoder2", 128, 2), ("encoder3", 256, 2))):
+        for b in range(cfg.encoder_blocks[si]):
+            st = stride if b == 0 else 1
+            preact(f"encoder.{name}.{b}", enc + (f"{name}_{b}",),
+                   st != 1 or in_planes != planes * exp, n_convs)
+            in_planes = planes * exp
+    for ours, theirs in (("upconv4", "upconv4.conv1"), ("iconv4", "iconv4"),
+                         ("upconv3", "upconv3.conv1"), ("iconv3", "iconv3"),
+                         ("outconv", "outconv")):
+        dst = enc + (ours,)
+        P.append((f"encoder.{theirs}.conv.weight", dst + ("Conv_0", "kernel"), _conv))
+        P.append((f"encoder.{theirs}.conv.bias", dst + ("Conv_0", "bias"), _ident))
+        bn(f"encoder.{theirs}.normalize", dst + ("BatchNorm_0",))
+
+    for b in (1, 2, 3):
+        preact(f"head.resblock{b}", ("head", f"resblock{b}"), True, 2)
+
+    if cfg.use_vanilla_transformer:
+        for i in range(cfg.transformer_layers):
+            src = f"transformer.layers.{i}"
+            dst = (f"transformer_{i}",)
+            P.append((f"{src}.self_attn.in_proj_weight", dst + ("qkv", "kernel"), _linear))
+            P.append((f"{src}.self_attn.in_proj_bias", dst + ("qkv", "bias"), _ident))
+            P += _lin_entries(f"{src}.self_attn.out_proj", dst + ("proj",))
+            P += _lin_entries(f"{src}.linear1", dst + ("ff1",))
+            P += _lin_entries(f"{src}.linear2", dst + ("ff2",))
+            P += _ln_entries(f"{src}.norm1", dst + ("norm1",))
+            P += _ln_entries(f"{src}.norm2", dst + ("norm2",))
+
+    def head_entries(src, dst_fmt, n_extra):
+        out = []
+        for i, j in ((0, 0), (2, 1), (4, 2)):
+            tf = _perm_linear(cfg.d_im, n_extra=n_extra) if i == 0 else _linear
+            out += [(f"{src}.{i}.weight", (dst_fmt.format(j), "kernel"), tf),
+                    (f"{src}.{i}.bias", (dst_fmt.format(j), "bias"), _ident)]
+        return out
+
+    P += head_entries("pose_regressor", "pose_regressor_{}", 0)
+    if cfg.use_solver_preds:  # [features, pred 9D, solver 9D + 3 counts]
+        P += head_entries("moe_predictor", "moe_{}", 21)
+    return P, S
+
+
+def build_mapping(cfg) -> Tuple[list, list]:
+    """The mapping of ``cfg``'s family: FARConfig, ViTEssConfig or
+    SixDRegConfig."""
+    from far_tpu_torch.models.sixdreg import SixDRegConfig
+    from far_tpu_torch.models.vitess import ViTEssConfig
+
+    if isinstance(cfg, ViTEssConfig):
+        return build_vitess_mapping(cfg)
+    if isinstance(cfg, SixDRegConfig):
+        return build_sixdreg_mapping(cfg)
+    return build_loftr_mapping(cfg)
+
+
 def _get_path(tree: Dict[str, Any], path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
@@ -212,20 +413,49 @@ def _get_path(tree: Dict[str, Any], path: Tuple[str, ...]):
 
 
 def flax_to_state_dict(variables_np: Dict[str, Any], cfg) -> Dict[str, np.ndarray]:
-    """The JAX package's FARLoFTR variables -> a state dict with the
-    reference's torch keys (no prefix). BatchNorms also get their
-    ``num_batches_tracked`` counter (0), as a torch state dict has."""
-    P, S = build_loftr_mapping(cfg)
+    """The JAX package's variables of ``cfg``'s model (FARLoFTR, ViTEss or
+    MapfreeRegression) -> a state dict with the reference's torch keys (no
+    prefix). BatchNorms also get their ``num_batches_tracked`` counter
+    (0), as a torch state dict has."""
+    P, S = build_mapping(cfg)
     out: Dict[str, np.ndarray] = {}
     for entries, tree in ((P, variables_np["params"]),
                           (S, variables_np.get("batch_stats", {}))):
         for torch_key, path, tf in entries:
             out[torch_key] = np.ascontiguousarray(
-                _INVERSE[tf](_get_path(tree, path)))
+                _inverse(tf)(_get_path(tree, path)))
             if torch_key.endswith(".running_mean"):
                 counter = torch_key[:-len("running_mean")] + "num_batches_tracked"
                 out[counter] = np.zeros((), np.int64)
     return out
+
+
+def load_reference_state_dict(model: nn.Module, sd: Dict[str, Any]):
+    """Load a reference checkpoint (tensors or arrays) into a ViTEss or a
+    MapfreeRegression with ``strict=True``, after what the port's model
+    does not hold is taken out: for ViTEss DDP's ``module.`` prefix and
+    the trunk's unused ``resnet.layer3/layer4/fc``; for map-free the
+    frozen matcher (``matcher.``, ``matching.``), the head's full-forward
+    tail (``head.resblock4``, ``head.mlp``) and the loss weights ``s_r``,
+    ``s_t``."""
+    from far_tpu_torch.models.sixdreg import MapfreeRegression
+    from far_tpu_torch.models.vitess import ViTEss
+
+    if isinstance(model, ViTEss):
+        prefix = "module."
+        unused = lambda k: k.startswith(("resnet.layer3.", "resnet.layer4.", "resnet.fc."))
+    elif isinstance(model, MapfreeRegression):
+        prefix = ""
+        unused = lambda k: k in ("s_r", "s_t") or k.startswith(
+            ("matcher.", "matching.", "head.resblock4.", "head.mlp."))
+    else:
+        raise TypeError(f"no reference layout for {type(model).__name__}")
+    own = {}
+    for k, v in sd.items():
+        k = k[len(prefix):] if k.startswith(prefix) else k
+        if not unused(k):
+            own[k] = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+    return model.load_state_dict(own, strict=True)
 
 
 def load_flax_npz(path) -> Tuple[Dict[str, Any], Dict[str, Any]]:

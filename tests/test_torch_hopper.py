@@ -588,3 +588,69 @@ def test_bare_wrappers_refuse_grad_and_auto_forms_train(card, dtype):
         torch.cuda.synchronize()
         for t in leaves:
             assert t.grad is not None and bool(torch.isfinite(t.grad).all()), what
+
+
+# ---- the shapes of the ViTEss and map-free paths -------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loftr_layer_at_mapfree_tokens(card, dtype):
+    """K1 at L = S = 6120, the coarse tokens of a 720x544 map-free matcher
+    image (90x68; 6120 is not a multiple of 64), C = 256, 8 heads: f32 on
+    the CUDA cores to 1e-4 max|ref|, bf16 on the tensor cores to 6e-2."""
+    g = torch.Generator().manual_seed(6120)
+    x, src = (torch.randn(2, 6120, 256, generator=g).to(card, dtype) for _ in range(2))
+    p = _params(256, g, card)
+    ref = loftr_layer_plain(x.float(), src.float(), p, 8)
+    before = loftr_layer.launches_tc
+    out = loftr_layer(x, src, pack_params(p, dtype), 8)
+    torch.cuda.synchronize()
+    assert loftr_layer.launches_tc == before + (dtype == torch.bfloat16)
+    tol = (1e-4 if dtype == torch.float32 else 6e-2) * float(ref.abs().max())
+    assert float((out.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dual_softmax_at_mapfree_tokens(card, dtype):
+    """K2 at 6120 x 6120, C = 256: bf16 inputs on the tensor-core route,
+    f32 inputs on the CUDA cores; tolerance 1e-6 + 1e-4 max|ref|, every
+    row index the plain one's or a near-tie."""
+    g = torch.Generator().manual_seed(6121)
+    f0 = torch.randn(2, 6120, 256, generator=g)
+    f1 = f0[:, torch.randperm(6120, generator=g)] + 0.5 * torch.randn(2, 6120, 256,
+                                                                      generator=g)
+    sc = 256 ** -0.5
+    a, b = ((f * sc).to(dtype).to(card).contiguous() for f in (f0, f1))
+    before, before_tc = dual_softmax_rowcol.launches, dual_softmax_rowcol.launches_tc
+    rv, ri, cm = dual_softmax_rowcol(a, b, 10.0)
+    torch.cuda.synchronize()
+    assert dual_softmax_rowcol.launches == before + 1
+    assert dual_softmax_rowcol.launches_tc == before_tc + (dtype == torch.bfloat16)
+    prv, _, pcm = dual_softmax_rowcol_plain(a, b, 10.0)
+    tol = 1e-6 + 1e-4 * float(prv.abs().max())
+    assert float((rv - prv).abs().max()) <= tol
+    assert float((cm - pcm).abs().max()) <= tol
+    sim = torch.einsum("blc,bsc->bls", a.float(), b.float()) * 10.0
+    conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
+    assert float((prv - torch.gather(conf, 2, ri[..., None])[..., 0]).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_at_vitess_tokens(card, dtype):
+    """K4 as ViTEss's CrossBlock runs it: B = 4, 3 heads, N = 24 x 24 = 576,
+    D = 64, Dv = 70 (v padded to 72 on the tensor-core route); f32 on the
+    CUDA cores to 1e-4 max|ref|, bf16 on the tensor cores to 1e-2."""
+    g = torch.Generator().manual_seed(576)
+    q, k = (torch.randn(4, 3, 576, 64, generator=g).to(card, dtype) for _ in range(2))
+    v = torch.randn(4, 3, 576, 70, generator=g).to(card, dtype)
+    ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
+    before = bilinear_dual_softmax.launches_tc
+    out = bilinear_dual_softmax(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert bilinear_dual_softmax.launches_tc == before + (dtype == torch.bfloat16)
+    assert out.shape == (4, 3, 70, 70)
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol
