@@ -67,9 +67,30 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    and ``SixDRegConfig()`` at 368x272, three requests each in f32 and
    bf16, counters 16/1/1/0 a request, finite outputs, R orthonormal to
    1e-3, and the peak memory.
+13. the families' training (``far_tpu_torch.train.family_trainers``):
+   (a) the device ms of K4's forward and backward (the plain recompute)
+   through its differentiable form at a ViTEss step's shape (6, 3, 576,
+   64, 70); ``ViTEssTrainer`` with the
+   interiornet preset's model (gated, dim 192, depth 6) on B=6 pairs at
+   384x512, 10 steps on one batch in f32 and bf16 with the preset's
+   optimizer (counters, set to 0 before each step: K4 2, K1/K2/K3 0), the
+   loss falling, then an ``eval_step`` that changes nothing; (b)
+   ``SixDRegTrainer`` with the mapfree preset's ``SixDRegConfig()`` and
+   optimizer on B=6 pairs at 368x272 with 512 ground-truth matches, the
+   MAGSAC round on the card inside each step, 10 steps in f32 and bf16
+   (no kernel launched), then 3 with lam = 0 moving s_r and s_t; each
+   run's ms per step and peak memory; (c) one step of each trainer at
+   the CPU tests' small widths on the card against the CPU: in float32
+   (K4 launched), and in float64 with cuDNN's convolution and PyTorch's
+   own, every gradient to 1e-9;
+14. the classical map-free baseline: ``FeatureMatchingModel`` behind an
+   oracle ``PrecomputedMatching`` on 16 synthetic scenes at 480x640, its
+   essential, essential-metric and PnP solvers on the card, held to
+   tests/test_metric_solvers.py's gates.
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
-(B=2) and K4 at ViTEss's CrossBlock shape (B=4, 3 heads, N=576, D=64,
-Dv=70) against their plain versions in both dtypes.
+(B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
+gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
+in both dtypes.
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -102,6 +123,7 @@ K_MATCH, WW, C_FINE, H_FINE = 1024, 25, 128, 8
 H_EMM, D_EMM = 4, 64
 L_MAPFREE = 90 * 68          # coarse tokens of the 720x544 map-free matcher
 VITESS_K4 = (4, 3, 576, 64, 70)  # K4 in ViTEss's CrossBlock at B=4: B, H, N, D, Dv
+VITESS_TRAIN_K4 = (6, 3, 576, 64, 70)  # the same in a ViTEss training step at B=6
 
 
 def fail(msg: str) -> None:
@@ -513,19 +535,19 @@ def check_kernels(dev):
             lambda: dual_softmax_rowcol_plain(a, b, 10.0),
             lambda outs: k2_errors(a, b, outs)[:2], 2 * B * Lm * Lm * C,
             2 * B * Lm * C * a.element_size() + B * Lm * (4 + 8 + 4), library)
-    Bv, Hv, Nv, Dq, Dvv = VITESS_K4
-    q32, k32 = (torch.randn(Bv, Hv, Nv, Dq, generator=gf).to(dev) for _ in range(2))
-    v32 = torch.randn(Bv, Hv, Nv, Dvv, generator=gf).to(dev)
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
-        ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dq ** -0.5)
-        family_shape(
-            "K4_bilinear_dual_softmax", dt, f"B={Bv} H={Hv} N={Nv} D={Dq} Dv={Dvv}",
-            bilinear_dual_softmax, lambda: bilinear_dual_softmax(q, k, v, Dq ** -0.5),
-            lambda: bilinear_dual_softmax_plain(q, k, v, Dq ** -0.5),
-            lambda out: (max_err(out, ref), k4_tol(dt, ref)),
-            Bv * Hv * (2 * Nv * Nv * Dq + 2 * Nv * Nv * Dvv + 2 * Nv * Dvv * Dvv),
-            Bv * Hv * Nv * (2 * Dq + Dvv) * q.element_size() + Bv * Hv * Dvv * Dvv * 4)
+    for Bv, Hv, Nv, Dq, Dvv in (VITESS_K4, VITESS_TRAIN_K4):
+        q32, k32 = (torch.randn(Bv, Hv, Nv, Dq, generator=gf).to(dev) for _ in range(2))
+        v32 = torch.randn(Bv, Hv, Nv, Dvv, generator=gf).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dq ** -0.5)
+            family_shape(
+                "K4_bilinear_dual_softmax", dt, f"B={Bv} H={Hv} N={Nv} D={Dq} Dv={Dvv}",
+                bilinear_dual_softmax, lambda: bilinear_dual_softmax(q, k, v, Dq ** -0.5),
+                lambda: bilinear_dual_softmax_plain(q, k, v, Dq ** -0.5),
+                lambda out: (max_err(out, ref), k4_tol(dt, ref)),
+                Bv * Hv * (2 * Nv * Nv * Dq + 2 * Nv * Nv * Dvv + 2 * Nv * Dvv * Dvv),
+                Bv * Hv * Nv * (2 * Dq + Dvv) * q.element_size() + Bv * Hv * Dvv * Dvv * 4)
 
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -961,7 +983,8 @@ def _fixed_estimate(B, dev):
 
     c, s = math.cos(0.2), math.sin(0.2)
     rt = torch.tensor([[c, 0, s, 0.3], [0, 1, 0, -0.1], [-s, 0, c, 0.9]]).expand(B, 3, 4)
-    fields = dict(rt34=rt.contiguous(), num_inliers=torch.full((B,), 17.0),
+    fields = dict(rt34=rt.contiguous(), R=rt[..., :3].contiguous(),
+                  t=rt[..., 3].contiguous(), num_inliers=torch.full((B,), 17.0),
                   num_tight=torch.full((B,), 3.0), num_ultra_tight=torch.zeros(B),
                   success=torch.ones(B, dtype=torch.bool))
     est = types.SimpleNamespace(**{k: v.to(dev) for k, v in fields.items()})
@@ -1075,7 +1098,7 @@ def train_full(dev, card: str):
                 if p.grad is not None)
             if not finite:
                 fail(f"train {dtype} step {step}: non-finite metrics or gradients {m}")
-        per_step = {k: v[0] for k, v in want.items()}
+        per_step = {k: v[0] for k, v in got.items()}
         moved = sum(not torch.equal(a, p.detach()) for a, p in zip(start, tr.model.parameters()))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = statistics.median(times[1:])
@@ -1635,6 +1658,372 @@ def mapfree_requests(dev, card: str):
     return totals
 
 
+# ---- phase 13: the families' training ------------------------------------------
+
+FAMILY_STEPS = 10
+KC_STEPS = 3              # map-free steps with lam = 0 (Kendall-Cipolla weights)
+B_FAMILY = 6              # the interiornet preset's batch; map-free's 24 over 4 cards
+VITESS_TRAIN_HW = (384, 512)   # the JAX ViTEss trainer's default image size
+# launches a step: ViTEss's CrossBlock runs K4 twice; map-free runs no kernel
+VITESS_STEP = {"K1_loftr_layer": 0, "K2_dual_softmax_rowcol": 0,
+               "K3_fine_transformer": 0, "K4_bilinear_dual_softmax": 2}
+SIXDREG_STEP = {k: 0 for k in VITESS_STEP}
+# tests/test_torch_family_train.py's small widths
+SMALL_VITESS = dict(dim=48, depth=2, num_heads=3, fc_hidden=64)
+SMALL_SIXDREG = dict(image_hw=(64, 64), hidden=64, transformer_heads=2,
+                     encoder_blocks=(1, 1, 1), encoder_out_layers=8, transformer_layers=1)
+# 13 (c): a float64 step's gradients, card against CPU, relative to
+# max|g_cpu|. The float32 step's read up to 4.1e-2 in the ResUNet's stem
+# (the card's own float32 runs differ by 2.4e-2 there: a small batch's
+# train-mode BatchNorm amplifies rounding ~4e5 times); float64's unit
+# roundoff is 2**-29 times float32's, which predicts <= 8e-11
+F64_TOL = 1e-9
+# 13 (c): the float32 step's gradients past the CNN fronts (whose float32
+# gradient the float64 step holds)
+F32_TOL = 1e-3
+FRONTS = {"vitess": ("resnet.", "extractor_final_conv."), "sixdreg": ("encoder.",)}
+
+
+def k4_vitess_train(dev, card: str):
+    """Phase 13 (a), first: the device ms of K4's forward (the kernel) and
+    backward (the plain recompute, below N = 1024) through
+    bilinear_dual_softmax_auto at a ViTEss step's (6, 3, 576, 64, 70), in
+    float32 and bfloat16. Phase 3 and tests/test_torch_hopper.py hold its
+    values at this shape. Returns the ms."""
+    import torch
+
+    from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_auto
+
+    B, H, N, D, Dv = VITESS_TRAIN_K4
+    g = torch.Generator().manual_seed(13)
+    q32, k32 = (torch.randn(B, H, N, D, generator=g).to(dev) for _ in range(2))
+    v32 = torch.randn(B, H, N, Dv, generator=g).to(dev)
+    cot = torch.randn(B, H, Dv, Dv, generator=g).to(dev)
+    scale = D ** -0.5
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        leaves = [x.to(dt).requires_grad_() for x in (q32, k32, v32)]
+        fwd = cuda_ms(lambda: bilinear_dual_softmax_auto(*leaves, scale), 10)
+        both = cuda_ms(lambda: torch.autograd.grad(
+            bilinear_dual_softmax_auto(*leaves, scale), leaves, cot), 10)
+        out[tag] = {"forward_ms": fwd, "backward_ms": both - fwd}
+        print(f"train fn K4 {tag} {VITESS_TRAIN_K4} (a ViTEss step): forward (kernel) "
+              f"{fwd:.4f} ms, backward (plain recompute) {both - fwd:.4f} ms on {card}",
+              flush=True)
+    return out
+
+
+def _family_steps(name: str, tr, batch, n: int, want: dict, dtype: str, dev,
+                  card: str, seeded: bool):
+    """``n`` steps of a family trainer on one batch, the launch counters set
+    to 0 before each and read after it (``want`` a step; the tensor-core
+    routes' per TC_ROUTES); with ``seeded`` the solver gets the same draws
+    every step. Fails unless every metric and gradient is finite and each
+    step launched ``want``. Returns (metrics, host ms) of each step and the
+    launches of the last."""
+    import torch
+
+    fns = counters()
+    metrics, times = [], []
+    for step in range(n):
+        reset_counters()
+        gen = torch.Generator(device=dev).manual_seed(0) if seeded else None
+        t0 = time.perf_counter()
+        m = tr.step(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        got = {k: (f.launches, f.launches_tc) for k, f in fns.items()}
+        exp = {k: (v, v if dtype in TC_ROUTES[k] else 0) for k, v in want.items()}
+        if got != exp:
+            fail(f"{name} step {step}: launches {got}, expected {exp}")
+        finite = all(math.isfinite(v) for v in m.values()) and all(
+            bool(torch.isfinite(p.grad).all()) for p in tr.parameters() if p.grad is not None)
+        if not finite:
+            fail(f"{name} step {step}: non-finite metrics or gradients {m}")
+    return metrics, times, {k: v[0] for k, v in got.items()}
+
+
+def _report_steps(name: str, metrics, times, card: str, extra: str = "") -> dict:
+    """Print the steps' ms (median of steps 2-n), peak memory and losses;
+    fails unless the last loss is below the first."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times[1:])
+    losses = [round(m["loss"], 6) for m in metrics]
+    print(f"{name}: ms/step median {ms:.2f} (steps 2-{len(times)}; first {times[0]:.2f}), "
+          f"peak memory {peak:.3f} GiB, loss by step {losses}, grad_norm "
+          f"{metrics[0]['grad_norm']:.4f} -> {metrics[-1]['grad_norm']:.4f}{extra} on {card}",
+          flush=True)
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    return {"ms_per_step": ms, "peak_gib": peak}
+
+
+def family_train(dev, card: str):
+    """Phase 13 (a), (b): ViTEssTrainer with the interiornet preset's model
+    (ViTEssConfig(use_loftr_gating=True): dim 192, depth 6, 3 heads) on B=6
+    SolverPoseDataset pairs at 384x512, and SixDRegTrainer with the mapfree
+    preset's SixDRegConfig() on B=6 GTCorrespondenceDataset pairs (512
+    matches) at 368x272, the MAGSAC round on the card inside each step; 10
+    steps on one batch in float32 and in bfloat16 (map-free: then 3 with
+    lam = 0 from the same weights, s_r and s_t moving), each preset's own
+    optimizer (interiornet: Adam, OneCycle from 5e-4 / 25, clip 1; mapfree:
+    Adam 1e-5, clip 1), the loss falling. Launches a step: ViTEss K4 2
+    (the tensor-core route in bf16), K1-K3 0; map-free none. Then
+    ViTEss's eval_step, which must leave every parameter and statistic as
+    it was. Returns the ms and peak memory of each run, and the launches
+    of each family's last step by dtype."""
+    import dataclasses
+
+    import torch
+
+    from far_tpu_torch.configs import PRESETS
+    from far_tpu_torch.data.synthetic import (
+        GTCorrespondenceDataset, SolverPoseDataset, SyntheticPairDataset)
+    from far_tpu_torch.train.family_trainers import (
+        SixDRegTrainer, ViTEssTrainer, collate_sixdreg, collate_vitess)
+
+    vit_preset, mf_preset = PRESETS["interiornet"](), PRESETS["mapfree"]()
+    vit_model, mf_model = vit_preset.model, mf_preset.model
+    ds = SolverPoseDataset(SyntheticPairDataset(n=B_FAMILY, hw=VITESS_TRAIN_HW, seed=0))
+    vit_batch = collate_vitess([ds[i] for i in range(B_FAMILY)], dev)
+    ds = GTCorrespondenceDataset(SyntheticPairDataset(n=B_FAMILY, hw=mf_model.image_hw,
+                                                      seed=0), max_matches=512)
+    mf_batch = collate_sixdreg([ds[i] for i in range(B_FAMILY)], dev)
+    report, launched = {}, {"vitess": {}, "sixdreg": {}}
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = ViTEssTrainer(dataclasses.replace(vit_model, dtype=dtype), vit_preset.optim,
+                           device=dev).init(seed=0)
+        name = (f"train vitess {dtype} (interiornet, gated) B={B_FAMILY} "
+                f"{VITESS_TRAIN_HW[0]}x{VITESS_TRAIN_HW[1]}")
+        metrics, times, launched["vitess"][dtype] = _family_steps(
+            name, tr, vit_batch, FAMILY_STEPS, VITESS_STEP, dtype, dev, card, seeded=False)
+        report[f"vitess {dtype}"] = _report_steps(name, metrics, times, card)
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        reset_counters()
+        ev = tr.eval_step(vit_batch)
+        torch.cuda.synchronize()
+        kept = all(torch.equal(v, before[k]) for k, v in tr.model.state_dict().items())
+        k4 = counters()["K4_bilinear_dual_softmax"].launches
+        print(f"eval_step vitess {dtype}: {ev}, parameters and statistics unchanged {kept}, "
+              f"K4 launches {k4}", flush=True)
+        if not (kept and k4 == VITESS_STEP["K4_bilinear_dual_softmax"]
+                and all(math.isfinite(v) for v in ev.values())):
+            fail(f"eval_step vitess {dtype}")
+        del tr, before
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(mf_model, dtype=dtype)
+        tr = SixDRegTrainer(cfg, mf_preset.optim, device=dev).init(seed=0)
+        name = (f"train sixdreg {dtype} (mapfree) B={B_FAMILY} "
+                f"{cfg.image_hw[0]}x{cfg.image_hw[1]}")
+        metrics, times, launched["sixdreg"][dtype] = _family_steps(
+            name, tr, mf_batch, FAMILY_STEPS, SIXDREG_STEP, dtype, dev, card, seeded=True)
+        inl = [m["solver_inliers"] for m in metrics]
+        report[f"sixdreg {dtype}"] = _report_steps(
+            name, metrics, times, card, f", MAGSAC inliers by step {inl}")
+        if not min(inl) > 100:
+            fail(f"{name}: the solver kept {inl} inliers of 512 GT matches")
+        kc = SixDRegTrainer(cfg, mf_preset.optim, lam=0.0, device=dev)
+        kc.model.load_state_dict(tr.model.state_dict())
+        kc_metrics, _, _ = _family_steps(f"{name} lam=0", kc, mf_batch, KC_STEPS,
+                                         SIXDREG_STEP, dtype, dev, card, seeded=True)
+        s = {k: float(p.detach()) for k, p in kc.extra.items()}
+        print(f"{name} lam=0: {KC_STEPS} steps, loss by step "
+              f"{[round(m['loss'], 6) for m in kc_metrics]}, s_r / s_t {s}", flush=True)
+        if not all(v != 0.0 and math.isfinite(v) for v in s.values()):
+            fail(f"{name} lam=0: s_r / s_t did not move: {s}")
+        del tr, kc
+        torch.cuda.empty_cache()
+    return report, launched
+
+
+def family_small_agreement(dev):
+    """Phase 13 (c): one step's forward and backward of each trainer at the
+    CPU tests' small widths (64x64, B=2, TF32 off) on the card against the
+    CPU, the same weights and batch, the map-free solver stubbed to a
+    fixed estimate. In float32, as the trainers run (cuDNN on): the
+    metrics within 1e-4 relative, the BatchNorm statistics within 1e-5,
+    every gradient past the CNN fronts (FRONTS) within F32_TOL max|g_cpu|,
+    and on the card ViTEss launches K4 twice, map-free nothing. In
+    float64 (``float64_compute``, the models made float64, K4's Function
+    swapped for its plain version, which has the float64 route the kernel
+    lacks), twice on the card, with cuDNN's convolution and with
+    PyTorch's own: every metric, statistic and gradient within F64_TOL
+    relative, each model's BIAS_BEFORE_BN (exact gradient 0) against its
+    convolution weight's max|g_cpu|."""
+    import contextlib
+
+    import torch
+
+    import far_tpu_torch.models.regressor as regressor
+    import far_tpu_torch.train.family_trainers as fam
+    from far_tpu_torch.data.synthetic import (
+        GTCorrespondenceDataset, SolverPoseDataset, SyntheticPairDataset)
+    from far_tpu_torch.models.sixdreg import SixDRegConfig
+    from far_tpu_torch.models.vitess import ViTEssConfig
+    from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_plain
+    from far_tpu_torch.utils.float64 import float64_compute
+
+    pairs = SyntheticPairDataset(n=2, hw=(64, 64), seed=1)
+    runs = {
+        "vitess": (lambda device: fam.ViTEssTrainer(
+            ViTEssConfig(use_loftr_gating=True, dtype="float32", **SMALL_VITESS),
+            device=device), fam.collate_vitess, SolverPoseDataset(pairs), VITESS_STEP),
+        "sixdreg": (lambda device: fam.SixDRegTrainer(
+            SixDRegConfig(dtype="float32", **SMALL_SIXDREG), device=device),
+            fam.collate_sixdreg, GTCorrespondenceDataset(pairs, max_matches=128),
+            SIXDREG_STEP)}
+    saved = fam.estimate_pose, regressor.bilinear_dual_softmax_auto
+    fns = counters()
+
+    def one_step(make, collate, ds, device, f64=False, cudnn=True):
+        tr = make(device).init(seed=2)
+        reset_counters()
+        torch.backends.cudnn.enabled = cudnn
+        mode = float64_compute() if f64 else contextlib.nullcontext()
+        if f64:
+            tr.model.double()
+        try:
+            with mode:
+                fam.estimate_pose = _fixed_estimate(2, device)
+                loss, metrics = tr.loss(collate([ds[i] for i in range(2)], device))
+                loss.backward()
+        finally:
+            torch.backends.cudnn.enabled = True
+        return dict(
+            metrics={k: float(v.detach()) for k, v in metrics.items()},
+            grads={n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+                   if p.grad is not None},
+            stats={n: v.cpu() for n, v in tr.model.state_dict().items()
+                   if n.endswith(("running_mean", "running_var"))},
+            launched={k: f.launches for k, f in fns.items()},
+            biases=type(tr.model).BIAS_BEFORE_BN)
+
+    def rel(a, b, scale=None):
+        # in float64: max_err rounds to float32 first
+        err = float((a.double() - b.double()).abs().max())
+        return err / max(float((b if scale is None else scale).abs().max()), 1e-30)
+
+    def compare(got, ref, names):
+        """Largest relative errors of the metrics, the statistics and the
+        gradients of ``names`` (each (error, name))."""
+        m = max((abs(got["metrics"][k] - v) / max(abs(v), 1e-30), k)
+                for k, v in ref["metrics"].items() if v != 0.0)
+        st = max((rel(got["stats"][n], v), n) for n, v in ref["stats"].items())
+        g = max((rel(got["grads"][n], ref["grads"][n],
+                     ref["grads"][n[:-4] + "weight"] if n in ref["biases"] else None), n)
+                for n in names)
+        return m, st, g
+
+    try:
+        for family, (make, collate, ds, want) in runs.items():
+            cpu = one_step(make, collate, ds, "cpu")
+            card = one_step(make, collate, ds, dev)
+            past = [n for n in cpu["grads"] if not n.startswith(FRONTS[family])]
+            front = [n for n in cpu["grads"] if n.startswith(FRONTS[family])]
+            m, st, g = compare(card, cpu, past)
+            g_front = compare(card, cpu, front)[2]
+            ok = (m[0] <= 1e-4 and st[0] <= 1e-5 and g[0] <= F32_TOL
+                  and set(card["grads"]) == set(cpu["grads"]) and card["launched"] == want)
+            print(f"train {family} small width float32, card vs CPU: metrics {card['metrics']}"
+                  f", max rel err {m[0]:.3e} (tol 1e-4); BatchNorm statistics {st[0]:.3e} "
+                  f"(tol 1e-5); grads of {len(past)} tensors past {FRONTS[family]} within "
+                  f"{g[0]:.3e} of max|g_cpu| ({g[1]}; tol {F32_TOL}), of the {len(front)} in "
+                  f"them {g_front[0]:.3e} ({g_front[1]}; held in float64 below); card "
+                  f"launches {card['launched']}" + (" ok" if ok else " FAILED"), flush=True)
+            if not ok:
+                fail(f"the small float32 {family} step on the card disagrees with the CPU's")
+            # K4 has no float64 route: its plain version (what its backward
+            # recomputes) stands in, on both devices
+            regressor.bilinear_dual_softmax_auto = bilinear_dual_softmax_plain
+            try:
+                cpu = one_step(make, collate, ds, "cpu", f64=True)
+                for cudnn in (True, False):
+                    card = one_step(make, collate, ds, dev, f64=True, cudnn=cudnn)
+                    m, st, g = compare(card, cpu, list(cpu["grads"]))
+                    dtypes = {v.dtype for v in card["grads"].values()}
+                    ok = (max(m[0], st[0], g[0]) <= F64_TOL and dtypes == {torch.float64}
+                          and set(card["grads"]) == set(cpu["grads"])
+                          and not any(card["launched"].values()))
+                    print(f"train {family} small width float64, card (cuDNN "
+                          f"{'on' if cudnn else 'off'}) vs CPU: metrics max rel err {m[0]:.3e}, "
+                          f"BatchNorm statistics {st[0]:.3e}, grads of {len(cpu['grads'])} "
+                          f"tensors {g[0]:.3e} of max|g_cpu| ({g[1]}); tol {F64_TOL}"
+                          + (" ok" if ok else " FAILED"), flush=True)
+                    if not ok:
+                        fail(f"the small float64 {family} step on the card disagrees with "
+                             f"the CPU's (cuDNN {cudnn})")
+            finally:
+                regressor.bilinear_dual_softmax_auto = saved[1]
+    finally:
+        fam.estimate_pose = saved[0]
+
+
+# ---- phase 14: the classical map-free baseline ------------------------------------
+
+BASELINE_SCENES = 16
+# median rotation error (deg) and median |t - t_gt| gates, tests/test_metric_solvers.py
+BASELINE_GATES = {"essential": (1.0, None), "essential_metric": (1.0, 0.15),
+                  "pnp": (3.0, 0.15)}
+
+
+def classical_baseline(dev, card: str):
+    """Phase 14: FeatureMatchingModel behind an oracle PrecomputedMatching
+    (GTCorrespondenceDataset, 0.5 px noise, a quarter outliers, 512
+    matches) on 16 synthetic scenes at 480x640, each solver on the card:
+    the median rotation error under 1 deg (essential, essential_metric) and
+    3 deg (pnp), the median metric |t - t_gt| under 0.15 (essential_metric,
+    pnp)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from far_tpu_torch.data.synthetic import GTCorrespondenceDataset, SyntheticPairDataset
+    from far_tpu_torch.geometry.rotations import geodesic_distance
+    from far_tpu_torch.models.feature_matching import PrecomputedMatching
+    from far_tpu_torch.models.sixdreg import FeatureMatchingModel
+
+    ds = GTCorrespondenceDataset(SyntheticPairDataset(n=BASELINE_SCENES, hw=(480, 640), seed=0),
+                                 max_matches=512, noise_pix=0.5, outlier_pct=0.25)
+    samples = [ds[i] for i in range(BASELINE_SCENES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "correspondences.npz"
+        np.savez(path, **{"-".join(s["pair_names"]):
+                          s["correspondences"][s["corr_valid"]].reshape(-1, 4)
+                          for s in samples})
+        matcher = PrecomputedMatching(path, 512)
+        for solver, (rot_gate, t_gate) in BASELINE_GATES.items():
+            model = FeatureMatchingModel(matcher, solver, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            rot, terr, times = [], [], []
+            for s in samples:
+                t0 = time.perf_counter()
+                R, t, _ = model.estimate(*s["pair_names"], s["K0"], s["K1"], s["depth0"],
+                                         s["depth1"], generator=gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if R.device.type != "cuda":
+                    fail(f"baseline {solver}: solved on {R.device}")
+                T = torch.from_numpy(s["T_0to1"]).to(dev)
+                rot.append(math.degrees(float(geodesic_distance(R, T[:3, :3]))))
+                terr.append(float(torch.linalg.norm(t - T[:3, 3])))
+            med_r, med_t = statistics.median(rot), statistics.median(terr)
+            ok = med_r < rot_gate and (t_gate is None or med_t < t_gate)
+            print(f"baseline {solver} on {BASELINE_SCENES} scenes 480x640: median rotation "
+                  f"error {med_r:.4f} deg (gate {rot_gate}), median |t - t_gt| {med_t:.4f}"
+                  f" (gate {t_gate}), ms per pair median {statistics.median(times):.2f} on "
+                  f"{card}" + (" ok" if ok else " FAILED"), flush=True)
+            if not ok:
+                fail(f"classical baseline {solver}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1674,6 +2063,10 @@ def main() -> int:
     vitess_launches = vitess_requests(dev, card)
     sixdreg_golden(dev)
     mapfree_launches = mapfree_requests(dev, card)
+    k4_train = k4_vitess_train(dev, card)
+    family, family_launches = family_train(dev, card)
+    family_small_agreement(dev)
+    classical_baseline(dev, card)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -1710,6 +2103,13 @@ def main() -> int:
         kernels[-1]["launches_mapfree"] = mapfree_launches[name]
         if "family_shapes" in entries[name]:
             kernels[-1]["family_shapes"] = entries[name]["family_shapes"]
+        # launches of a family training step by dtype (phase 13 (a), (b))
+        for fam_name in ("vitess", "sixdreg"):
+            kernels[-1][f"launches_{fam_name}_train_step"] = {
+                dtype: got[name] for dtype, got in family_launches[fam_name].items()}
+        if name == "K4_bilinear_dual_softmax":
+            kernels[-1]["vitess_train_shape"] = {"shape": list(VITESS_TRAIN_K4), **k4_train}
+    print(f"family training (phase 13): {json.dumps(family)}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ surface with smooth depth relief is splatted into two views; the relief
 keeps essential-matrix estimation away from the planar degeneracy. A
 sample also names its scene, its pair (``pair_names``, which validation
 joins into the pair's identifier) and its dataset. ``collate`` stacks
-samples into a ``PairBatch`` on a device.
+samples into a ``PairBatch`` on a device. ``GTCorrespondenceDataset``
+and ``SolverPoseDataset`` are numpy copies of the JAX package's wrappers
+that feed the family trainers (same per-index seeds).
 """
 
 from __future__ import annotations
@@ -104,6 +106,110 @@ class SyntheticPairDataset:
                 "pair_id": np.asarray(idx, np.int64),
                 "pair_names": (f"syn_{idx}_0", f"syn_{idx}_1"),
                 "dataset_name": "synthetic"}
+
+
+class GTCorrespondenceDataset:
+    """Correspondences from ground truth for a pair dataset with depth
+    (the JAX package's ``GTCorrespondenceDataset``, the same draws from
+    ``seed * 99991 + idx``): ``max_matches`` depth-valid pixels of image 0,
+    projected through ``T_0to1`` into image 1, jittered by ``noise_pix``,
+    a share ``outlier_pct`` replaced by uniform points of image 1. Adds
+    ``correspondences`` (N, 2, 2), ``corr_valid`` (N,) and
+    ``num_correspondences`` to each sample and keeps its images."""
+
+    def __init__(self, base_dataset, max_matches: int = 512,
+                 noise_pix: float = 1.0, outlier_pct: float = 0.1,
+                 seed: int = 0):
+        self.base = base_dataset
+        self.max_matches = max_matches
+        self.noise_pix = noise_pix
+        self.outlier_pct = outlier_pct
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> Dict:
+        s = dict(self.base[idx])
+        rng = np.random.default_rng(self.seed * 99991 + idx)
+        depth0 = np.asarray(s["depth0"], np.float64)
+        K0 = np.asarray(s["K0"], np.float64)
+        K1 = np.asarray(s["K1"], np.float64)
+        T = np.asarray(s["T_0to1"], np.float64)
+        H, W = depth0.shape
+        ys, xs = np.nonzero(depth0 > 0)
+        n = self.max_matches
+        corr = np.zeros((n, 2, 2), np.float32)
+        valid = np.zeros(n, bool)
+        if len(xs) > 0:
+            pick = rng.integers(0, len(xs), size=n)
+            u, v = xs[pick].astype(np.float64), ys[pick].astype(np.float64)
+            z = depth0[ys[pick], xs[pick]]
+            X = np.stack([(u - K0[0, 2]) / K0[0, 0] * z,
+                          (v - K0[1, 2]) / K0[1, 1] * z, z], -1)
+            X1 = X @ T[:3, :3].T + T[:3, 3]
+            ok = X1[:, 2] > 1e-3
+            u1 = X1[:, 0] / np.maximum(X1[:, 2], 1e-3) * K1[0, 0] + K1[0, 2]
+            v1 = X1[:, 1] / np.maximum(X1[:, 2], 1e-3) * K1[1, 1] + K1[1, 2]
+            ok &= (u1 >= 0) & (u1 < W) & (v1 >= 0) & (v1 < H)
+            p0 = np.stack([u, v], -1) + rng.normal(0, self.noise_pix, (n, 2))
+            p1 = np.stack([u1, v1], -1) + rng.normal(0, self.noise_pix, (n, 2))
+            out = rng.uniform(size=n) < self.outlier_pct
+            p1[out] = rng.uniform([0, 0], [W, H], size=(out.sum(), 2))
+            corr = np.stack([p0, p1], axis=1).astype(np.float32)
+            valid = ok
+        s["correspondences"] = corr
+        s["corr_valid"] = valid
+        s["num_correspondences"] = np.asarray(valid.sum(), np.float32)
+        return s
+
+
+class SolverPoseDataset:
+    """A solver pose for each pair, the input of LoFTR-gated ViTEss (the
+    JAX package's ``SolverPoseDataset``): from ``pose_npz`` (arrays 'rt'
+    (N, 3, 4) and 'num_corr' (N,) in pair order), or else the ground
+    truth rotated by a normal angle of ``rot_noise_deg`` about a random
+    axis, its translation jittered by ``trans_noise`` and made unit, and
+    a count in [50, 500), drawn from ``seed * 77003 + idx``."""
+
+    def __init__(self, base_dataset, pose_npz=None,
+                 rot_noise_deg: float = 5.0, trans_noise: float = 0.1,
+                 seed: int = 0):
+        self.base = base_dataset
+        self.poses = None
+        if pose_npz is not None:
+            z = np.load(pose_npz)
+            self.poses = (np.asarray(z["rt"], np.float32),
+                          np.asarray(z["num_corr"], np.float32))
+        self.rot_noise = np.radians(rot_noise_deg)
+        self.trans_noise = trans_noise
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> Dict:
+        s = dict(self.base[idx])
+        if self.poses is not None:
+            s["solver_rt"] = self.poses[0][idx]
+            s["num_correspondences"] = self.poses[1][idx]
+            return s
+        rng = np.random.default_rng(self.seed * 77003 + idx)
+        T = np.asarray(s["T_0to1"], np.float64)
+        ax = rng.normal(size=3)
+        ax /= np.linalg.norm(ax)
+        ang = rng.normal(0, self.rot_noise)
+        Kx = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]],
+                       [-ax[1], ax[0], 0]])
+        dR = np.eye(3) + np.sin(ang) * Kx + (1 - np.cos(ang)) * (Kx @ Kx)
+        rt = np.zeros((3, 4), np.float32)
+        rt[:, :3] = dR @ T[:3, :3]
+        t = T[:3, 3] + rng.normal(0, self.trans_noise, 3)
+        n = np.linalg.norm(t)
+        rt[:, 3] = t / n if n > 1e-8 else np.array([0, 0, 1.0])
+        s["solver_rt"] = rt
+        s["num_correspondences"] = np.asarray(rng.integers(50, 500), np.float32)
+        return s
 
 
 def collate(samples: Sequence[Dict], device=None) -> Tuple[PairBatch, torch.Tensor]:

@@ -14,8 +14,10 @@ normalises with the running statistics, in float32 whatever the input's
 dtype, and rounds the result once; in training (``self.training``)
 with the batch's, computed in float32 whatever the compute dtype, the
 variance biased (E[x^2] - mu^2, clipped at 0) in the normalisation and in
-the running update ``running = 0.9 running + 0.1 batch``. That is not
-``F.batch_norm(training=True)``, whose running variance is unbiased.
+the running update ``running = 0.9 running + 0.1 batch`` (Flax's momentum
+0.9 is the module's torch momentum 0.1; another is read from the
+module). That is not ``F.batch_norm(training=True)``, whose running
+variance is unbiased.
 
 Under ``deferred_running_stats(sink)`` a train-mode BatchNorm appends
 (module, batch mean, batch variance) to ``sink`` instead of updating its
@@ -35,8 +37,6 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-
-MOMENTUM = 0.9  # Flax's: the share of the old running statistics
 
 
 def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
@@ -60,10 +60,12 @@ def deferred_running_stats(sink: List):
 
 @torch.no_grad()
 def update_running_stats(stats) -> None:
-    """``running = 0.9 running + 0.1 batch`` for each (module, mean, var)."""
+    """``running = (1 - m) running + m batch`` for each (module, mean, var),
+    m the module's torch momentum: 0.1 (Flax's momentum 0.9) unless the
+    module sets another (Flax's default 0.99 is torch's 0.01)."""
     for m, mean, var in stats:
-        m.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
-        m.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)
+        m.running_mean.mul_(1 - m.momentum).add_(m.momentum * mean)
+        m.running_var.mul_(1 - m.momentum).add_(m.momentum * var)
 
 
 def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:

@@ -10,7 +10,9 @@ Counterpart of ``far_tpu/models/sixdreg.py`` (``SixDRegConfig``,
 ``encoder1.0.shortcut.0``, ``upconv4.conv1.conv``, ``iconv4.normalize``,
 ...), ``head.resblock1-3``, ``transformer.layers.i`` (``self_attn.
 in_proj_weight``, ``linear1``, ``norm1``, ...), ``pose_regressor``,
-``moe_predictor``. The pose and MoE MLPs take the transformer's tokens
+``moe_predictor``; and the classical baseline ``FeatureMatchingModel``
+(a matcher, then an essential-matrix, metric or PnP solver on the card).
+The pose and MoE MLPs take the transformer's tokens
 flattened channel-major, (B, C, L), as the reference feeds them, so its
 weights load as they are (the JAX package flattens token-major and
 permutes the first Linear instead); a reference checkpoint loads through
@@ -34,6 +36,8 @@ from far_tpu_torch.models.attention import full_attention
 from far_tpu_torch.models.backbone import _up2, bn, conv
 from far_tpu_torch.models.loftr import compute_dtype
 from far_tpu_torch.models.regressor import _seq, lin, ln, run_seq
+from far_tpu_torch.solvers.metric import metric_scale_ransac, pnp_ransac
+from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +221,9 @@ class CorrelationVolumeWarping(nn.Module):
         return out.transpose(1, 2).reshape(B, -1, H, W)
 
 
+HEAD_WIDTH = 256  # channels out of the head's resblock3
+
+
 class DeepResBlockHead(nn.Module):
     """resblock1-3 of the reference DeepResBlock (head.py:27-55) with
     ``full_forward_pass=False``: three stride-2 PreActBlocks 64-128-256."""
@@ -225,7 +232,7 @@ class DeepResBlockHead(nn.Module):
         super().__init__()
         self.resblock1 = PreActBlock(cin, 64, 2)
         self.resblock2 = PreActBlock(64, 128, 2)
-        self.resblock3 = PreActBlock(128, 256, 2)
+        self.resblock3 = PreActBlock(128, HEAD_WIDTH, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.resblock3(self.resblock2(self.resblock1(x)))
@@ -298,9 +305,19 @@ class MapfreeRegression(nn.Module):
     [1e-2, 1e2]) before the MoE blend, and the three inlier counts enter
     divided by 500 (reference model.py:198-232)."""
 
+    # the ResUNet decoder's convolution biases, each feeding a train-mode
+    # BatchNorm (see ViTEss.BIAS_BEFORE_BN)
+    BIAS_BEFORE_BN = ("encoder.upconv4.conv1.conv.bias", "encoder.iconv4.conv.bias",
+                      "encoder.upconv3.conv1.conv.bias", "encoder.iconv3.conv.bias",
+                      "encoder.outconv.conv.bias")
+
     def __init__(self, cfg: Optional[SixDRegConfig] = None):
         super().__init__()
         cfg = cfg or SixDRegConfig()
+        if cfg.d_im != HEAD_WIDTH:
+            # the JAX package's layers take their width from the head's
+            # output whatever d_im says; here d_im sizes them
+            raise ValueError(f"d_im={cfg.d_im}: the head emits {HEAD_WIDTH} channels")
         self.config = cfg
         self.dtype = compute_dtype(cfg)
         self.encoder = ResUNet(cfg)
@@ -353,3 +370,53 @@ class MapfreeRegression(nn.Module):
                 solver_rt: Optional[torch.Tensor] = None,
                 solver_inliers: Optional[torch.Tensor] = None):
         return self.fuse(self.features(image0, image1), solver_rt, solver_inliers)
+
+
+class FeatureMatchingModel:
+    """Classical baseline: matcher -> solver -> (R, t, inlier count).
+
+    ``matcher.match(img0, img1)`` gives padded (K, 2) points of both
+    images and a (K,) mask (``feature_matching.PrecomputedMatching`` takes
+    the pair's names). ``solver``: ``essential`` (the 8-point RANSAC at
+    ``pixel_thr``, inlier scoring, unit t), ``essential_metric`` (the same, t
+    scaled by ``metric_scale_ransac`` over both depth maps) or ``pnp``
+    (``pnp_ransac`` with image 0's depth, metric t). Runs on CUDA unless
+    given ``device="cpu"``; ``uniforms`` are the solver's draws (B=1),
+    else they come from ``generator``."""
+
+    def __init__(self, matcher, solver: str = "essential", pixel_thr: float = 2.0,
+                 scale_threshold: float = 0.1, device=None):
+        from far_tpu_torch.pipeline import resolve_device
+
+        if solver not in ("essential", "essential_metric", "pnp"):
+            raise ValueError(f"solver {solver!r}, not 'essential', 'essential_metric' "
+                             "or 'pnp'")
+        self.matcher = matcher
+        self.solver = solver
+        self.pixel_thr = pixel_thr
+        self.scale_threshold = scale_threshold
+        self.device = resolve_device(device)
+
+    @torch.no_grad()
+    def estimate(self, img0, img1, K0, K1, depth0=None, depth1=None,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None):
+        """(R (3, 3), t (3,), inlier count) of one pair; K and depth maps as
+        numpy arrays or tensors, unbatched."""
+        def one(a, dt=torch.float32):
+            return torch.as_tensor(a, dtype=dt, device=self.device)[None]
+
+        p0, p1, valid = self.matcher.match(img0, img1)
+        p0, p1, valid, K0, K1 = one(p0), one(p1), one(valid, torch.bool), one(K0), one(K1)
+        if self.solver == "pnp":
+            R, t, n_inl, _ = pnp_ransac(p0, p1, one(depth0), K0, K1, valid,
+                                        uniforms=uniforms, generator=generator)
+            return R[0], t[0], float(n_inl[0])
+        est = estimate_pose(p0, p1, K0, K1, valid,
+                            cfg=SolverConfig(solver="ransac", pixel_thr=self.pixel_thr),
+                            uniforms=uniforms, generator=generator)
+        t = est.t
+        if self.solver == "essential_metric" and depth0 is not None:
+            t, _, _ = metric_scale_ransac(est.R, est.t, p0, p1, one(depth0), one(depth1),
+                                          K0, K1, est.inliers, self.scale_threshold)
+        return est.R[0], t[0], float(est.num_inliers[0])

@@ -182,6 +182,13 @@ class ViTEss(nn.Module):
     """8-point ViT pose regressor; ``forward`` returns (t (B, 3),
     R (B, 3, 3), the normalized 9D pose (B, 9), gate (B, 2) or None)."""
 
+    # convolution biases that feed a train-mode BatchNorm: the normalisation
+    # removes them, so their exact gradient is 0 and a computed one is
+    # rounding noise (comparisons hold them to their weight's gradient)
+    BIAS_BEFORE_BN = ("extractor_final_conv.conv1.bias", "extractor_final_conv.conv2.bias",
+                      "extractor_final_conv.downsample.0.bias",
+                      "pool_transformer_output.0.bias", "pool_transformer_output.3.bias")
+
     def __init__(self, cfg: Optional[ViTEssConfig] = None):
         super().__init__()
         cfg = cfg or ViTEssConfig()
@@ -195,9 +202,10 @@ class ViTEss(nn.Module):
             feat = 2 * (cfg.dim // cfg.num_heads + 6) * cfg.dim
         else:
             p1 = min(96, 4 * cfg.pool_size)
+            # Flax's default momentum 0.99 here (torch's 0.01)
             self.pool_transformer_output = nn.Sequential(
-                nn.Conv2d(cfg.dim, p1, 1), nn.BatchNorm2d(p1), nn.ReLU(),
-                nn.Conv2d(p1, cfg.pool_size, 1), nn.BatchNorm2d(cfg.pool_size))
+                nn.Conv2d(cfg.dim, p1, 1), nn.BatchNorm2d(p1, momentum=0.01), nn.ReLU(),
+                nn.Conv2d(p1, cfg.pool_size, 1), nn.BatchNorm2d(cfg.pool_size, momentum=0.01))
             feat = 2 * cfg.pool_size * fh * fw
         hid = cfg.fc_hidden
         self.pose_regressor = _seq(feat, hid, hid, 9)

@@ -654,3 +654,85 @@ def test_bilinear_at_vitess_tokens(card, dtype):
     assert out.shape == (4, 3, 70, 70)
     tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(ref.abs().max())
     assert float((out - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_auto_at_vitess_train_shape(card, dtype):
+    """K4 as a ViTEss training step runs it, B = 6 (the interiornet
+    preset's batch), 3 heads, N = 576, D = 64, Dv = 70: the wrapper against
+    the plain version (f32 1e-4 max|ref|, bf16 1e-2), and
+    bilinear_dual_softmax_auto's output equal to the wrapper's with its
+    gradients within 1e-5 max|ref| of autograd through the plain version
+    (what its backward recomputes below N = 1024) on the card."""
+    from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_auto
+
+    g = torch.Generator().manual_seed(6576)
+    q, k = (torch.randn(6, 3, 576, 64, generator=g).to(card, dtype) for _ in range(2))
+    v = torch.randn(6, 3, 576, 70, generator=g).to(card, dtype)
+    cot = torch.randn(6, 3, 70, 70, generator=g).to(card)
+    ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
+    before = bilinear_dual_softmax.launches_tc
+    out = bilinear_dual_softmax(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert bilinear_dual_softmax.launches_tc == before + (dtype == torch.bfloat16)
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = bilinear_dual_softmax_auto(*leaves, 0.125)
+    assert torch.equal(auto.detach(), out)
+    grads = torch.autograd.grad(auto, leaves, cot)
+    refs = torch.autograd.grad(bilinear_dual_softmax_plain(*leaves, 0.125), leaves, cot)
+    for a, b in zip(grads, refs):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * float(b.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_small_vitess_step_card_vs_cpu(card):
+    """One gated ViTEssTrainer forward and backward at the CPU tests' small
+    widths (dim 48, depth 2, 64x64, B=2, f32, TF32 off) on the card
+    against the CPU from the same weights and batch: the metrics within
+    1e-4 relative, every gradient within 1e-3 max|g_cpu| past the trunk and
+    3e-2 in the ResNet18 trunk and the RAFT block, where float32 does not
+    fix the gradient more closely (test_torch_family_train.py measures the
+    port's CPU float32 gradient there 1.0e-3 from float64 and JAX's
+    1.9e-2; card vs CPU read 2.2e-3 of max|g_cpu| on
+    resnet.layer1.0.conv2); the RAFT block's convolution biases, which
+    feed a train-mode BatchNorm and whose exact gradient is 0, against
+    their weight's max|g_cpu|; the BatchNorm statistics within 1e-5
+    relative, and K4 launched twice on the card."""
+    from far_tpu_torch.data.synthetic import SolverPoseDataset, SyntheticPairDataset
+    from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
+    from far_tpu_torch.train.family_trainers import ViTEssTrainer, collate_vitess
+
+    cfg = ViTEssConfig(dim=48, depth=2, num_heads=3, fc_hidden=64, use_loftr_gating=True,
+                       dtype="float32")
+    ds = SolverPoseDataset(SyntheticPairDataset(n=2, hw=(64, 64), seed=1))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = {}
+        for device in (card, torch.device("cpu")):
+            tr = ViTEssTrainer(cfg, device=device).init(seed=2)
+            before = bilinear_dual_softmax.launches
+            loss, metrics = tr.loss(collate_vitess([ds[0], ds[1]], device))
+            loss.backward()
+            res[device.type] = (
+                {k: float(v.detach()) for k, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in tr.model.named_parameters() if p.grad is not None},
+                {n: v.cpu() for n, v in tr.model.state_dict().items()
+                 if n.endswith(("running_mean", "running_var"))},
+                bilinear_dual_softmax.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (m, g, s, launched), (m_ref, g_ref, s_ref, _) = res["cuda"], res["cpu"]
+    assert launched == 2 and g.keys() == g_ref.keys()
+    for k, v in m_ref.items():
+        assert abs(m[k] - v) <= 1e-4 * abs(v), k
+    for n, ref in g_ref.items():
+        trunk = n.startswith(("resnet.", "extractor_final_conv."))
+        scale = g_ref[n[:-4] + "weight"] if n in ViTEss.BIAS_BEFORE_BN else ref
+        tol = 3e-2 if trunk else 1e-3
+        assert float((g[n] - ref).abs().max()) <= tol * float(scale.abs().max()), n
+    for n, ref in s_ref.items():
+        assert float((s[n] - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), n
