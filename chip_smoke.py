@@ -86,7 +86,23 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
 14. the classical map-free baseline: ``FeatureMatchingModel`` behind an
    oracle ``PrecomputedMatching`` on 16 synthetic scenes at 480x640, its
    essential, essential-metric and PnP solvers on the card, held to
-   tests/test_metric_solvers.py's gates.
+   tests/test_metric_solvers.py's gates;
+15. the entry points: each CLI's ``main(argv)`` in-process with
+   ``--device cuda``, the counters set to 0 before each call and read
+   after it: (a) ``evaluate`` on 16 synthetic pairs, ``FARConfig()`` in
+   bf16 at B=4 (K1/K2/K3/K4 64/4/4/8, the tensor-core routes the same; a
+   finite table, the five files, the loop's pairs/s beside phase 9
+   (b)'s); (b) ``evaluate --model vitess`` (K4 4); (c) ``evaluate
+   --dataset mp3d`` on 8 Matterport-layout PNG pairs (decode, the native
+   resize, the intrinsics guard; 16/1/1/2 a batch); (d) ``train`` of
+   FARConfig() for 3 steps at B=2 (K1 48, K4 6), its checkpoint restored
+   bit-equal by ``evaluate --ckpt_dir``, ``--resume`` taking no step, and
+   the interiornet and mapfree presets for 2 steps (K4 2 and 0 a step);
+   (e) ``precompute --matcher loftr`` on 4 pairs (16/1/1/0 a pair) and
+   ``--matcher sift`` refused; (f) ``submission`` on a map-free fixture
+   scene, 4 pairs (16/1/1/0 a pair), scored by
+   ``far_tpu_torch.eval.mapfree_benchmark``; (g) ``demo --synthetic`` and
+   ``demo --synthetic --mapfree``, an orthonormal R each.
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 (B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
@@ -1130,7 +1146,7 @@ def validation(dev, card: str, guard_medians: dict):
     gate. (b) FARConfig() in bfloat16, init_model(seed=0), 16 synthetic
     pairs at 480x640 and B=4: dset size 16, every entry of the table
     finite, K1/K2/K3/K4 launched 16/1/1/2 times a batch; the pass's pairs/s
-    on the host clock, data made on the host included."""
+    on the host clock, data made on the host included, which it returns."""
     import torch
 
     from far_tpu_torch.data.synthetic import SyntheticPairDataset
@@ -1179,6 +1195,7 @@ def validation(dev, card: str, guard_medians: dict):
         fail(f"validation: table {table}")
     del model
     torch.cuda.empty_cache()
+    return 16 / sec
 
 
 # ---- phase 10: Sinkhorn and remat --------------------------------------------
@@ -2024,6 +2041,251 @@ def classical_baseline(dev, card: str):
                 fail(f"classical baseline {solver}")
 
 
+# ---- phase 15: the entry points ---------------------------------------------------
+
+
+def _per_batch(k1: int, k2: int, k3: int, k4: int, n: int = 1) -> dict:
+    return dict(zip(counters(), (k1 * n, k2 * n, k3 * n, k4 * n)))
+
+
+def _cli_call(name: str, fn, argv, want: dict, card: str, launches: dict, tc: bool = False):
+    """One CLI's ``main(argv)`` in-process on the card, the launch counters
+    set to 0 just before and read just after: they must read ``want`` (and
+    the tensor-core routes the same where ``tc``). Returns (result, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: f.launches for k, f in counters().items()}
+    got_tc = {k: counters()[k].launches_tc for k in TC_ROUTES}
+    print(f"entry points {name}: {ms:.1f} ms, launches {got}, tensor-core route launches "
+          f"{got_tc} on {card}", flush=True)
+    if got != want:
+        fail(f"entry points {name}: launches {got}, expected {want}")
+    if tc and got_tc != {k: want[k] for k in TC_ROUTES}:
+        fail(f"entry points {name}: tensor-core route launches {got_tc}, expected {want}")
+    launches[name] = got
+    return out, ms
+
+
+def _finite_table(name: str, table: dict, n: int) -> None:
+    if table["dset size"] != n or not all(math.isfinite(v) for v in table.values()):
+        fail(f"entry points {name}: table {table}")
+
+
+def _write_mp3d_fixture(root: Path, n: int) -> Path:
+    """The Matterport layout: n pairs of 480x640 grayscale PNGs (smooth
+    random images) under <root>/imgs/<scene>/, and the json pair list."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(15)
+    scene = root / "imgs" / "scene0"
+    scene.mkdir(parents=True)
+    data = []
+    for i in range(n):
+        for side in "ab":
+            low = rng.uniform(0, 255, (61, 81))
+            img = np.kron(low, np.ones((8, 8)))[:480, :640].astype(np.uint8)
+            Image.fromarray(img).save(scene / f"{i}{side}.png")
+        q = rng.normal(size=4)
+        data.append({"0": {"file_name": f"x/imgs/scene0/{i}a.png"},
+                     "1": {"file_name": f"x/imgs/scene0/{i}b.png"},
+                     "rel_pose": {"position": rng.normal(size=3).tolist(),
+                                  "rotation": (q / np.linalg.norm(q)).tolist()}})
+    path = root / "pairs.json"
+    path.write_text(json.dumps({"data": data}))
+    return path
+
+
+def _write_mapfree_fixture(root: Path, n_query: int) -> None:
+    """One map-free val scene: the map frame seq0/frame_00000.jpg and
+    ``n_query`` frames seq1/frame_*.jpg as 540x720 JPEGs, intrinsics.txt
+    and poses.txt (world-to-cam)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(16)
+    scene = root / "val" / "s00000"
+    frames = ["seq0/frame_00000.jpg"] + [f"seq1/frame_{i:05d}.jpg" for i in range(n_query)]
+    for d in ("seq0", "seq1"):
+        (scene / d).mkdir(parents=True)
+    intr, poses = ["# frame fx fy cx cy W H"], ["# frame qw qx qy qz tx ty tz"]
+    for f in frames:
+        low = rng.uniform(0, 255, (91, 69, 3))
+        img = np.kron(low, np.ones((8, 8, 1)))[:720, :540].astype(np.uint8)
+        Image.fromarray(img).save(scene / f, quality=90)
+        intr.append(f"{f} 590.0 590.0 270.0 360.0 540 720")
+        q, t = rng.normal(size=4), rng.normal(size=3)
+        if f.startswith("seq0"):
+            q, t = np.array([1.0, 0.0, 0.0, 0.0]), np.zeros(3)
+        poses.append(f"{f} " + " ".join(str(v) for v in (*(q / np.linalg.norm(q)), *t)))
+    (scene / "intrinsics.txt").write_text("\n".join(intr))
+    (scene / "poses.txt").write_text("\n".join(poses))
+
+
+def entry_points(dev, card: str, validation_pairs_s: float) -> dict:
+    """Phase 15: every CLI's main(argv) in-process with --device cuda,
+    the counters set to 0 before each call and read after it. Returns
+    {sub-phase: launches}."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from far_tpu_torch.cli import demo, evaluate, precompute, submission, train
+    from far_tpu_torch.eval import mapfree_benchmark
+    from far_tpu_torch.pipeline import init_model
+
+    cuda = ["--device", "cuda"]
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) evaluate, FARConfig() in bf16 on 16 synthetic pairs at B=4
+        loop = {}
+        real_loop = evaluate.evaluate_far
+
+        def timed_loop(*a, **kw):
+            t0 = time.perf_counter()
+            out = real_loop(*a, **kw)
+            torch.cuda.synchronize()
+            loop["s"] = time.perf_counter() - t0
+            return out
+
+        evaluate.evaluate_far = timed_loop
+        try:
+            table, ms = _cli_call(
+                "evaluate far", evaluate.main,
+                ["--dataset", "synthetic", "--image_size", "480x640", "--dtype", "bfloat16",
+                 "--batch_size", "4", "--n_synthetic", "16", "--max_batches", "4",
+                 "--out_dir", str(tmp / "a")] + cuda, _per_batch(16, 1, 1, 2, 4), card,
+                launches, tc=True)
+        finally:
+            evaluate.evaluate_far = real_loop
+        _finite_table("evaluate far", table, 16)
+        files = sorted(p.name for p in (tmp / "a").iterdir())
+        want_files = sorted(["results_prior_ransac.txt", "results_prior_ransac_solverpose.txt",
+                             "error_cdf.npy", "pred_R.npy", "pred_t.npy"])
+        if files != want_files or np.load(tmp / "a" / "pred_R.npy").shape != (16, 3, 3):
+            fail(f"entry points evaluate far: files {files}")
+        print(f"entry points evaluate far: the CLI loop {16 / loop['s']:.2f} pairs/s "
+              f"({loop['s'] * 1e3:.1f} ms, host clock, synthetic data made on the host "
+              f"included), the whole main {16e3 / ms:.2f} pairs/s, beside phase 9 (b)'s "
+              f"{validation_pairs_s:.2f} on {card}", flush=True)
+
+        # (b) evaluate --model vitess, ViTEssConfig() in bf16, 2 batches of 4
+        table, _ = _cli_call(
+            "evaluate vitess", evaluate.main,
+            ["--model", "vitess", "--dataset", "synthetic", "--image_size", "480x640",
+             "--dtype", "bfloat16", "--batch_size", "4", "--n_synthetic", "8",
+             "--out_dir", str(tmp / "b")] + cuda, _per_batch(0, 0, 0, 2, 2), card, launches)
+        # the synthetic pairs rotate at most 20 deg: all in the large-overlap rows
+        if np.load(tmp / "b" / "pred_R.npy").shape != (8, 3, 3) or \
+                not math.isfinite(table["large overlap, rot mean err"]):
+            fail(f"entry points evaluate vitess: table {table}")
+
+        # (c) evaluate on Matterport-layout files: PNG decode, the native
+        # resize and the intrinsics guard against the config's basis
+        pairs = _write_mp3d_fixture(tmp / "mp3d", 8)
+        table, _ = _cli_call(
+            "evaluate mp3d", evaluate.main,
+            ["--dataset", "mp3d", "--data_json", str(pairs), "--data_dir", str(tmp / "mp3d"),
+             "--dtype", "bfloat16", "--batch_size", "4", "--out_dir", str(tmp / "c")] + cuda,
+            _per_batch(16, 1, 1, 2, 2), card, launches)
+        _finite_table("evaluate mp3d", table, 8)
+
+        # (d) train FAR 3 steps, restore the checkpoint, resume; the presets
+        common = ["--dataset", "synthetic", "--image_size", "480x640", "--n_synthetic", "8",
+                  "--batch_size", "2", "--sampler", "sequential", "--log_every", "1"] + cuda
+        dirs = lambda d: ["--ckpt_dir", str(tmp / d / "ckpt"), "--log_dir", str(tmp / d / "logs")]
+        trainer, _ = _cli_call("train far", train.main,
+                               common + ["--model", "far", "--dtype", "bfloat16", "--steps", "3"]
+                               + dirs("d"), _per_batch(16, 0, 0, 2, 3), card, launches)
+        logs = [json.loads(x) for x in (tmp / "d" / "logs" / "train_metrics.jsonl")
+                .read_text().splitlines()]
+        if len(logs) != 3 or not all(math.isfinite(r["loss"]) for r in logs):
+            fail(f"entry points train far: log {logs}")
+        args = evaluate.parse_args(["--image_size", "480x640", "--dtype", "bfloat16",
+                                    "--ckpt_dir", str(tmp / "d" / "ckpt")] + cuda)
+        restored = evaluate._restore_variables(
+            args.ckpt_dir, init_model(evaluate.far_config(args), seed=1, device=dev))
+        trained = trainer.model.state_dict()
+        bad = [k for k, v in restored.state_dict().items() if not torch.equal(v, trained[k])]
+        if bad:
+            fail(f"entry points: evaluate --ckpt_dir restored {bad[:4]} unlike the trainer's")
+        _cli_call("evaluate ckpt", evaluate.main,
+                  ["--dataset", "synthetic", "--image_size", "480x640", "--dtype", "bfloat16",
+                   "--batch_size", "4", "--n_synthetic", "4", "--ckpt_dir",
+                   str(tmp / "d" / "ckpt"), "--out_dir", str(tmp / "d2")] + cuda,
+                  _per_batch(16, 1, 1, 2), card, launches)
+        again, _ = _cli_call("train resume", train.main,
+                             common + ["--dtype", "bfloat16", "--steps", "3", "--resume"]
+                             + dirs("d"), _per_batch(0, 0, 0, 0), card, launches)
+        if again.step_count != 3:
+            fail(f"entry points train --resume: step {again.step_count}")
+        for preset, size, k4 in (("interiornet", "480x640", 2), ("mapfree", "368x272", 0)):
+            argv = common + ["--preset", preset, "--image_size", size, "--steps", "2"] + \
+                dirs(preset)
+            _cli_call(f"train {preset}", train.main, argv, _per_batch(0, 0, 0, k4, 2), card,
+                      launches)
+            logs = [json.loads(x) for x in (tmp / preset / "logs" / "train_metrics.jsonl")
+                    .read_text().splitlines()]
+            if len(logs) != 2 or not all(math.isfinite(r["loss"]) for r in logs):
+                fail(f"entry points train {preset}: log {logs}")
+
+        # (e) precompute with the LoFTR matcher on 4 pairs; sift refused
+        store, _ = _cli_call(
+            "precompute loftr", precompute.main,
+            ["--dataset", "synthetic", "--image_size", "480x640", "--n_synthetic", "4",
+             "--matcher", "loftr", "--dtype", "bfloat16", "--out", str(tmp / "corr.npz")]
+            + cuda, _per_batch(16, 1, 1, 0, 4), card, launches)
+        z = np.load(tmp / "corr.npz")
+        if len(z.files) != 4 or not all(z[k].ndim == 2 and z[k].shape[1] == 4 and
+                                        np.isfinite(z[k]).all() for k in z.files):
+            fail(f"entry points precompute: {[z[k].shape for k in z.files]}")
+        try:
+            precompute.main(["--matcher", "sift", "--out", str(tmp / "x.npz")] + cuda)
+            fail("entry points: precompute --matcher sift ran")
+        except NotImplementedError as e:
+            print(f"entry points precompute sift: raises {e}", flush=True)
+
+        # (f) the map-free submission over 4 pairs of a fixture scene, scored
+        _write_mapfree_fixture(tmp / "mapfree", 16)
+        writer, _ = _cli_call(
+            "submission", submission.main,
+            ["--data_dir", str(tmp / "mapfree"), "--out", str(tmp / "sub.zip"),
+             "--max_pairs", "4"] + cuda, _per_batch(16, 1, 1, 0, 4), card, launches)
+        lines = writer._scenes["s00000"]
+        if len(lines) != 4 or not all(math.isfinite(float(x)) for ln in lines
+                                      for x in ln.split()[1:]):
+            fail(f"entry points submission: {lines}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mapfree_benchmark.main([str(tmp / "sub.zip"), "--dataset_path",
+                                    str(tmp / "mapfree")])
+        scores = json.loads(buf.getvalue())
+        if scores["Estimates for % of frames"] != 1.0:
+            fail(f"entry points: scorer {scores}")
+        print(f"entry points mapfree_benchmark: {json.dumps(scores)}", flush=True)
+
+        # (g) the demos at their defaults
+        for name, extra, want in (("demo", [], _per_batch(16, 1, 1, 2)),
+                                  ("demo mapfree", ["--mapfree"], _per_batch(16, 1, 1, 0))):
+            rt, _ = _cli_call(name, demo.main, ["--synthetic"] + extra + cuda, want, card,
+                              launches)
+            R = rt[:, :3].astype(np.float64)
+            if rt.shape != (3, 4) or not np.isfinite(rt).all() or \
+                    np.abs(R @ R.T - np.eye(3)).max() > 1e-3:
+                fail(f"entry points {name}: [R|t] {rt}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2055,7 +2317,7 @@ def main() -> int:
     train_functions(dev)
     train_small_agreement(dev)
     train_launches = train_full(dev, card)
-    validation(dev, card, guard_medians)
+    validation_pairs_s = validation(dev, card, guard_medians)
     sinkhorn_requests(dev, card)
     sinkhorn_train(dev, card)
     remat_steps(dev, card)
@@ -2067,6 +2329,9 @@ def main() -> int:
     family, family_launches = family_train(dev, card)
     family_small_agreement(dev)
     classical_baseline(dev, card)
+    t_cli = time.perf_counter()
+    cli_launches = entry_points(dev, card, validation_pairs_s)
+    print(f"entry points (phase 15): {time.perf_counter() - t_cli:.1f} s", flush=True)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -2107,6 +2372,8 @@ def main() -> int:
         for fam_name in ("vitess", "sixdreg"):
             kernels[-1][f"launches_{fam_name}_train_step"] = {
                 dtype: got[name] for dtype, got in family_launches[fam_name].items()}
+        # each CLI's launches (phase 15)
+        kernels[-1]["launches_cli"] = {sub: got[name] for sub, got in cli_launches.items()}
         if name == "K4_bilinear_dual_softmax":
             kernels[-1]["vitess_train_shape"] = {"shape": list(VITESS_TRAIN_K4), **k4_train}
     print(f"family training (phase 13): {json.dumps(family)}", flush=True)

@@ -13,7 +13,7 @@ the port does not import, so it is left out (ROADMAP, with
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from far_tpu_torch.parallel.comm import (
     process_index,
 )
 from far_tpu_torch.pipeline import build_inference_fn
+from far_tpu_torch.types import FarOutput, PairBatch
 
 _KEYS = ("identifiers", "R_errs", "t_errs", "t_errs_abs", "successful_fits",
          "epi_errs")
@@ -66,12 +67,28 @@ def validate_far(
     Returns:
         the table of ``aggregate_metrics``, with 'rot mean err'.
     """
-    device = next(model.parameters()).device
     max_matches = max_matches or model.config.match.max_matches
+    acc = {k: [] for k in _KEYS}
+    for batch, meta, out in far_batches(model, dataset, batch_size, max_batches, generator,
+                                        uniforms, prior_pcl):
+        accumulate_far(acc, out, batch, meta, max_matches)
+    return aggregate_metrics(gather_pair_metrics(acc))
+
+
+def far_batches(model: FARLoFTR, dataset, batch_size: int, max_batches: int = 0,
+                generator: Optional[torch.Generator] = None,
+                uniforms: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                prior_pcl: Optional[torch.Tensor] = None
+                ) -> Iterator[Tuple[PairBatch, Dict, FarOutput]]:
+    """The evaluation loop that ``validate_far`` and the evaluation CLI
+    share: this process's sequential shard of ``dataset`` in batches (at
+    most ``max_batches``; 0: all), each moved to the model's device and
+    run through ``build_inference_fn`` -> ``(batch, meta, output)``. The
+    arguments are ``validate_far``'s."""
+    device = next(model.parameters()).device
     fn = build_inference_fn(model)
     idx = sequential_indices(len(dataset), rank=process_index(),
                              world_size=process_count())
-    acc = {k: [] for k in _KEYS}
     for bi, (batch, meta) in enumerate(Loader(dataset, idx, batch_size, keep_meta=True)):
         if max_batches and bi >= max_batches:
             break
@@ -79,33 +96,46 @@ def validate_far(
         out = fn(batch, generator=generator,
                  uniforms=None if uniforms is None else uniforms[bi],
                  prior_pcl=prior_pcl)
-        m = out.matches
-        with torch.inference_mode():
-            E_gt = essential_from_pose34(batch.T_0to1[:, :3, :4])
-            p0 = normalize_kpts_by_K(m.mkpts0_f.float(), batch.K0)
-            p1 = normalize_kpts_by_K(m.mkpts1_f.float(), batch.K1)
-            epi = symmetrical_epipolar_distance(p0, p1, E_gt).cpu().numpy()
-        R, t = out.R.float().cpu().numpy(), out.t.float().cpu().numpy()
-        T = batch.T_0to1.cpu().numpy()
-        valid = m.valid.cpu().numpy()
-        success = out.success.cpu().numpy()
-        for b in range(R.shape[0]):
-            t_err, r_err, t_abs = relative_pose_error(T[b], R[b], t[b])
-            acc["identifiers"].append("#".join(meta["pair_names"][b]))
-            acc["R_errs"].append(r_err)
-            acc["t_errs"].append(t_err)
-            acc["t_errs_abs"].append(t_abs)
-            acc["successful_fits"].append(float(success[b]))
-            e = np.full(max_matches, np.nan, np.float32)
-            ev = epi[b][valid[b]][:max_matches]
-            e[: len(ev)] = ev
-            acc["epi_errs"].append(e)
+        yield batch, meta, out
 
+
+def accumulate_far(acc: Dict[str, list], out, batch, meta, max_matches: int) -> None:
+    """Append each pair of a ``far_forward`` output to ``acc``: its
+    identifier (``pair_names`` joined with '#'), the fused pose's errors,
+    the solver's success, and the symmetric epipolar distances of its valid
+    matches against the ground truth, NaN-padded to ``max_matches``."""
+    m = out.matches
+    with torch.inference_mode():
+        E_gt = essential_from_pose34(batch.T_0to1[:, :3, :4])
+        p0 = normalize_kpts_by_K(m.mkpts0_f.float(), batch.K0)
+        p1 = normalize_kpts_by_K(m.mkpts1_f.float(), batch.K1)
+        epi = symmetrical_epipolar_distance(p0, p1, E_gt).cpu().numpy()
+    R, t = out.R.float().cpu().numpy(), out.t.float().cpu().numpy()
+    T = batch.T_0to1.cpu().numpy()
+    valid = m.valid.cpu().numpy()
+    success = out.success.cpu().numpy()
+    for b in range(R.shape[0]):
+        t_err, r_err, t_abs = relative_pose_error(T[b], R[b], t[b])
+        acc["identifiers"].append("#".join(meta["pair_names"][b]))
+        acc["R_errs"].append(r_err)
+        acc["t_errs"].append(t_err)
+        acc["t_errs_abs"].append(t_abs)
+        acc["successful_fits"].append(float(success[b]))
+        e = np.full(max_matches, np.nan, np.float32)
+        ev = epi[b][valid[b]][:max_matches]
+        e[: len(ev)] = ev
+        acc["epi_errs"].append(e)
+
+
+def gather_pair_metrics(acc: Dict[str, list]) -> Dict[str, list]:
+    """Every process's per-pair lists (the identifiers as fixed-width
+    bytes, so they stay aligned with the arrays), each epipolar row
+    without its NaN padding."""
     gathered = all_gather_metrics({
-        **{k: np.asarray(acc[k]) for k in _KEYS if k != "identifiers"},
+        **{k: np.asarray(v) for k, v in acc.items() if k != "identifiers"},
         "identifiers": encode_strings(acc["identifiers"]),
     })
-    acc = {k: list(v) for k, v in gathered.items()}
-    acc["identifiers"] = decode_strings(np.asarray(gathered["identifiers"]))
-    acc["epi_errs"] = [e[~np.isnan(e)] for e in gathered["epi_errs"]]
-    return aggregate_metrics(acc)
+    out = {k: list(v) for k, v in gathered.items()}
+    out["identifiers"] = decode_strings(np.asarray(gathered["identifiers"]))
+    out["epi_errs"] = [e[~np.isnan(e)] for e in gathered["epi_errs"]]
+    return out
