@@ -98,11 +98,24 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    FARConfig() for 3 steps at B=2 (K1 48, K4 6), its checkpoint restored
    bit-equal by ``evaluate --ckpt_dir``, ``--resume`` taking no step, and
    the interiornet and mapfree presets for 2 steps (K4 2 and 0 a step);
-   (e) ``precompute --matcher loftr`` on 4 pairs (16/1/1/0 a pair) and
-   ``--matcher sift`` refused; (f) ``submission`` on a map-free fixture
+   (e) ``precompute --matcher loftr`` on 4 pairs (16/1/1/0 a pair); (f) ``submission`` on a map-free fixture
    scene, 4 pairs (16/1/1/0 a pair), scored by
    ``far_tpu_torch.eval.mapfree_benchmark``; (g) ``demo --synthetic`` and
    ``demo --synthetic --mapfree``, an orthonormal R each.
+16. the FARConfig options and the other matchers: (a) K1, K2 and K4 at
+   the 16/4 backbone's shapes (1200 coarse tokens at 480x640, B=2)
+   against their plain versions, then ``far_forward`` under
+   ``BackboneConfig(resolution=(16, 4), block_dims=(128, 128, 256,
+   256))``, (b) under GroupNorm (``block_dims=(128, 192, 256)``) and (c)
+   with full attention in the coarse and fine stacks, each three
+   requests of B=4 at 480x640 in f32 and bf16 with the counters set to 0
+   before and read after (16/1/1/2 a request, full attention 0/1/0/2),
+   the peak memory; GroupNorm on a bf16 map, card against CPU; (d)
+   SuperPoint + SuperGlue at their defaults on B=4 pairs, ms a pair, the
+   first pair against the CPU; (e) SimpleTransformer on a FARConfig()
+   request's matches and first-round pose, card against CPU; (f)
+   ``precompute --matcher superglue`` and ``--matcher sift`` on 4 pairs
+   (no FAR kernel).
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 (B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
@@ -238,6 +251,42 @@ ROUTES = {  # how each kernel computes in bfloat16
 }
 
 
+def shape_entry(name, dt, shape, wrapper, call, plain, check, flops, nbytes, library=None):
+    """A kernel at one shape against its plain version on the same inputs:
+    the route that ran (read from ``launches_tc``), the error against its
+    tolerance (``check(outs)``), CUDA-event ms of the kernel, its plain
+    version and the library call (where given), and the bound. Returns
+    (entry, agrees)."""
+    import torch
+
+    tc0 = wrapper.launches_tc
+    outs = call()
+    torch.cuda.synchronize()
+    route = "tensor cores" if wrapper.launches_tc > tc0 else "cuda cores"
+    err, tol = check(outs)
+    ms, plain_ms = cuda_ms(call, 10), cuda_ms(plain, 3)
+    lib_ms = None if library is None else cuda_ms(library, 3)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+    tag = "f32" if dt == torch.float32 else "bf16"
+    ok = err <= tol
+    print(f"kernel {name} {tag} {shape}: route {route}, max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) {'ok' if ok else 'DISAGREES'} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) x_bound={ms / b_ms:.1f} "
+          f"library_ms={lib_ms}", flush=True)
+    return dict(shape=shape, dtype=tag, route=route, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms), ok
+
+
+def k4_tol(dt, ref):
+    """K4's tolerance. f32: both in f32 on the same inputs, summation
+    order only. bf16: the kernel rounds P and H = G / csum to bf16 as the
+    TPU kernel does (2^-9 relative each, of random sign, before sums over
+    N)."""
+    import torch
+
+    return (1e-4 if dt == torch.float32 else 1e-2) * float(ref.abs().max())
+
+
 def check_kernels(dev):
     """Phase 3. Returns the kernels' JSON entries."""
     import torch
@@ -262,12 +311,6 @@ def check_kernels(dev):
               f"{'ok' if ok else 'DISAGREES'}", flush=True)
         if not ok:
             failures.append(what)
-
-    def k4_tol(dt, ref):
-        # f32: both in f32 on the same inputs, summation order only. bf16:
-        # the kernel rounds P and H = G / csum to bf16 as the TPU kernel
-        # does (2^-9 relative each, of random sign, before sums over N).
-        return (1e-4 if dt == torch.float32 else 1e-2) * float(ref.abs().max())
 
     def k4_exps(dt, elements):
         """Exponentials of S's elements on the exponential unit: the
@@ -496,27 +539,11 @@ def check_kernels(dev):
     # it; the route that ran is read from launches_tc
     gf = torch.Generator().manual_seed(3)
 
-    def family_shape(name, dt, shape, wrapper, call, plain, check, flops, nbytes,
-                     library=None):
-        tc0 = wrapper.launches_tc
-        outs = call()
-        torch.cuda.synchronize()
-        route = "tensor cores" if wrapper.launches_tc > tc0 else "cuda cores"
-        err, tol = check(outs)
-        ms, plain_ms = cuda_ms(call, 10), cuda_ms(plain, 3)
-        lib_ms = None if library is None else cuda_ms(library, 3)
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
-        tag = "f32" if dt == torch.float32 else "bf16"
-        ok = err <= tol
-        print(f"kernel {name} {tag} {shape}: route {route}, max_abs_err={err:.3e} "
-              f"(tol {tol:.3e}) {'ok' if ok else 'DISAGREES'} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms}",
-              flush=True)
+    def family_shape(name, *args, **kwargs):
+        e, ok = shape_entry(name, *args, **kwargs)
         if not ok:
-            failures.append(f"{name} {tag} {shape}")
-        entries.setdefault(name, {}).setdefault("family_shapes", []).append(dict(
-            shape=shape, dtype=tag, route=route, max_abs_err=err, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+            failures.append(f"{name} {e['dtype']} {e['shape']}")
+        entries.setdefault(name, {}).setdefault("family_shapes", []).append(e)
 
     Lm = L_MAPFREE
     x32, s32 = (torch.randn(B, Lm, C, generator=gf).to(dev) for _ in range(2))
@@ -2239,7 +2266,7 @@ def entry_points(dev, card: str, validation_pairs_s: float) -> dict:
             if len(logs) != 2 or not all(math.isfinite(r["loss"]) for r in logs):
                 fail(f"entry points train {preset}: log {logs}")
 
-        # (e) precompute with the LoFTR matcher on 4 pairs; sift refused
+        # (e) precompute with the LoFTR matcher on 4 pairs
         store, _ = _cli_call(
             "precompute loftr", precompute.main,
             ["--dataset", "synthetic", "--image_size", "480x640", "--n_synthetic", "4",
@@ -2249,11 +2276,6 @@ def entry_points(dev, card: str, validation_pairs_s: float) -> dict:
         if len(z.files) != 4 or not all(z[k].ndim == 2 and z[k].shape[1] == 4 and
                                         np.isfinite(z[k]).all() for k in z.files):
             fail(f"entry points precompute: {[z[k].shape for k in z.files]}")
-        try:
-            precompute.main(["--matcher", "sift", "--out", str(tmp / "x.npz")] + cuda)
-            fail("entry points: precompute --matcher sift ran")
-        except NotImplementedError as e:
-            print(f"entry points precompute sift: raises {e}", flush=True)
 
         # (f) the map-free submission over 4 pairs of a fixture scene, scored
         _write_mapfree_fixture(tmp / "mapfree", 16)
@@ -2284,6 +2306,389 @@ def entry_points(dev, card: str, validation_pairs_s: float) -> dict:
                     np.abs(R @ R.T - np.eye(3)).max() > 1e-3:
                 fail(f"entry points {name}: [R|t] {rt}")
     return launches
+
+
+# ---- phase 16: the FARConfig options and the other matchers ------------------------
+
+L_16_4 = 30 * 40   # coarse tokens of the 16/4 backbone at 480x640
+# each option's FARConfig at full width (the 16/4
+# coarse map has block_dims[3] = coarse.d_model channels and the fine map
+# block_dims[1] = fine.d_model; GroupNorm needs channels divisible by 8)
+OPTIONS = ("16_4", "group", "full")
+
+
+def option_config(option: str, dtype: str):
+    from far_tpu_torch.utils.config import (
+        AttentionStackConfig, BackboneConfig, FARConfig, FineConfig)
+
+    if option == "16_4":
+        return FARConfig(backbone=BackboneConfig(resolution=(16, 4),
+                                                 block_dims=(128, 128, 256, 256)), dtype=dtype)
+    if option == "group":
+        return FARConfig(backbone=BackboneConfig(norm="group", block_dims=(128, 192, 256)),
+                         dtype=dtype)
+    return FARConfig(coarse=AttentionStackConfig(attention="full"),
+                     fine=FineConfig(attention="full"), dtype=dtype)
+
+
+def kernels_16_4(dev) -> dict:
+    """16 (a), first part: K1, K2 and K4 at the 16/4 shapes (B=2, L = S =
+    N = 1200, not a multiple of 64 or 128), each against its plain version
+    with phase 3's tolerances, in f32 and bf16. K3's 16/4 windows are
+    phase 3's shape (K x B windows of 5x5 at C=128). Returns {kernel:
+    [entries]}."""
+    import torch
+
+    from far_tpu_torch.ops.bilinear_attention import (
+        bilinear_dual_softmax, bilinear_dual_softmax_plain)
+    from far_tpu_torch.ops.loftr_layer import loftr_layer, loftr_layer_plain, pack_params
+    from far_tpu_torch.ops.matching_kernel import (
+        dual_softmax_rowcol, dual_softmax_rowcol_plain)
+
+    g = torch.Generator().manual_seed(16)
+    B, L, C = B_KERNEL, L_16_4, C_COARSE
+    out, failures = {}, []
+
+    def add(name, *args, **kwargs):
+        e, ok = shape_entry(name, *args, **kwargs)
+        if not ok:
+            failures.append(f"{name} {e['dtype']} {e['shape']}")
+        out.setdefault(name, []).append(e)
+
+    x32, s32 = (torch.randn(B, L, C, generator=g).to(dev) for _ in range(2))
+    p = layer_params(C, g, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x, s = x32.to(dt), s32.to(dt)
+        pk = pack_params(p, dt)
+        ref = loftr_layer_plain(x.float(), s.float(), p, H_COARSE)
+        rel = 1e-4 if dt == torch.float32 else 6e-2
+        e = x.element_size()
+        add("K1_loftr_layer", dt, f"B={B} L=S={L} C={C} nhead={H_COARSE}", loftr_layer,
+            lambda: loftr_layer(x, s, pk, H_COARSE),
+            lambda: loftr_layer_plain(x, s, p, H_COARSE),
+            lambda o: (max_err(o, ref), rel * float(ref.abs().max())),
+            B * (20 * L * C * C + 4 * L * C * (C // H_COARSE) + 2 * L * C),
+            3 * B * L * C * e + 10 * C * C * e + 4 * C * 4)
+    f0 = torch.randn(B, L, C, generator=g)
+    f1 = f0[:, torch.randperm(L, generator=g)] + 0.5 * torch.randn(B, L, C, generator=g)
+    scale = torch.tensor(1.0 / C ** 0.5).to(torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        a = (f0.to(dt) * scale.to(dt)).to(dev).contiguous()
+        b = (f1.to(dt) * scale.to(dt)).to(dev).contiguous()
+
+        def library():
+            sm = torch.bmm(a, b.transpose(1, 2)).float() * 10.0
+            cf = torch.softmax(sm, 1) * torch.softmax(sm, 2)
+            return cf.max(2), cf.amax(1)
+
+        add("K2_dual_softmax_rowcol", dt, f"B={B} L=S={L} C={C}", dual_softmax_rowcol,
+            lambda: dual_softmax_rowcol(a, b, 10.0),
+            lambda: dual_softmax_rowcol_plain(a, b, 10.0),
+            lambda outs: k2_errors(a, b, outs)[:2], 2 * B * L * L * C,
+            2 * B * L * C * a.element_size() + B * L * (4 + 8 + 4), library)
+    Dv = D_EMM + 6
+    q32, k32 = (torch.randn(B, H_EMM, L, D_EMM, generator=g).to(dev) for _ in range(2))
+    v32 = torch.randn(B, H_EMM, L, Dv, generator=g).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+        ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
+        add("K4_bilinear_dual_softmax", dt, f"B={B} H={H_EMM} N={L} D={D_EMM} Dv={Dv}",
+            bilinear_dual_softmax, lambda: bilinear_dual_softmax(q, k, v, 0.125),
+            lambda: bilinear_dual_softmax_plain(q, k, v, 0.125),
+            lambda o: (max_err(o, ref), k4_tol(dt, ref)),
+            B * H_EMM * (2 * L * L * D_EMM + 2 * L * L * Dv + 2 * L * Dv * Dv),
+            B * H_EMM * L * (2 * D_EMM + Dv) * q.element_size() + B * H_EMM * Dv * Dv * 4)
+    if failures:
+        fail(f"kernels at the 16/4 shapes disagree with their plain versions: {failures}")
+    return out
+
+
+def option_requests(dev, card: str) -> dict:
+    """16 (a)-(c): far_forward under each option at 480x640, full width,
+    B=4, three requests in f32 and three in bf16 after a warm-up, the
+    counters set to 0 just before the three and read just after: K1/K2/K3/K4
+    16/1/1/2 a request for 16/4 and GroupNorm, 0/1/0/2 for full attention,
+    the tensor-core routes the same in bf16 (K2's in f32 too). Finite
+    outputs of the expected shapes; ms/request (median) and the peak
+    memory. Returns {option: {dtype: launches}}."""
+    import torch
+
+    from far_tpu_torch.pipeline import build_inference_fn, init_model
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+
+    fns = counters()
+    launches = {}
+    for option in OPTIONS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = option_config(option, dtype)
+            full = option == "full"
+            per_req = {"K1_loftr_layer": 0 if full else 2 * len(cfg.coarse.layer_names),
+                       "K2_dual_softmax_rowcol": 1,
+                       "K3_fine_transformer": 0 if full else 1,
+                       "K4_bilinear_dual_softmax": 2}
+            model = init_model(cfg, seed=0, device=dev)
+            fn = build_inference_fn(model)
+            batch = synthetic_batch(B_REQUEST, *cfg.image_size, dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            fn(batch, generator=gen)  # warm-up: cuDNN plans, allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            times, outs = [], []
+            for _ in range(N_REQUESTS):
+                t0 = time.perf_counter()
+                outs.append(fn(batch, generator=gen))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = {k: f.launches for k, f in fns.items()}
+            got_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
+            want = {k: n * N_REQUESTS for k, n in per_req.items()}
+            want_tc = {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES}
+            if got != want or got_tc != want_tc:
+                fail(f"option {option} {dtype}: launches {got}, tensor-core routes {got_tc}; "
+                     f"expected {want}, {want_tc}")
+            for out in outs:
+                for name in ("R", "t", "regressed_9d", "gating", "E"):
+                    if not bool(torch.isfinite(getattr(out, name)).all()):
+                        fail(f"option {option} {dtype}: non-finite {name}")
+                if tuple(out.R.shape) != (B_REQUEST, 3, 3):
+                    fail(f"option {option} {dtype}: R of shape {tuple(out.R.shape)}")
+            ms = statistics.median(times)
+            print(f"option {option} far_forward {dtype} B={B_REQUEST} 480x640 (coarse "
+                  f"{cfg.coarse_hw[0]}x{cfg.coarse_hw[1]}): ms/request median {ms:.2f} (runs "
+                  f"{[round(t, 2) for t in times]}), pairs/s {B_REQUEST * 1e3 / ms:.2f}, "
+                  f"peak {peak:.3f} GiB, launches {got}, tensor-core route launches {got_tc}, "
+                  f"valid matches {outs[-1].matches.valid.sum(-1).tolist()} on {card}",
+                  flush=True)
+            launches.setdefault(option, {})[dtype] = got
+            del model, fn, outs
+            torch.cuda.empty_cache()
+    return launches
+
+
+def groupnorm_card_vs_cpu(dev) -> None:
+    """16 (b): GroupNorm on a bf16 map of the backbone's 1/2 level at
+    480x640 (B=8, 128 channels), the card against the CPU. Both take
+    float32 statistics, summed in other orders, so the float32 results
+    before the one rounding differ by ~1e-7 max|ref|: at most 1 in 1000
+    outputs may differ, each by at most one bf16 rounding of its value
+    plus 1e-5 max|ref| (near 0, where the rounding step is small)."""
+    import torch
+
+    from far_tpu_torch.models.backbone import gn
+
+    g = torch.Generator().manual_seed(161)
+    x = (torch.randn(8, 128, 240, 320, generator=g) * 2 + 0.5).to(torch.bfloat16)
+    m = torch.nn.GroupNorm(8, 128, eps=1e-6)
+    with torch.no_grad():
+        m.weight.copy_(1 + 0.2 * torch.randn(128, generator=g))
+        m.bias.copy_(0.2 * torch.randn(128, generator=g))
+        ref = gn(x, m).float()
+        out = gn(x.to(dev), m.to(dev)).float().cpu()
+    differ = out != ref
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    over = ((out - ref).abs() - ulp - 1e-5 * float(ref.abs().max())).max()
+    share = float(differ.float().mean())
+    print(f"GroupNorm bf16 (8, 128, 240, 320), card vs CPU: {share:.2e} of the outputs "
+          f"differ (tol 1e-3), max abs err {max_err(out, ref):.3e}, the largest beyond one "
+          f"rounding + 1e-5 max|ref|: {float(over):.3e} (tol 0)", flush=True)
+    if share > 1e-3 or float(over) > 0:
+        fail(f"GroupNorm bf16 card vs CPU: {share:.2e} differ, {float(over):.3e} over")
+
+
+def _same_topk(name, idx_a, sc_a, idx_b, sc_b, tol):
+    """Two top-k results (indices, scores sorted descending) agree: the
+    scores slot by slot within ``tol``, and the indices equal but where
+    the slot's score ties another slot's within ``tol``. Returns the
+    number of slots whose indices differ."""
+    import torch
+
+    if float((sc_a - sc_b).abs().max()) > tol:
+        fail(f"{name}: top-k scores differ by {float((sc_a - sc_b).abs().max()):.3e} > {tol:.3e}")
+    differ = (idx_a != idx_b).nonzero().tolist()
+    for b, k in differ:
+        gaps = (sc_b[b] - sc_b[b, k]).abs()
+        gaps[k] = float("inf")
+        if float(gaps.min()) > tol:
+            fail(f"{name}: slot {k} of image {b} holds {int(idx_a[b, k])} against "
+                 f"{int(idx_b[b, k])} and its score ties no other slot")
+    return len(differ)
+
+
+def superglue_requests(dev, card: str) -> None:
+    """16 (d): SuperPoint (channels 64, 64, 128, 128, 1024 keypoints) and
+    SuperGlue (256-d, 9 layers, 4 heads, 20 Sinkhorn iterations) at their
+    default configs on 480x640 pairs, B=4, f32, seeded random weights:
+    ms a pair (median of 3, host clock). The first pair on the card
+    against the CPU, the same weights: keypoints equal but where scores
+    tie, scores and descriptors within 1e-4 max|ref|; SuperGlue on the
+    CPU's keypoints: the assignment within 1e-4 max|ref|, matches0 equal
+    but where the CPU's assignment has a near-tie (its two largest entries
+    in the row, or in the matched column, within 1e-4 max|P|). With one
+    final projection for both images (magicleap's weights share it) and
+    threshold 0, an identical-image pair matches at least 10 % of its
+    valid keypoints to themselves: random weights do not match them all
+    (281 of 929 at 240x320 on the CPU), a layout fault matches next to
+    none (chance 1 in 1024)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from far_tpu_torch.models.superglue import (
+        SuperGlue, SuperGlueConfig, match_pair_superglue, select_matches)
+    from far_tpu_torch.models.superpoint import SuperPoint, SuperPointConfig
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.convert_weights import init_weights
+
+    sp_c = init_weights(SuperPoint(SuperPointConfig()), seed=0).eval()
+    sg_c = init_weights(SuperGlue(SuperGlueConfig()), seed=1).eval()
+    sp_d, sg_d = copy.deepcopy(sp_c).to(dev), copy.deepcopy(sg_c).to(dev)
+    batch = synthetic_batch(B_REQUEST, 480, 640, "cpu")
+    im0, im1 = batch.image0.to(dev), batch.image1.to(dev)
+    with torch.inference_mode():
+        match_pair_superglue(sp_d, sg_d, im0, im1)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        times = []
+        for _ in range(N_REQUESTS):
+            t0 = time.perf_counter()
+            pts0, pts1, ok = match_pair_superglue(sp_d, sg_d, im0, im1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if any(f.launches for f in counters().values()):
+            fail("SuperPoint + SuperGlue launched a FAR kernel")
+        ms = statistics.median(times)
+        print(f"SuperPoint + SuperGlue f32 B={B_REQUEST} 480x640: {ms / B_REQUEST:.2f} ms a "
+              f"pair (median request {ms:.2f} ms, runs {[round(t, 2) for t in times]}), "
+              f"matches {ok.sum(-1).tolist()} on {card}", flush=True)
+        if not bool(torch.isfinite(pts1).all()):
+            fail("SuperGlue: non-finite points")
+
+        # the first pair, card against CPU
+        kc = [t.cpu() for t in sp_d(im0[:1])] + [t.cpu() for t in sp_d(im1[:1])]
+        kr = list(sp_c(batch.image0[:1])) + list(sp_c(batch.image1[:1]))
+        tol = lambda r: 1e-4 * float(r.abs().max())
+        n_swap = 0
+        for o in (0, 4):
+            idx = lambda k: (k[..., 1] * 640 + k[..., 0]).long()
+            n_swap += _same_topk("SuperPoint", idx(kc[o]), kc[o + 1], idx(kr[o]), kr[o + 1],
+                                 tol(kr[o + 1]))
+            if not torch.equal(kc[o + 2], kr[o + 2]):
+                fail("SuperPoint: valid differs")
+            same = (kc[o] == kr[o]).all(-1)
+            err = max_err(kc[o + 3][same], kr[o + 3][same])
+            if err > tol(kr[o + 3]):
+                fail(f"SuperPoint descriptors: card vs CPU {err:.3e}")
+        args = [t.to(dev) for t in kr[:4]] + [t.to(dev) for t in kr[4:]]
+        P_card = sg_d.assignment(*args, image_hw=(480, 640)).cpu()
+        P_cpu = sg_c.assignment(*kr[:4], *kr[4:], image_hw=(480, 640))
+        err_p = max_err(P_card, P_cpu)
+        if err_p > tol(P_cpu):
+            fail(f"SuperGlue assignment: card vs CPU {err_p:.3e}")
+        m_card, _ = select_matches(P_card, kr[2], sg_c.cfg.match_threshold)
+        m_cpu, _ = select_matches(P_cpu, kr[2], sg_c.cfg.match_threshold)
+        near = 1e-4 * float(P_cpu.max())
+        top2 = P_cpu[0].topk(2, dim=1).values
+        col_top2 = P_cpu[0].topk(2, dim=0).values
+        for n in (m_card[0] != m_cpu[0]).nonzero()[:, 0].tolist():
+            j = int(max(m_card[0, n], m_cpu[0, n]))
+            if float(top2[n, 0] - top2[n, 1]) > near and float(col_top2[0, j] - col_top2[1, j]) > near:
+                fail(f"SuperGlue: match {n} differs (card {int(m_card[0, n])}, CPU "
+                     f"{int(m_cpu[0, n])}) without a near-tie")
+        n_diff = int((m_card != m_cpu).sum())
+        print(f"SuperPoint + SuperGlue card vs CPU (pair 0): keypoint slots swapped at score "
+              f"ties {n_swap}, assignment max_abs_err {err_p:.3e} (tol {tol(P_cpu):.3e}), "
+              f"matches0 differing {n_diff} (near-ties only), valid keypoints "
+              f"{int(kr[2].sum())}/{int(kr[6].sum())}", flush=True)
+
+        # an identical pair, one final projection, threshold 0
+        sg_d.final_proj2.load_state_dict(sg_d.final_proj.state_dict())
+        sg_d.cfg = dataclasses.replace(sg_d.cfg, match_threshold=0.0)
+        k, s, v, d = sp_d(im0)
+        m0, _ = sg_d(k, s, v, d, k, s, v, d, image_hw=(480, 640))
+        self_matched = (m0 == torch.arange(m0.shape[1], device=dev)[None]) & v
+        share = float(self_matched.sum() / v.sum())
+        print(f"SuperGlue identical pairs, threshold 0: {share:.4f} of the valid keypoints "
+              f"matched to themselves (gate 0.1; chance 1/1024)", flush=True)
+        if share < 0.1:
+            fail(f"SuperGlue identical pairs: only {share:.4f} matched to themselves")
+
+
+def simple_transformer_request(dev, card: str) -> None:
+    """16 (e): SimpleTransformer at its default config (256 wide, 8
+    heads, 6 layers) on the 1024 match slots of a FARConfig() matcher
+    (threshold 0) and its first-round solver pose, B=4, f32: ms (median of 3, host clock), and
+    the card against the CPU on the same inputs and weights within 1e-4
+    max|ref|."""
+    import torch
+
+    from far_tpu_torch.models.simple_transformer import (
+        SimpleTransformer, SimpleTransformerConfig)
+    from far_tpu_torch.pipeline import init_model, make_solver_configs
+    from far_tpu_torch.solvers.pose_estimation import estimate_pose
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig, MatchConfig
+    from far_tpu_torch.utils.convert_weights import init_weights
+
+    # the confidence threshold at 0: the random model's matches all fall
+    # under FARConfig()'s 0.2 (phase 4 keeps none)
+    model = init_model(FARConfig(match=MatchConfig(thr=0.0)), seed=0, device=dev)
+    batch = synthetic_batch(B_REQUEST, 480, 640, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        m = model.match(batch).matches
+        est = estimate_pose(m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid,
+                            cfg=make_solver_configs(model.config)[0], generator=gen)
+    del model
+    inputs = (torch.stack([m.mkpts0_f, m.mkpts1_f], 2).float(), m.valid, est.rt34.float(),
+              est.num_inliers.float())
+    st = init_weights(SimpleTransformer(SimpleTransformerConfig()), seed=2).eval()
+    with torch.inference_mode():
+        ref = st(*[t.cpu() for t in inputs])
+        st_d = st.to(dev)
+        st_d(*inputs)
+        times = []
+        for _ in range(N_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = st_d(*inputs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    errs = [(max_err(o.cpu(), r), 1e-4 * float(r.abs().max())) for o, r in zip(out, ref)]
+    print(f"SimpleTransformer f32 B={B_REQUEST} K={inputs[0].shape[1]}: "
+          f"{statistics.median(times):.3f} ms a request (runs {[round(t, 3) for t in times]}), "
+          f"valid {m.valid.sum(-1).tolist()}, card vs CPU pose {errs[0][0]:.3e} (tol "
+          f"{errs[0][1]:.3e}), gate {errs[1][0]:.3e} (tol {errs[1][1]:.3e}) on {card}",
+          flush=True)
+    if any(e > t for e, t in errs):
+        fail(f"SimpleTransformer card vs CPU: {errs}")
+
+
+def matcher_clis(dev, card: str, launches: dict) -> None:
+    """16 (f): ``precompute --matcher superglue`` (on the card) and
+    ``--matcher sift`` (OpenCV on the host) on 4 synthetic pairs at
+    480x640: four finite (n, 4) entries each, K1-K4 launched 0 times."""
+    import tempfile
+
+    import numpy as np
+
+    from far_tpu_torch.cli import precompute
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for matcher in ("superglue", "sift"):
+            out = Path(tmp) / f"{matcher}.npz"
+            _cli_call(f"precompute {matcher}", precompute.main,
+                      ["--dataset", "synthetic", "--image_size", "480x640", "--n_synthetic",
+                       "4", "--matcher", matcher, "--out", str(out), "--device", "cuda"],
+                      _per_batch(0, 0, 0, 0), card, launches)
+            z = np.load(out)
+            if len(z.files) != 4 or not all(z[k].ndim == 2 and z[k].shape[1] == 4 and
+                                            np.isfinite(z[k]).all() for k in z.files):
+                fail(f"precompute {matcher}: {[z[k].shape for k in z.files]}")
+            print(f"precompute {matcher}: matches a pair {[len(z[k]) for k in z.files]}",
+                  flush=True)
 
 
 def main() -> int:
@@ -2332,6 +2737,14 @@ def main() -> int:
     t_cli = time.perf_counter()
     cli_launches = entry_points(dev, card, validation_pairs_s)
     print(f"entry points (phase 15): {time.perf_counter() - t_cli:.1f} s", flush=True)
+    t_opt = time.perf_counter()
+    shapes_16_4 = kernels_16_4(dev)
+    option_launches = option_requests(dev, card)
+    groupnorm_card_vs_cpu(dev)
+    superglue_requests(dev, card)
+    simple_transformer_request(dev, card)
+    matcher_clis(dev, card, cli_launches)
+    print(f"options and matchers (phase 16): {time.perf_counter() - t_opt:.1f} s", flush=True)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -2376,6 +2789,13 @@ def main() -> int:
         kernels[-1]["launches_cli"] = {sub: got[name] for sub, got in cli_launches.items()}
         if name == "K4_bilinear_dual_softmax":
             kernels[-1]["vitess_train_shape"] = {"shape": list(VITESS_TRAIN_K4), **k4_train}
+        # the kernel at the 16/4 shapes, and its launches under each option
+        # (phase 16 (a)-(c)) by dtype
+        if name in shapes_16_4:
+            kernels[-1]["shapes_16_4"] = shapes_16_4[name]
+        kernels[-1]["launches_options"] = {
+            option: {dtype: got[name] for dtype, got in by_dtype.items()}
+            for option, by_dtype in option_launches.items()}
     print(f"family training (phase 13): {json.dumps(family)}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -10,26 +10,28 @@ training flows::
     python -m far_tpu_torch.cli.precompute --dataset synthetic \\
         --matcher loftr --out corr.npz
 
-``--matcher sift`` and ``--matcher superglue`` are the JAX package's other
-matchers; the port has neither (OpenCV is outside its imports, and
-SuperPoint/SuperGlue are not ported), so they raise.
+``--matcher sift`` runs rootSIFT with OpenCV on the host (no device);
+``--matcher superglue`` runs SuperPoint + SuperGlue at their default
+configs in ``--dtype`` on ``--device``, with seeded random weights (the
+JAX package's CLI likewise inits them, from PRNGKey(0) and (1)).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from far_tpu_torch.models.feature_matching import loftr_matcher_fn, precompute_matches
+from far_tpu_torch.models.feature_matching import (
+    loftr_matcher_fn,
+    precompute_matches,
+    sift_matcher_fn,
+    superglue_matcher_fn,
+)
+from far_tpu_torch.models.superglue import SuperGlue, SuperGlueConfig
+from far_tpu_torch.models.superpoint import SuperPoint, SuperPointConfig
 from far_tpu_torch.pipeline import init_model, resolve_device
 from far_tpu_torch.utils.cli import add_common_args, apply_overrides, build_dataset, parse_hw
 from far_tpu_torch.utils.config import FARConfig
-
-_NOT_PORTED = {
-    "sift": "--matcher sift needs OpenCV (cv2), which far_tpu_torch does not "
-            "import (ROADMAP Queue 1 item 3.5)",
-    "superglue": "--matcher superglue needs SuperPoint and SuperGlue, which "
-                 "far_tpu_torch has not ported yet (ROADMAP Queue 1 item 3.5)",
-}
+from far_tpu_torch.utils.convert_weights import init_weights
 
 
 def parse_args(argv=None):
@@ -42,14 +44,28 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def superglue_models(dtype: str, device):
+    """SuperPoint and SuperGlue at their default configs, ``init_weights``
+    seeds 0 and 1, in eval mode on ``device``."""
+    sp = init_weights(SuperPoint(SuperPointConfig(dtype=dtype)), seed=0)
+    sg = init_weights(SuperGlue(SuperGlueConfig(dtype=dtype)), seed=1)
+    return sp.to(device).eval(), sg.to(device).eval()
+
+
+def build_matcher_fn(args, cfg):
+    if args.matcher == "sift":
+        return sift_matcher_fn(cfg.match.max_matches)
+    dev = resolve_device(args.device)
+    if args.matcher == "superglue":
+        return superglue_matcher_fn(*superglue_models(cfg.dtype, dev))
+    return loftr_matcher_fn(init_model(cfg, seed=args.seed, device=dev))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.matcher in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[args.matcher])
-    dev = resolve_device(args.device)
     cfg = apply_overrides(FARConfig(image_size=parse_hw(args.image_size), dtype=args.dtype),
                           args.overrides)
-    matcher_fn = loftr_matcher_fn(init_model(cfg, seed=args.seed, device=dev))
+    matcher_fn = build_matcher_fn(args, cfg)
     dataset = build_dataset(args)
     n = len(dataset) if not args.max_pairs else min(args.max_pairs, len(dataset))
     store = precompute_matches(dataset, range(n), matcher_fn, args.out)

@@ -2,9 +2,11 @@
 
 Counterpart of ``far_tpu/models/attention.py``. ``linear_attention``
 serves the layer's dense path (``models/transformer.py``), which the fine
-windows take in training; ``full_attention`` the self-attention of
-ViTEss's ViT blocks and of 6DReg's transformer; the masks are the JAX
-package's options, which no model of the port takes yet. The JAX
+windows take in training; ``full_attention`` the LoFTR stacks under
+``attention="full"``, the self-attention of ViTEss's ViT blocks, of
+6DReg's transformer and of SimpleTransformer; the masks are the JAX
+package's options, which no model of the port passes here (SuperGlue
+masks its own attention, ``models/superglue.py``). The JAX
 package's tiny-window branch (its :52-83, a TPU layout workaround)
 computes the same function as the generic form below.
 """

@@ -1,9 +1,9 @@
-"""ResNet-FPN 8/2 feature backbone (NCHW inside).
+"""ResNet-FPN 8/2 and 16/4 feature backbones (NCHW inside).
 
-Counterpart of ``far_tpu/models/backbone.py:ResNetFPN_8_2``, with the
-reference's module names (``conv1``, ``layer1.0.conv1``,
-``layer2_outconv2.1``, ...) so a reference state dict loads with
-``strict=True``. The stem is a plain 7x7/2 convolution: the JAX
+Counterpart of ``far_tpu/models/backbone.py:ResNetFPN_8_2`` and
+``ResNetFPN_16_4``, with the reference's module names (``conv1``,
+``layer1.0.conv1``, ``layer2_outconv2.1``, ``layer4_outconv``, ...) so a
+reference state dict loads with ``strict=True``. The stem is a plain 7x7/2 convolution: the JAX
 package's space-to-depth ``_StemConv`` computes the same thing in a form
 shaped for the TPU. The x2 upsample is bilinear with align_corners=True,
 as ``resize_bilinear_align_corners`` is. Parameters stay float32 and are
@@ -88,6 +88,41 @@ def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(dt)
 
 
+GROUPS = 8  # the JAX package's nn.GroupNorm(num_groups=8)
+
+
+def gn(x: torch.Tensor, m: nn.GroupNorm) -> torch.Tensor:
+    """Flax's GroupNorm on (B, C, H, W): float32 statistics and affine,
+    rounded once to x's dtype."""
+    B, C = x.shape[:2]
+    G = m.num_groups
+    x32 = x.float()
+    xg = x32.reshape(B, G, -1)
+    mean = xg.mean(dim=-1)
+    var = ((xg * xg).mean(dim=-1) - mean * mean).clamp(min=0.0)
+    mean = mean.repeat_interleave(C // G, dim=1)
+    mul = torch.rsqrt(var + m.eps).repeat_interleave(C // G, dim=1) * m.weight
+    y = (x32 - mean[:, :, None, None]) * mul[:, :, None, None] + m.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+def norm(x: torch.Tensor, m: nn.Module) -> torch.Tensor:
+    """The backbone's normalisation layer ``m`` (BatchNorm2d or GroupNorm)."""
+    return gn(x, m) if isinstance(m, nn.GroupNorm) else bn(x, m)
+
+
+def norm_layer(kind: str, channels: int) -> nn.Module:
+    """``_Norm``'s switch: BatchNorm2d, or GroupNorm of 8 groups (eps 1e-6)."""
+    if kind == "batch":
+        return nn.BatchNorm2d(channels)
+    if kind != "group":
+        raise ValueError(f"unknown norm {kind!r}")
+    if channels % GROUPS:
+        raise ValueError(f"Number of groups ({GROUPS}) does not divide the number "
+                         f"of channels ({channels}).")
+    return nn.GroupNorm(GROUPS, channels, eps=1e-6)
+
+
 def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
 
@@ -97,32 +132,37 @@ def _conv1(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1, norm_kind: str = "batch"):
         super().__init__()
         self.conv1 = _conv3(cin, planes, stride)
         self.conv2 = _conv3(planes, planes)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn1 = norm_layer(norm_kind, planes)
+        self.bn2 = norm_layer(norm_kind, planes)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(_conv1(cin, planes, stride),
-                                            nn.BatchNorm2d(planes))
+                                            norm_layer(norm_kind, planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(bn(conv(x, self.conv1), self.bn1))
-        y = bn(conv(y, self.conv2), self.bn2)
+        y = F.relu(norm(conv(x, self.conv1), self.bn1))
+        y = norm(conv(y, self.conv2), self.bn2)
         if self.downsample is not None:
-            x = bn(conv(x, self.downsample[0]), self.downsample[1])
+            x = norm(conv(x, self.downsample[0]), self.downsample[1])
         return F.relu(x + y)
 
 
-def _outconv2(mid: int, out: int) -> nn.Sequential:
-    return nn.Sequential(_conv3(mid, mid), nn.BatchNorm2d(mid),
+def _stage(cin: int, planes: int, stride: int, norm_kind: str) -> nn.Sequential:
+    return nn.Sequential(BasicBlock(cin, planes, stride, norm_kind),
+                         BasicBlock(planes, planes, 1, norm_kind))
+
+
+def _outconv2(mid: int, out: int, norm_kind: str) -> nn.Sequential:
+    return nn.Sequential(_conv3(mid, mid), norm_layer(norm_kind, mid),
                          nn.LeakyReLU(0.01), _conv3(mid, out))
 
 
 def _refine(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
-    x = F.leaky_relu(bn(conv(x, seq[0]), seq[1]), 0.01)
+    x = F.leaky_relu(norm(conv(x, seq[0]), seq[1]), 0.01)
     return conv(x, seq[3])
 
 
@@ -135,26 +175,23 @@ class ResNetFPN_8_2(nn.Module):
     """Coarse 1/8 (block_dims[2] channels) + fine 1/2 (block_dims[0])."""
 
     def __init__(self, initial_dim: int = 128,
-                 block_dims: Sequence[int] = (128, 196, 256)):
+                 block_dims: Sequence[int] = (128, 196, 256), norm_kind: str = "batch"):
         super().__init__()
-        d0, d1, d2 = block_dims
+        d0, d1, d2 = block_dims[:3]
         self.conv1 = nn.Conv2d(1, initial_dim, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(initial_dim)
-        self.layer1 = nn.Sequential(BasicBlock(initial_dim, d0, 1),
-                                    BasicBlock(d0, d0, 1))
-        self.layer2 = nn.Sequential(BasicBlock(d0, d1, 2),
-                                    BasicBlock(d1, d1, 1))
-        self.layer3 = nn.Sequential(BasicBlock(d1, d2, 2),
-                                    BasicBlock(d2, d2, 1))
+        self.bn1 = norm_layer(norm_kind, initial_dim)
+        self.layer1 = _stage(initial_dim, d0, 1, norm_kind)
+        self.layer2 = _stage(d0, d1, 2, norm_kind)
+        self.layer3 = _stage(d1, d2, 2, norm_kind)
         self.layer3_outconv = _conv1(d2, d2)
         self.layer2_outconv = _conv1(d1, d2)
-        self.layer2_outconv2 = _outconv2(d2, d1)
+        self.layer2_outconv2 = _outconv2(d2, d1, norm_kind)
         self.layer1_outconv = _conv1(d0, d1)
-        self.layer1_outconv2 = _outconv2(d1, d0)
+        self.layer1_outconv2 = _outconv2(d1, d0, norm_kind)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, 1, H, W) -> coarse (B, d2, H/8, W/8), fine (B, d0, H/2, W/2)."""
-        x0 = F.relu(bn(conv(x, self.conv1), self.bn1))
+        x0 = F.relu(norm(conv(x, self.conv1), self.bn1))
         x1 = self.layer1(x0)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
@@ -164,3 +201,51 @@ class ResNetFPN_8_2(nn.Module):
         x1_out = _refine(conv(x1, self.layer1_outconv) + _up2(x2_out),
                          self.layer1_outconv2)
         return x3_out, x1_out
+
+
+class ResNetFPN_16_4(nn.Module):
+    """Coarse 1/16 (block_dims[3] channels) + fine 1/4 (block_dims[1]):
+    four stages at 1/2, 1/4, 1/8 and 1/16, the FPN from 1/16 down to 1/4
+    (reference resnet_fpn.py:122-200)."""
+
+    def __init__(self, initial_dim: int = 128,
+                 block_dims: Sequence[int] = (128, 196, 256, 512), norm_kind: str = "batch"):
+        super().__init__()
+        d0, d1, d2, d3 = block_dims
+        self.conv1 = nn.Conv2d(1, initial_dim, 7, 2, 3, bias=False)
+        self.bn1 = norm_layer(norm_kind, initial_dim)
+        self.layer1 = _stage(initial_dim, d0, 1, norm_kind)
+        self.layer2 = _stage(d0, d1, 2, norm_kind)
+        self.layer3 = _stage(d1, d2, 2, norm_kind)
+        self.layer4 = _stage(d2, d3, 2, norm_kind)
+        self.layer4_outconv = _conv1(d3, d3)
+        self.layer3_outconv = _conv1(d2, d3)
+        self.layer3_outconv2 = _outconv2(d3, d2, norm_kind)
+        self.layer2_outconv = _conv1(d1, d2)
+        self.layer2_outconv2 = _outconv2(d2, d1, norm_kind)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, 1, H, W) -> coarse (B, d3, H/16, W/16), fine (B, d1, H/4, W/4)."""
+        x0 = F.relu(norm(conv(x, self.conv1), self.bn1))
+        x1 = self.layer1(x0)
+        x2 = self.layer2(x1)
+        x3 = self.layer3(x2)
+        x4 = self.layer4(x3)
+        x4_out = conv(x4, self.layer4_outconv)
+        x3_out = _refine(conv(x3, self.layer3_outconv) + _up2(x4_out),
+                         self.layer3_outconv2)
+        x2_out = _refine(conv(x2, self.layer2_outconv) + _up2(x3_out),
+                         self.layer2_outconv2)
+        return x4_out, x2_out
+
+
+def build_backbone(bcfg) -> nn.Module:
+    """The backbone a ``BackboneConfig`` names: 8/2 or 16/4 by its coarse
+    stride, as ``far_tpu/models/loftr.py`` picks it."""
+    cls = ResNetFPN_8_2 if bcfg.resolution[0] == 8 else ResNetFPN_16_4
+    return cls(bcfg.initial_dim, tuple(bcfg.block_dims), bcfg.norm)
+
+
+def coarse_channels(bcfg) -> int:
+    """Channels of the backbone's coarse map."""
+    return bcfg.block_dims[2 if bcfg.resolution[0] == 8 else 3]

@@ -6,14 +6,15 @@ pair in an ``.npz`` store (``PrecomputedMatching``), padded to a static
 unchanged; ``precompute_matches`` runs a matcher over a dataset's pairs
 into such a store (after crockwell/far:
 mapfree_6dreg/etc/feature_matching_baselines/compute.py), and
-``loftr_matcher_fn`` is its on-device matcher, ``FARLoFTR.match``. (The
-JAX package's ``SIFTMatching`` rides OpenCV on the host and is not
-ported.)
+``loftr_matcher_fn`` is its on-device matcher, ``FARLoFTR.match``.
+``SIFTMatching`` is the host baseline (rootSIFT and a ratio test on
+OpenCV's native SIFT, imported where it is used), ``superglue_matcher_fn``
+the SuperPoint + SuperGlue pair on the models' device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +54,50 @@ class PrecomputedMatching:
         return pad_matches(corr[:, :2], corr[:, 2:4], self.max_matches)
 
 
+class SIFTMatching:
+    """rootSIFT + ratio-test matching with OpenCV on the host."""
+
+    def __init__(self, num_features: int = 2048,
+                 ratio_threshold: float = 0.8, max_matches: int = 1024):
+        import cv2
+
+        self.cv2 = cv2
+        self.sift = cv2.SIFT_create(num_features)
+        self.ratio = ratio_threshold
+        self.max_matches = max_matches
+
+    def _root_sift(self, desc: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        if desc is None:
+            return None
+        desc = desc / (np.abs(desc).sum(axis=1, keepdims=True) + 1e-7)
+        return np.sqrt(desc)
+
+    def match(self, img0: np.ndarray, img1: np.ndarray):
+        """img: float [0, 1] (H, W[, 1]) or uint8 grayscale -> the padded
+        (pts0, pts1, valid) of ``pad_matches``."""
+        cv2 = self.cv2
+
+        def prep(im):
+            im = np.asarray(im).squeeze()
+            if im.dtype != np.uint8:
+                im = (np.clip(im, 0, 1) * 255).astype(np.uint8)
+            return im
+
+        k0, d0 = self.sift.detectAndCompute(prep(img0), None)
+        k1, d1 = self.sift.detectAndCompute(prep(img1), None)
+        d0, d1 = self._root_sift(d0), self._root_sift(d1)
+        empty = np.zeros((0, 2), np.float32)
+        if d0 is None or d1 is None or len(d0) < 2 or len(d1) < 2:
+            return pad_matches(empty, empty, self.max_matches)
+        knn = cv2.BFMatcher().knnMatch(d0, d1, k=2)
+        good = [m for m, n in knn if m.distance < self.ratio * n.distance]
+        if not good:
+            return pad_matches(empty, empty, self.max_matches)
+        pts0 = np.float32([k0[m.queryIdx].pt for m in good])
+        pts1 = np.float32([k1[m.trainIdx].pt for m in good])
+        return pad_matches(pts0, pts1, self.max_matches)
+
+
 def precompute_matches(
     dataset, indices, matcher_fn, out_path,
 ) -> Dict[str, np.ndarray]:
@@ -86,5 +131,34 @@ def loftr_matcher_fn(model) -> Callable:
         valid = m.valid[0].cpu().numpy()
         return (m.mkpts0_f[0].float().cpu().numpy()[valid],
                 m.mkpts1_f[0].float().cpu().numpy()[valid])
+
+    return fn
+
+
+def sift_matcher_fn(max_matches: int) -> Callable:
+    """``matcher_fn`` of ``SIFTMatching``: the valid matches on the host."""
+    m = SIFTMatching(max_matches=max_matches)
+
+    def fn(sample):
+        p0, p1, v = m.match(sample["image0"], sample["image1"])
+        return p0[v], p1[v]
+
+    return fn
+
+
+def superglue_matcher_fn(sp_model, sg_model) -> Callable:
+    """``matcher_fn`` of ``match_pair_superglue`` on one pair, on the
+    models' device under ``torch.inference_mode``: the matched keypoints,
+    on the host."""
+    from far_tpu_torch.models.superglue import match_pair_superglue
+
+    device = next(sp_model.parameters()).device
+
+    def fn(sample):
+        im = lambda k: torch.from_numpy(np.asarray(sample[k], np.float32))[None].to(device)
+        with torch.inference_mode():
+            p0, p1, ok = match_pair_superglue(sp_model, sg_model, im("image0"), im("image1"))
+        ok = ok[0].cpu().numpy()
+        return p0[0].cpu().numpy()[ok], p1[0].cpu().numpy()[ok]
 
     return fn

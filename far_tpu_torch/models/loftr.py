@@ -2,11 +2,17 @@
 
 Counterpart of ``far_tpu/models/loftr.py:FARLoFTR`` (``match``,
 ``regress_features``, ``regress_fuse``) and of its
-``TranslationScaleHead``. ``match`` follows the module's mode: in
-training (``model.train()``) the backbone's BatchNorms use the batch's
-statistics, the coarse match goes through the dense confidence matrix
-(returned as ``conf_matrix`` for the loss) and the fine transformer runs
-layer by layer; in eval K2 and K3 run. With ``match.match_type ==
+``TranslationScaleHead``. The backbone is ResNet-FPN 8/2
+or 16/4 by ``backbone.resolution`` (16/4: a 1/16 coarse and a 1/4 fine
+map, so 1200 coarse tokens at 480x640), normalised by BatchNorm or, with
+``backbone.norm="group"``, GroupNorm. ``match`` follows the module's
+mode: in training (``model.train()``) the backbone's BatchNorms use the
+batch's statistics (GroupNorm is the same in both modes), the coarse
+match goes through the dense confidence matrix (returned as
+``conf_matrix`` for the loss) and the fine transformer runs layer by
+layer; in eval K2 and K3 run. A coarse or fine stack with
+``attention="full"`` runs softmax attention in plain torch and launches
+no K1 (coarse) or K3 (fine), as the JAX package routes it. With ``match.match_type ==
 "sinkhorn"`` the coarse match is optimal transport with a learned dustbin
 score (``bin_score``) in plain torch in both modes, and K2 does not run.
 In training, ``cfg.remat`` checkpoints the backbone (``True`` or
@@ -34,7 +40,8 @@ from torch.utils.checkpoint import (
 )
 
 from far_tpu_torch.models.backbone import (
-    ResNetFPN_8_2,
+    build_backbone,
+    coarse_channels,
     deferred_running_stats,
     update_running_stats,
 )
@@ -108,32 +115,25 @@ class TranslationScaleHead(nn.Module):
 class FARLoFTR(nn.Module):
     def __init__(self, cfg: FARConfig):
         super().__init__()
-        if cfg.backbone.resolution != (8, 2):
-            raise NotImplementedError("the port has the 8/2 backbone only")
         if cfg.match.match_type not in ("dual_softmax", "sinkhorn"):
             raise ValueError(f"unknown match_type {cfg.match.match_type!r}")
-        if cfg.backbone.norm != "batch":
-            raise NotImplementedError("the port has BatchNorm only")
-        for stack in (cfg.coarse, cfg.fine):
-            if stack.attention != "linear":
-                raise NotImplementedError("the port has linear attention only")
         self.config = cfg
         self.dtype = compute_dtype(cfg)
-        self.backbone = ResNetFPN_8_2(cfg.backbone.initial_dim,
-                                      tuple(cfg.backbone.block_dims))
+        self.backbone = build_backbone(cfg.backbone)
         self.loftr_coarse = LocalFeatureTransformer(
-            cfg.coarse.d_model, cfg.coarse.nhead, cfg.coarse.layer_names)
+            cfg.coarse.d_model, cfg.coarse.nhead, cfg.coarse.layer_names,
+            attention=cfg.coarse.attention)
         if cfg.match.match_type == "sinkhorn":
             self.bin_score = nn.Parameter(
                 torch.tensor(cfg.match.skh_init_bin_score, dtype=torch.float32))
         self.fine_preprocess = FinePreprocess(cfg.fine, cfg.coarse.d_model)
         self.loftr_fine = LocalFeatureTransformer(
             cfg.fine.d_model, cfg.fine.nhead, cfg.fine.layer_names,
-            window_tokens=cfg.fine.window_size ** 2)
+            window_tokens=cfg.fine.window_size ** 2, attention=cfg.fine.attention)
         if cfg.regress_rt:
             self.loftr_regress = PoseRegressorEMM(cfg.regress, cfg.coarse_hw)
         if cfg.predict_translation_scale:
-            self.ts_head = TranslationScaleHead(cfg.backbone.block_dims[2],
+            self.ts_head = TranslationScaleHead(coarse_channels(cfg.backbone),
                                                 cfg.coarse_hw)
 
     def coarse_features(self, image0: torch.Tensor, image1: torch.Tensor):

@@ -181,7 +181,7 @@ class PoseRegressorEMM(nn.Module):
         if cfg.num_loftr_layers > 0:
             self.loftr = LocalFeatureTransformer(
                 C, cfg.nhead_stack,
-                tuple(cfg.layer_names) * cfg.num_loftr_layers)
+                tuple(cfg.layer_names) * cfg.num_loftr_layers, attention=cfg.attention)
         self.emm = CrossBlockEMM(C, cfg.emm_heads, grid_hw,
                                  (cfg.grid_fx, cfg.grid_fy),
                                  cfg.use_pos_embedding)

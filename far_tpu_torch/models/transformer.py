@@ -1,13 +1,17 @@
 """LoFTR encoder layers and the self/cross attention stack.
 
-Counterpart of ``far_tpu/models/transformer.py``. Every coarse layer runs
-through kernel K1 (``ops/loftr_layer.py``, differentiable through
-``loftr_layer_auto``); in eval a stack over independent windows (the fine
-stage) runs whole through kernel K3 (``ops/fine_layer.py``,
-``fine_transformer_auto``). In training the window stack runs layer by
-layer on the dense path, as the JAX package does (:192-216): plain torch
-over ``models/attention.py``. Module names follow the reference
-(``layers.3.q_proj``, ``layers.3.mlp.0``).
+Counterpart of ``far_tpu/models/transformer.py``. With linear attention
+(the default) every coarse layer runs through kernel K1
+(``ops/loftr_layer.py``, differentiable through ``loftr_layer_auto``);
+in eval a stack over independent windows (the fine stage) runs whole
+through kernel K3 (``ops/fine_layer.py``, ``fine_transformer_auto``). In
+training the window stack runs layer by layer on the dense path, as the
+JAX package does (:192-216): plain torch over ``models/attention.py``.
+A stack with ``attention="full"`` (softmax attention) runs every layer on
+the dense path, in eval and training, coarse and fine: the JAX package
+routes it past both kernels (:118-121, :199-207), so it launches no K1
+and no K3. Module names follow the reference (``layers.3.q_proj``,
+``layers.3.mlp.0``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from far_tpu_torch.models.attention import linear_attention
+from far_tpu_torch.models.attention import full_attention, linear_attention
 from far_tpu_torch.ops.fine_layer import fine_transformer_auto
 from far_tpu_torch.ops.loftr_layer import loftr_layer_auto
 
@@ -36,12 +40,16 @@ def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class LoFTREncoderLayer(nn.Module):
     """message = norm1(merge(attn(q(x), k(src), v(src))));
-    out = x + norm2(mlp([x, message]))."""
+    out = x + norm2(mlp([x, message])). ``attention``: "linear" (K1) or
+    "full" (the dense path with softmax attention)."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, attention: str = "linear"):
         super().__init__()
+        if attention not in ("linear", "full"):
+            raise ValueError(f"unknown attention {attention!r}")
         C = d_model
         self.nhead = nhead
+        self.attention = attention
         self.q_proj = nn.Linear(C, C, bias=False)
         self.k_proj = nn.Linear(C, C, bias=False)
         self.v_proj = nn.Linear(C, C, bias=False)
@@ -62,12 +70,14 @@ class LoFTREncoderLayer(nn.Module):
         }
 
     def forward(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+        if self.attention == "full":
+            return self.dense(x, source)
         return loftr_layer_auto(x, source, self.raw(), self.nhead)
 
     def dense(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
         """The layer in plain torch, in x's dtype (the JAX package's XLA
-        path, :123-149, with linear attention and no masks): one wide
-        projection product where x is source."""
+        path, :123-149, with no masks): one wide projection product where
+        x is source."""
         B, L, C = x.shape
         H = self.nhead
         dt = x.dtype
@@ -84,7 +94,8 @@ class LoFTREncoderLayer(nn.Module):
         q = q.reshape(B, L, H, C // H)
         k = k.reshape(B, -1, H, C // H)
         v = v.reshape(B, -1, H, C // H)
-        message = linear_attention(q, k, v)
+        attn = linear_attention if self.attention == "linear" else full_attention
+        message = attn(q, k, v)
         message = _layer_norm(dense(message.reshape(B, L, C), p["wm"]), *p["ln1"])
         y = torch.relu(dense(torch.cat([x.to(dt), message], dim=-1), p["w0"]))
         y = _layer_norm(dense(y, p["w1"]), *p["ln2"])
@@ -96,11 +107,12 @@ class LocalFeatureTransformer(nn.Module):
     sequential (feat1's update consumes the updated feat0).
 
     With ``window_tokens`` set, the (N, s, C) inputs are independent
-    windows of s tokens: in eval the whole stack is one K3 launch, in
-    training a loop over the layers' dense path."""
+    windows of s tokens: with linear attention in eval the whole stack is
+    one K3 launch; in training, or with full attention, a loop over the
+    layers' dense path."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
-                 window_tokens: Optional[int] = None):
+                 window_tokens: Optional[int] = None, attention: str = "linear"):
         super().__init__()
         for name in layer_names:
             if name not in ("self", "cross"):
@@ -108,13 +120,14 @@ class LocalFeatureTransformer(nn.Module):
         self.nhead = nhead
         self.layer_names = tuple(layer_names)
         self.window_tokens = window_tokens
+        self.attention = attention
         self.layers = nn.ModuleList(
-            [LoFTREncoderLayer(d_model, nhead) for _ in layer_names])
+            [LoFTREncoderLayer(d_model, nhead, attention) for _ in layer_names])
 
     def forward(self, feat0: torch.Tensor, feat1: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         windows = self.window_tokens is not None
-        if windows and not self.training:
+        if windows and not self.training and self.attention == "linear":
             return fine_transformer_auto(
                 feat0.contiguous(), feat1.contiguous(),
                 [layer.raw() for layer in self.layers], self.layer_names,

@@ -2,9 +2,15 @@
 
 The port's modules carry the reference's torch names, so a reference
 state dict (``matcher.`` prefix stripped) loads with ``strict=True``.
-``build_loftr_mapping``, ``build_vitess_mapping`` and
-``build_sixdreg_mapping`` are the port's own copies of the mappings in
-``far_tpu/utils/convert_weights.py`` (torch key, Flax path, transform);
+``build_loftr_mapping`` (with the 16/4 backbone and GroupNorm, which the
+JAX package's mapping lacks), ``build_vitess_mapping``,
+``build_sixdreg_mapping``, ``build_superpoint_mapping`` and
+``build_simple_transformer_mapping`` are the port's own copies of the
+mappings in ``far_tpu/utils/convert_weights.py`` (torch key, Flax path,
+transform); ``build_superglue_mapping`` takes magicleap's SuperGlue
+(Conv1d + BatchNorm1d, folded) to the port's keys, which are the JAX
+package's names, and ``convert_superpoint_state_dict`` /
+``convert_superglue_state_dict`` apply the magicleap layouts;
 ``flax_to_state_dict`` runs the one of its config's family backwards,
 turning the JAX package's ``{"params", "batch_stats"}`` tree (numpy
 arrays) into a torch-keyed state dict: HWIO -> OIHW for convolutions,
@@ -122,6 +128,19 @@ def _encoder_layer_entries(src: str, dst: Tuple[str, ...]):
     return e
 
 
+def _torch_encoder_layer_entries(src: str, dst: Tuple[str, ...]):
+    """One ``TorchTransformerEncoderLayer`` (``nn.TransformerEncoderLayer``'s
+    names) from the JAX package's (qkv, proj, ff1, ff2, norm1, norm2)."""
+    e = [(f"{src}.self_attn.in_proj_weight", dst + ("qkv", "kernel"), _linear),
+         (f"{src}.self_attn.in_proj_bias", dst + ("qkv", "bias"), _ident)]
+    e += _lin_entries(f"{src}.self_attn.out_proj", dst + ("proj",))
+    e += _lin_entries(f"{src}.linear1", dst + ("ff1",))
+    e += _lin_entries(f"{src}.linear2", dst + ("ff2",))
+    e += _ln_entries(f"{src}.norm1", dst + ("norm1",))
+    e += _ln_entries(f"{src}.norm2", dst + ("norm2",))
+    return e
+
+
 def _stack_entries(src: str, dst_root: Tuple[str, ...],
                    layer_names: Tuple[str, ...]):
     e = []
@@ -139,42 +158,43 @@ def build_loftr_mapping(cfg) -> Tuple[list, list]:
     P: List = []
     S: List = []
 
-    # ----- backbone (ResNetFPN_8_2) ------------------------------------
+    # ----- backbone (ResNetFPN_8_2 or _16_4; BatchNorm or GroupNorm) ------
     bb = ("backbone",)
+    kind = cfg.backbone.norm
+
+    def norm(src, dst):
+        if kind == "group":  # scale and bias as a LayerNorm's; no statistics
+            P.extend(_ln_entries(src, dst + ("GroupNorm_0",)))
+            return
+        p, s = _bn_entries(src, dst + ("BatchNorm_0",))
+        P.extend(p)
+        S.extend(s)
+
     P.append(("backbone.conv1.weight", bb + ("Conv_0", "kernel"), _conv))
-    p, s = _bn_entries("backbone.bn1", bb + ("_Norm_0", "BatchNorm_0"))
-    P += p
-    S += s
-    for stage, layer in enumerate(("layer1", "layer2", "layer3")):
+    norm("backbone.bn1", bb + ("_Norm_0",))
+    top = 3 if cfg.backbone.resolution[0] == 8 else 4  # stages
+    for stage in range(top):
         for blk in range(2):
-            src = f"backbone.{layer}.{blk}"
+            src = f"backbone.layer{stage + 1}.{blk}"
             dst = bb + (f"_Stage_{stage}", f"BasicBlock_{blk}")
             P.append((f"{src}.conv1.weight", dst + ("Conv_0", "kernel"), _conv))
             P.append((f"{src}.conv2.weight", dst + ("Conv_1", "kernel"), _conv))
-            p, s = _bn_entries(f"{src}.bn1", dst + ("_Norm_0", "BatchNorm_0"))
-            P += p
-            S += s
-            p, s = _bn_entries(f"{src}.bn2", dst + ("_Norm_1", "BatchNorm_0"))
-            P += p
-            S += s
+            norm(f"{src}.bn1", dst + ("_Norm_0",))
+            norm(f"{src}.bn2", dst + ("_Norm_1",))
             if stage > 0 and blk == 0:  # strided blocks have a downsample
                 P.append((f"{src}.downsample.0.weight",
                           dst + ("Conv_2", "kernel"), _conv))
-                p, s = _bn_entries(f"{src}.downsample.1",
-                                   dst + ("_Norm_2", "BatchNorm_0"))
-                P += p
-                S += s
-    # FPN: lateral 1x1s + refine stacks (order of creation: Conv_1..3)
-    P.append(("backbone.layer3_outconv.weight", bb + ("Conv_1", "kernel"), _conv))
-    P.append(("backbone.layer2_outconv.weight", bb + ("Conv_2", "kernel"), _conv))
-    P.append(("backbone.layer1_outconv.weight", bb + ("Conv_3", "kernel"), _conv))
-    for oc, src in ((0, "backbone.layer2_outconv2"),
-                    (1, "backbone.layer1_outconv2")):
+                norm(f"{src}.downsample.1", dst + ("_Norm_2",))
+    # FPN, top-down: the lateral 1x1s in order of creation (Conv_1..3),
+    # then the refine stacks (_OutConv2_0, _1)
+    for i in range(3):
+        P.append((f"backbone.layer{top - i}_outconv.weight",
+                  bb + (f"Conv_{i + 1}", "kernel"), _conv))
+    for oc in range(2):
+        src = f"backbone.layer{top - 1 - oc}_outconv2"
         dst = bb + (f"_OutConv2_{oc}",)
         P.append((f"{src}.0.weight", dst + ("Conv_0", "kernel"), _conv))
-        p, s = _bn_entries(f"{src}.1", dst + ("_Norm_0", "BatchNorm_0"))
-        P += p
-        S += s
+        norm(f"{src}.1", dst + ("_Norm_0",))
         P.append((f"{src}.3.weight", dst + ("Conv_1", "kernel"), _conv))
 
     # ----- coarse / fine transformers ----------------------------------
@@ -369,15 +389,7 @@ def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
 
     if cfg.use_vanilla_transformer:
         for i in range(cfg.transformer_layers):
-            src = f"transformer.layers.{i}"
-            dst = (f"transformer_{i}",)
-            P.append((f"{src}.self_attn.in_proj_weight", dst + ("qkv", "kernel"), _linear))
-            P.append((f"{src}.self_attn.in_proj_bias", dst + ("qkv", "bias"), _ident))
-            P += _lin_entries(f"{src}.self_attn.out_proj", dst + ("proj",))
-            P += _lin_entries(f"{src}.linear1", dst + ("ff1",))
-            P += _lin_entries(f"{src}.linear2", dst + ("ff2",))
-            P += _ln_entries(f"{src}.norm1", dst + ("norm1",))
-            P += _ln_entries(f"{src}.norm2", dst + ("norm2",))
+            P += _torch_encoder_layer_entries(f"transformer.layers.{i}", (f"transformer_{i}",))
 
     def head_entries(src, dst_fmt, n_extra):
         out = []
@@ -393,16 +405,170 @@ def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
     return P, S
 
 
+def build_simple_transformer_mapping(cfg) -> Tuple[list, list]:
+    """(param entries, []) for SimpleTransformer: the JAX package's names,
+    its ``encoder_i`` layers under ``TorchTransformerEncoderLayer``'s."""
+    P: List = _lin_entries("pos_proj", ("pos_proj",))
+    if cfg.use_feats:
+        for i in range(2):
+            P += _lin_entries(f"feat_enc_{i}", (f"feat_enc_{i}",))
+    for i in range(cfg.num_layers):
+        P += _torch_encoder_layer_entries(f"encoder.{i}", (f"encoder_{i}",))
+    for name in ("moe_enc_0", "moe_enc_1", "pose_0", "pose_1", "moe_0", "moe_1", "moe_2"):
+        P += _lin_entries(name, (name,))
+    return P, []
+
+
+# ---- SuperPoint / SuperGlue (magicleap/SuperGluePretrainedNetwork) -------
+
+
+def build_superpoint_mapping(cfg) -> Tuple[list, list]:
+    """(param entries, []) for SuperPoint: the port's keys are magicleap's
+    ``superpoint_v1.pth`` ones (SuperGluePretrainedNetwork/models/
+    superpoint.py:110-133), each beside the JAX package's path. Plain
+    convolutions, no normalisation layers."""
+    names = ["conv1a", "conv1b", "conv2a", "conv2b",
+             "conv3a", "conv3b", "conv4a", "conv4b"]
+    pairs = [(src, f"conv{i}") for i, src in enumerate(names)]
+    pairs += [("convPa", "det_a"), ("convPb", "det_b"), ("convDa", "desc_a"),
+              ("convDb", "desc_b")]
+    P = []
+    for src, dst in pairs:
+        P.append((f"{src}.weight", (dst, "kernel"), _conv))
+        P.append((f"{src}.bias", (dst, "bias"), _ident))
+    return P, []
+
+
+def _conv1d_linear(w):
+    """Conv1d (O, I, 1) -> Linear (O, I)."""
+    return np.asarray(w)[:, :, 0]
+
+
+def _fold_bn_conv1d(eps: float = 1e-5):
+    """(weight, bias) transforms folding an eval-mode BatchNorm1d into the
+    Conv1d before it, in the port's Linear layout: y = (x - mean) gamma /
+    sqrt(var + eps) + beta is affine, so conv then BN is one Linear
+    (inference-exact; the folded weights carry no BN statistics)."""
+
+    def weight(conv_w, bn_w, bn_rv):
+        scale = np.asarray(bn_w) / np.sqrt(np.asarray(bn_rv) + eps)
+        return _conv1d_linear(conv_w) * scale[:, None]
+
+    def bias(conv_b, bn_w, bn_b, bn_rm, bn_rv):
+        scale = np.asarray(bn_w) / np.sqrt(np.asarray(bn_rv) + eps)
+        return (np.asarray(conv_b) - np.asarray(bn_rm)) * scale + np.asarray(bn_b)
+
+    return weight, bias
+
+
+def build_superglue_mapping(cfg) -> list:
+    """Entries (magicleap key or keys, port key, transform) for SuperGlue
+    from magicleap's superglue_{indoor,outdoor}.pth
+    (SuperGluePretrainedNetwork/models/superglue.py), the JAX package's
+    mapping (``far_tpu/utils/convert_weights.py``) in the port's layout:
+    each Conv1d + BatchNorm1d of the MLPs folded into one Linear, the
+    shared ``final_proj`` filling both ``final_proj`` and
+    ``final_proj2``."""
+    fold_w, fold_b = _fold_bn_conv1d()
+    P = []
+
+    def folded(conv, bn, dst):
+        P.append(((f"{conv}.weight", f"{bn}.weight", f"{bn}.running_var"),
+                  f"{dst}.weight", fold_w))
+        P.append(((f"{conv}.bias", f"{bn}.weight", f"{bn}.bias",
+                   f"{bn}.running_mean", f"{bn}.running_var"), f"{dst}.bias", fold_b))
+
+    def plain(conv, dst):
+        P.append((f"{conv}.weight", f"{dst}.weight", _conv1d_linear))
+        P.append((f"{conv}.bias", f"{dst}.bias", _ident))
+
+    # keypoint encoder MLP([3, 32, 64, 128, 256, D]): Conv1d at 3i and
+    # BatchNorm1d at 3i+1 for the first four layers, a bare Conv1d at 12
+    for i in range(4):
+        folded(f"kenc.encoder.{3 * i}", f"kenc.encoder.{3 * i + 1}", f"kenc_{i}")
+    plain("kenc.encoder.12", "kenc_4")
+    # GNN: gnn.layers.{2i} is self_i, gnn.layers.{2i+1} cross_i
+    for i in range(2 * cfg.num_layers):
+        src = f"gnn.layers.{i}"
+        dst = f"self_{i // 2}" if i % 2 == 0 else f"cross_{i // 2}"
+        for j, name in enumerate(("q", "k", "v")):
+            plain(f"{src}.attn.proj.{j}", f"{dst}.attn.{name}")
+        plain(f"{src}.attn.merge", f"{dst}.attn.merge")
+        # mlp = MLP([2D, 2D, D]): Conv1d at 0, BatchNorm1d at 1, Conv1d at 3
+        folded(f"{src}.mlp.0", f"{src}.mlp.1", f"{dst}.fc1")
+        plain(f"{src}.mlp.3", f"{dst}.fc2")
+    for dst in ("final_proj", "final_proj2"):  # shared in the reference
+        plain("final_proj", dst)
+    P.append(("bin_score", "bin_score", _ident))
+    return P
+
+
+def _superglue_entries(cfg) -> Tuple[list, list]:
+    """(param entries, []) from the port's SuperGlue keys to the JAX
+    package's paths: the same names, Flax's ``kernel`` for ``weight``."""
+    P = []
+    for _, key, _ in build_superglue_mapping(cfg):
+        *mod, leaf = key.split(".")
+        if leaf == "weight":
+            P.append((key, tuple(mod) + ("kernel",), _linear))
+        else:
+            P.append((key, tuple(mod) + (leaf,), _ident))
+    return P, []
+
+
+def _from_reference(sd: Dict[str, Any], entries) -> Tuple[Dict[str, np.ndarray], dict]:
+    """Apply (source key or keys, port key, transform) entries to a
+    reference state dict -> (port state dict of numpy arrays, report of
+    the entries' ``missing`` source keys and the state dict's ``unused``
+    ones; BatchNorm counters, which a fold drops, are not reported)."""
+    sd = {k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+          for k, v in sd.items()}
+    out, missing, used = {}, [], set()
+    for src, key, tf in entries:
+        srcs = (src,) if isinstance(src, str) else tuple(src)
+        absent = [k for k in srcs if k not in sd]
+        if absent:
+            missing += absent
+            continue
+        used.update(srcs)
+        out[key] = np.ascontiguousarray(tf(*(sd[k] for k in srcs)), np.float32)
+    unused = [k for k in sd if k not in used and not k.endswith("num_batches_tracked")]
+    return out, {"missing": missing, "unused": sorted(unused)}
+
+
+def convert_superpoint_state_dict(sd: Dict[str, Any], cfg):
+    """magicleap superpoint_v1.pth -> (the port's SuperPoint state dict,
+    report): the keys are the same, so this only checks and copies."""
+    entries = [(key, key, _ident) for key, _, _ in build_superpoint_mapping(cfg)[0]]
+    return _from_reference(sd, entries)
+
+
+def convert_superglue_state_dict(sd: Dict[str, Any], cfg):
+    """magicleap superglue_{indoor,outdoor}.pth -> (the port's SuperGlue
+    state dict, report), BatchNorm1d folded (inference-exact)."""
+    return _from_reference(sd, build_superglue_mapping(cfg))
+
+
 def build_mapping(cfg) -> Tuple[list, list]:
-    """The mapping of ``cfg``'s family: FARConfig, ViTEssConfig or
-    SixDRegConfig."""
+    """The mapping of ``cfg``'s family: FARConfig, ViTEssConfig,
+    SixDRegConfig, SimpleTransformerConfig, SuperPointConfig or
+    SuperGlueConfig."""
+    from far_tpu_torch.models.simple_transformer import SimpleTransformerConfig
     from far_tpu_torch.models.sixdreg import SixDRegConfig
+    from far_tpu_torch.models.superglue import SuperGlueConfig
+    from far_tpu_torch.models.superpoint import SuperPointConfig
     from far_tpu_torch.models.vitess import ViTEssConfig
 
     if isinstance(cfg, ViTEssConfig):
         return build_vitess_mapping(cfg)
     if isinstance(cfg, SixDRegConfig):
         return build_sixdreg_mapping(cfg)
+    if isinstance(cfg, SimpleTransformerConfig):
+        return build_simple_transformer_mapping(cfg)
+    if isinstance(cfg, SuperPointConfig):
+        return build_superpoint_mapping(cfg)
+    if isinstance(cfg, SuperGlueConfig):
+        return _superglue_entries(cfg)
     return build_loftr_mapping(cfg)
 
 
@@ -413,9 +579,9 @@ def _get_path(tree: Dict[str, Any], path: Tuple[str, ...]):
 
 
 def flax_to_state_dict(variables_np: Dict[str, Any], cfg) -> Dict[str, np.ndarray]:
-    """The JAX package's variables of ``cfg``'s model (FARLoFTR, ViTEss or
-    MapfreeRegression) -> a state dict with the reference's torch keys (no
-    prefix). BatchNorms also get their ``num_batches_tracked`` counter
+    """The JAX package's variables of ``cfg``'s model (FARLoFTR, ViTEss,
+    MapfreeRegression, SimpleTransformer, SuperPoint or SuperGlue) -> a
+    state dict with the port's torch keys (the reference's, no prefix). BatchNorms also get their ``num_batches_tracked`` counter
     (0), as a torch state dict has."""
     P, S = build_mapping(cfg)
     out: Dict[str, np.ndarray] = {}
@@ -484,15 +650,16 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     on the CPU in sorted key order: LeCun-normal kernels (Flax's default),
     unit norm scales, zero biases and BatchNorm means, unit variances,
     truncated-normal(0.02) position embeddings, and the Sinkhorn dustbin
-    score at the config's ``skh_init_bin_score``."""
+    score left at the value the module was built with (FARLoFTR: the
+    config's ``skh_init_bin_score``; SuperGlue: 1)."""
     g = torch.Generator().manual_seed(seed)
     for name, t in sorted(model.state_dict(keep_vars=True).items()):
         if name.endswith("num_batches_tracked") or name.endswith("running_mean"):
             v = torch.zeros(t.shape, dtype=t.dtype)
         elif name.endswith("running_var"):
             v = torch.ones(t.shape)
-        elif name == "bin_score":
-            v = torch.tensor(model.config.match.skh_init_bin_score)
+        elif name == "bin_score":  # the dustbin score the module was built with
+            v = t.detach().clone()
         elif name.endswith("pos_embed"):
             v = (torch.randn(t.shape, generator=g) * 0.02).clamp(-0.04, 0.04)
         elif t.ndim >= 2:

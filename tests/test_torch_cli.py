@@ -12,6 +12,7 @@ stated where it is checked.
 
 import argparse
 import dataclasses
+import functools
 import json
 import types
 
@@ -354,10 +355,14 @@ def test_reg_image_matches_jax_resize(hw, reg_hw, channels):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
 
 
-def test_precompute_cli(tmp_path):
+def test_precompute_cli(tmp_path, monkeypatch):
     """loftr writes one (n, 4) entry a pair under JAX's keys, which 6DReg
-    training then reads (--corr_npz); sift and superglue raise, naming
-    what the port lacks."""
+    training then reads (--corr_npz); sift writes the JAX CLI's store
+    bit for bit (both on OpenCV), without touching a device; superglue
+    on the JAX CLI's SuperPoint/SuperGlue init (PRNGKey(0) and (1),
+    carried by flax_to_state_dict) writes its store, every entry within
+    1e-4 px. Both CLIs' superglue run at 256 keypoints and threshold 0
+    (the default 0.2 keeps no match of random weights)."""
     out = tmp_path / "corr.npz"
     store = tprecompute.main(["--dataset", "synthetic", "--image_size", "64x64",
                               "--n_synthetic", "2", "--matcher", "loftr", "--out", str(out),
@@ -366,9 +371,51 @@ def test_precompute_cli(tmp_path):
     assert sorted(z.files) == sorted(store) == ["syn_0_0-syn_0_1", "syn_1_0-syn_1_1"]
     assert all(z[k].ndim == 2 and z[k].shape[1] == 4 and np.isfinite(z[k]).all()
                for k in z.files)
-    for matcher, what in (("sift", "cv2"), ("superglue", "SuperGlue")):
-        with pytest.raises(NotImplementedError, match=what):
-            tprecompute.main(["--matcher", matcher, "--out", str(tmp_path / "x.npz")])
+    import far_tpu.cli.precompute as jprecompute
+    import far_tpu.models.superglue as jsg
+    import far_tpu.models.superpoint as jsp
+    from far_tpu_torch.models.superglue import SuperGlue, SuperGlueConfig
+    from far_tpu_torch.models.superpoint import SuperPoint, SuperPointConfig
+
+    for mod, name, kw in ((jsp, "SuperPointConfig", dict(max_keypoints=256)),
+                          (jsg, "SuperGlueConfig", dict(match_threshold=0.0))):
+        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name), **kw))
+
+    def carried_models(dtype, device):
+        """The JAX CLI's init (far_tpu/cli/precompute.py), in the port."""
+        sp = jsp.SuperPointTPU(jsp.SuperPointConfig(dtype=dtype))
+        sg = jsg.SuperGlueTPU(jsg.SuperGlueConfig(dtype=dtype))
+        dummy = jnp.zeros((1, 64, 64, 1))
+        sp_vs = sp.init(jax.random.PRNGKey(0), dummy)
+        k, s, v, d = sp.apply(sp_vs, dummy)
+        sg_vs = sg.init(jax.random.PRNGKey(1), k, s, v, d, k, s, v, d, image_hw=(64, 64))
+        out = []
+        for module, cfg, vs in ((SuperPoint, SuperPointConfig(max_keypoints=256, dtype=dtype),
+                                 sp_vs),
+                                (SuperGlue, SuperGlueConfig(match_threshold=0.0, dtype=dtype),
+                                 sg_vs)):
+            sd = flax_to_state_dict(jax.tree.map(np.asarray, vs), cfg)
+            m = module(cfg)
+            m.load_state_dict({k: torch.from_numpy(np.array(a)) for k, a in sd.items()},
+                              strict=True)
+            out.append(m.to(device).eval())
+        return out
+
+    monkeypatch.setattr(tprecompute, "superglue_models", carried_models)
+    for matcher in ("sift", "superglue"):
+        argv = ["--dataset", "synthetic", "--image_size", "64x64", "--n_synthetic", "2",
+                "--matcher", matcher, "--dtype", "float32"]
+        ours = tprecompute.main(argv + ["--out", str(tmp_path / "t.npz"), "--device", "cpu"])
+        jprecompute.main(argv + ["--out", str(tmp_path / "j.npz")])
+        ref = np.load(tmp_path / "j.npz")
+        got = np.load(tmp_path / "t.npz")
+        assert sorted(got.files) == sorted(ref.files) == sorted(ours)
+        assert sum(len(ref[k]) for k in ref.files) >= 2, matcher  # matches were made
+        for k in ref.files:
+            if matcher == "sift":
+                np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-4, err_msg=k)
     # the store feeds 6DReg training through CachedCorrespondenceDataset
     trainer = ttrain.main(["--model", "sixdreg", "--dataset", "synthetic", "--image_size",
                            "64x64", "--n_synthetic", "2", "--batch_size", "2", "--dtype",

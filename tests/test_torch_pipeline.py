@@ -143,6 +143,15 @@ def test_far_forward_matches_jax(weights, size, scene, solver, scale_head,
         jmodel, variables, port, _, _ = build_pair(jcfg, tcfg)
     else:
         jmodel, variables, port = _init_weights_pair(jcfg, tcfg)
+    far_forward_against_jax(jmodel, variables, port, jcfg, tcfg, scene, monkeypatch)
+
+
+def far_forward_against_jax(jmodel, variables, port, jcfg, tcfg, scene, monkeypatch):
+    """The body of test_far_forward_matches_jax on a given pair of models
+    (the JAX model with its variables, the port with the same weights)."""
+    size = jcfg.image_size
+    solver = jcfg.solver.minimal_solver
+    scale_head = jcfg.predict_translation_scale
     rng = np.random.default_rng(11)
     B = 2
     im0, im1 = smooth_images(rng, B, *size, shift=(8, 16))
