@@ -116,6 +116,23 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    request's matches and first-round pose, card against CPU; (f)
    ``precompute --matcher superglue`` and ``--matcher sift`` on 4 pairs
    (no FAR kernel).
+17. the last single-process modules: (a) three bf16 ``far_forward``
+   requests (``FARConfig()``, B=4, 480x640) inside
+   ``utils.prof.InferenceProfiler.profile``: 3 regions, launches 16/1/1/2
+   a request, the first's R, t and gate equal to unprofiled requests' from
+   the same generator state within their own spread, profiled and
+   unprofiled ms; (b) one request under ``utils.prof.TraceProfiler``: the
+   Chrome trace's device kernels named by each kernel's ``__global__``
+   functions, the counters times the tensor-core route's launches a call
+   (K1 3, K2 4, K3 1, K4 3); (c) visloc: one query and 5 reference views,
+   the pairs solved by the 5-point RANSAC on the card, then
+   ``eval.localize``'s pipelines with and without RANSAC on the host,
+   position error < 0.5; (d) ``validate_far(fig_dir=...)`` with the guard's
+   weights: without matplotlib an ImportError naming it and the pass
+   without figures at phase 9's median (0.01 deg), with it two PNGs; (e)
+   each 6DReg aggregator and head, f32, card against CPU within 1e-4
+   max|ref|, and ``mapfree_forward`` in bf16 with the aggregator flags
+   normalise_dot, cv_half_channels and position_encoder_im1 (16/1/1/0).
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 (B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
@@ -1173,7 +1190,8 @@ def validation(dev, card: str, guard_medians: dict):
     gate. (b) FARConfig() in bfloat16, init_model(seed=0), 16 synthetic
     pairs at 480x640 and B=4: dset size 16, every entry of the table
     finite, K1/K2/K3/K4 launched 16/1/1/2 times a batch; the pass's pairs/s
-    on the host clock, data made on the host included, which it returns."""
+    on the host clock, data made on the host included, which it returns with
+    (a)'s medians by dtype."""
     import torch
 
     from far_tpu_torch.data.synthetic import SyntheticPairDataset
@@ -1182,12 +1200,14 @@ def validation(dev, card: str, guard_medians: dict):
     from far_tpu_torch.train.validation import validate_far
     from far_tpu_torch.utils.config import FARConfig
 
+    medians = {}
     for dtype in ("float32", "bfloat16"):
         model, meta = load_guard(dtype=dtype, device=dev)
         ds = SyntheticPairDataset(n=16, hw=model.config.image_size, seed=meta["eval_seed"],
                                   n_scenes=16, max_angle_deg=12.0)
         table = validate_far(model, ds, 8, generator=torch.Generator(device=dev).manual_seed(7))
         med, gate = table["rot median err"], gate_deg(meta)
+        medians[dtype] = med
         gap = abs(med - guard_medians[dtype])
         print(f"validation guard {dtype}: {json.dumps(table)}; rot median err {med} against "
               f"phase 7's {guard_medians[dtype]:.4f} (gap {gap:.4f}, tol 0.01), gate "
@@ -1222,7 +1242,7 @@ def validation(dev, card: str, guard_medians: dict):
         fail(f"validation: table {table}")
     del model
     torch.cuda.empty_cache()
-    return 16 / sec
+    return 16 / sec, medians
 
 
 # ---- phase 10: Sinkhorn and remat --------------------------------------------
@@ -2691,6 +2711,371 @@ def matcher_clis(dev, card: str, launches: dict) -> None:
                   flush=True)
 
 
+# ---- phase 17: profiler, trace, visloc, figures, the 6DReg variants -----------------
+
+# the __global__ functions each kernel's bf16 tensor-core route launches in
+# one call (csrc/*.cu; PERF.md section 6: K1 3, K2 4, K3 1, K4 3)
+TC_SYMBOLS = {"K1_loftr_layer": ("kv_pass_kernel", "kv_reduce_tc_kernel", "row_pass_kernel"),
+              "K2_dual_softmax_rowcol": ("pass_kernel", "combine_stats_kernel",
+                                         "combine_conf_kernel"),
+              "K3_fine_transformer": ("fine_tc_kernel",),
+              "K4_bilinear_dual_softmax": ("row_stats_kernel", "main_kernel",
+                                           "sum_partials_tc_kernel")}
+TC_CALL_LAUNCHES = {"K1_loftr_layer": 3, "K2_dual_softmax_rowcol": 4,
+                    "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 3}
+PER_REQUEST = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1,
+               "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 2}
+REG_HW = (368, 272)  # SixDRegConfig().image_hw
+
+
+def _launches():
+    fns = counters()
+    return ({k: f.launches for k, f in fns.items()},
+            {k: fns[k].launches_tc for k in TC_ROUTES})
+
+
+def _pose_diff(a, b) -> float:
+    return max(max_err(getattr(a, k).float(), getattr(b, k).float())
+               for k in ("R", "t", "gating"))
+
+
+def profiled_requests(dev, card: str) -> None:
+    """Phase 17 (a), (b): FARConfig() bf16 at B=4, 480x640. Three
+    unprofiled requests from one generator state (their spread is the
+    run-to-run difference), then three inside
+    ``InferenceProfiler.profile("far_forward")`` from the same state: counts
+    3, launches 16/1/1/2 a request on the tensor-core routes, the first
+    profiled request's R, t and gate within the unprofiled spread. Then one
+    request under ``TraceProfiler``: every hand-written kernel's symbols in
+    the Chrome trace as device kernels, the counters times the route's
+    launches a call."""
+    import re
+    import tempfile
+
+    import torch
+
+    from far_tpu_torch.pipeline import build_inference_fn, init_model
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig
+    from far_tpu_torch.utils.prof import InferenceProfiler, TraceProfiler
+
+    model = init_model(FARConfig(dtype="bfloat16"), seed=0, device=dev)
+    fn = build_inference_fn(model)
+    batch = synthetic_batch(B_REQUEST, 480, 640, dev)
+    gen = torch.Generator(device=dev)
+    fn(batch, generator=gen.manual_seed(5))   # warm-up
+    torch.cuda.synchronize()
+    want_tc = {k: PER_REQUEST[k] for k in TC_ROUTES}
+
+    def request(prof=None):
+        reset_counters()
+        gen.manual_seed(5)
+        t0 = time.perf_counter()
+        if prof is None:
+            out = fn(batch, generator=gen)
+            torch.cuda.synchronize()
+        else:
+            with prof.profile("far_forward"):
+                out = fn(batch, generator=gen)
+        ms = (time.perf_counter() - t0) * 1e3
+        got, got_tc = _launches()
+        if got != PER_REQUEST or got_tc != want_tc:
+            fail(f"profiled requests: launches {got} (tensor cores {got_tc}), expected "
+                 f"{PER_REQUEST} a request")
+        return out, ms
+
+    plain = [request() for _ in range(N_REQUESTS)]
+    spread = max(_pose_diff(a[0], b[0]) for a in plain for b in plain)
+    prof = InferenceProfiler()
+    profiled = [request(prof) for _ in range(N_REQUESTS)]
+    diff = _pose_diff(profiled[0][0], plain[0][0])
+    ms_plain = statistics.median(m for _, m in plain)
+    ms_prof = prof.times["far_forward"] / prof.counts["far_forward"] * 1e3
+    print(f"profiled far_forward bfloat16 B={B_REQUEST} 480x640: {prof.counts['far_forward']} "
+          f"regions, mean {ms_prof:.2f} ms (runs {[round(m, 2) for _, m in profiled]}) "
+          f"against unprofiled median {ms_plain:.2f} ms (runs "
+          f"{[round(m, 2) for _, m in plain]}); R, t, gate profiled vs unprofiled max abs "
+          f"{diff:.3e}, unprofiled spread {spread:.3e}, launches a request {PER_REQUEST} "
+          f"on {card}\n{prof.summary()}", flush=True)
+    if prof.counts["far_forward"] != N_REQUESTS or not diff <= spread:
+        fail(f"profiled requests: counts {dict(prof.counts)}, difference {diff} against "
+             f"the unprofiled spread {spread}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = TraceProfiler(tmp)
+        reset_counters()
+        gen.manual_seed(5)
+        with tp.trace():
+            t0 = time.perf_counter()
+            fn(batch, generator=gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        got, _ = _launches()
+        events = json.loads(Path(tp.path).read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    if not kernels:
+        fail("traced request: the Chrome trace holds no CUDA kernel events")
+    base = [(re.findall(r"(\w+)(?=[<(])", n) or [n])[0] for n in kernels]
+    seen = {k: sum(b in syms for b in base) for k, syms in TC_SYMBOLS.items()}
+    want = {k: got[k] * TC_CALL_LAUNCHES[k] for k in TC_SYMBOLS}
+    print(f"traced far_forward bfloat16 B={B_REQUEST}: {len(kernels)} device kernels in the "
+          f"trace ({ms:.1f} ms traced, export excluded), the hand-written ones by kernel "
+          f"{seen}, expected counters {got} x route launches {TC_CALL_LAUNCHES} = {want}",
+          flush=True)
+    if seen != want:
+        fail(f"traced request: kernel events {seen}, expected {want}")
+    del model, fn
+    torch.cuda.empty_cache()
+
+
+def _look_at(c, target, roll):
+    """World-to-camera rotation of a camera at c looking at target (its +z
+    axis), rolled by ``roll`` radians about that axis."""
+    import numpy as np
+
+    z = (target - c) / np.linalg.norm(target - c)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    cr, sr = np.cos(roll), np.sin(roll)
+    x, y = cr * x + sr * y, -sr * x + cr * y
+    return np.stack([x, y, z])
+
+
+def visloc(dev, card: str) -> None:
+    """Phase 17 (c): one query and k=5 reference views with known absolute
+    poses (as tests/test_localize.py:make_scene: R_gt = r_q r_tr^T, t_gt =
+    r_q (c_tr - c_q)), each camera looking at a shared cloud of 512 points
+    projected with 0.5 px noise (f = 517.97 px, 640x480, points outside an
+    image masked); the 5 pairs solved on the
+    card by FARConfig()'s first-round 5-point RANSAC; then the port's
+    ``eval_pipeline_with_ransac`` and ``eval_pipeline_without_ransac`` on
+    the host, the solved t scaled to the true baseline's length (the scale
+    a metric-depth solver gives). Both position errors < 0.5 scene units,
+    tests/test_localize.py::test_ransac_pipeline_smoke's bar."""
+    import numpy as np
+    import torch
+
+    from far_tpu_torch.eval import localize as loc
+    from far_tpu_torch.pipeline import make_solver_configs
+    from far_tpu_torch.solvers.pose_estimation import estimate_pose
+    from far_tpu_torch.utils.config import FARConfig
+
+    rng = np.random.default_rng(30)
+    k, n = 5, 512
+    c_q = rng.normal(size=3)
+    target = c_q + 6.0 * rng.normal(size=3) / np.sqrt(3.0)
+    r_q = _look_at(c_q, target, rng.uniform(-np.pi, np.pi))
+    cams = [(_look_at(c, target, rng.uniform(-np.pi, np.pi)), c)
+            for c in c_q + rng.normal(size=(k, 3))]
+    X = target + rng.normal(size=(n, 3)) * 1.5
+    K = np.array([[517.97, 0, 320.0], [0, 517.97, 240.0], [0, 0, 1]])
+
+    def project(r, c):
+        p = (X - c) @ r.T
+        uv = p[:, :2] / p[:, 2:] * 517.97 + [320.0, 240.0] + rng.normal(0, 0.5, (n, 2))
+        return uv, (p[:, 2] > 0.5) & (uv >= 0).all(-1) & (uv < [640, 480]).all(-1)
+
+    kp0, kp1, valid, R_gt, t_gt = [], [], [], [], []
+    for r_tr, c_tr in cams:
+        (a, va), (b, vb) = project(r_tr, c_tr), project(r_q, c_q)
+        kp0.append(a)
+        kp1.append(b)
+        valid.append(va & vb)
+        R_gt.append(r_q @ r_tr.T)
+        t_gt.append(r_q @ (c_tr - c_q))
+    first_cfg, _ = make_solver_configs(FARConfig())
+    f32 = lambda a: torch.tensor(np.stack(a), dtype=torch.float32, device=dev)
+    Kd = torch.tensor(K, dtype=torch.float32, device=dev).expand(k, 3, 3)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        est = estimate_pose(f32(kp0), f32(kp1), Kd, Kd, torch.tensor(np.stack(valid), device=dev),
+                            cfg=first_cfg, generator=torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+    ms_solve = (time.perf_counter() - t0) * 1e3
+    R_est, t_est = est.R.double().cpu().numpy(), est.t.double().cpu().numpy()
+    inl = est.num_inliers.cpu().numpy()
+    m2q = loc.matrices_to_quats
+    pairs = []
+    for i, (r_tr, c_tr) in enumerate(cams):
+        t_m = t_est[i] / np.linalg.norm(t_est[i]) * np.linalg.norm(t_gt[i])
+        pairs.append(loc.RelaPosePair("q0", loc.AbsPose(m2q(r_tr), c_tr),
+                                      loc.RelaPose(m2q(R_gt[i]), t_gt[i]),
+                                      loc.RelaPose(m2q(R_est[i]), t_m), 0.5,
+                                      inliers=float(inl[i])))
+    rot_err = loc.quat_angle_error(m2q(np.stack(R_gt)), m2q(R_est)).ravel()
+    result = {"scene": {"pair_data": {"q0": {"test_abs_pose": loc.AbsPose(m2q(r_q), c_q),
+                                             "test_pairs": pairs}}, "no_pt_pairs": []}}
+    t0 = time.perf_counter()
+    best, rates = loc.eval_pipeline_with_ransac(
+        result, ransac_thres=[10.0], ransac_iter=2, ransac_miu=1.414, pair_type="relapose",
+        err_thres=[(0.25, 2), (0.5, 5)])
+    direct, passed = loc.eval_pipeline_without_ransac(result, err_thres=((0.25, 2), (0.5, 5)))
+    ms_host = (time.perf_counter() - t0) * 1e3
+    print(f"visloc: {k} pairs solved on the card in {ms_solve:.2f} ms (5pt RANSAC, inliers "
+          f"{inl.tolist()} of {[int(v.sum()) for v in valid]}, relative rotation errors "
+          f"{np.round(rot_err, 4).tolist()} deg); host pipelines {ms_host:.2f} ms: with "
+          f"RANSAC position {best[0]:.4f}, rotation {best[1]:.4f} deg, pass rates "
+          f"{[float(r) for r in rates]}; "
+          f"without RANSAC position {direct[2]:.4f}, rotation {direct[4]:.4f} deg, pass rates "
+          f"{passed.tolist()} on {card}", flush=True)
+    if not (best[0] < 0.5 and direct[2] < 0.5):
+        fail(f"visloc: position errors {best[0]} (RANSAC), {direct[2]} (direct), bar 0.5")
+
+
+def figure_dump(dev, phase9_median: float) -> None:
+    """Phase 17 (d): validate_far with the network guard's float32 weights
+    and a ``fig_dir``. Without matplotlib it must raise ImportError naming
+    it, and the pass without figures must give phase 9's 'rot median err'
+    (to 0.01 deg); with matplotlib, two PNGs."""
+    import tempfile
+
+    import torch
+
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset
+    from far_tpu_torch.tools.guard import load_guard
+    from far_tpu_torch.train.validation import validate_far
+
+    try:
+        import matplotlib  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    model, meta = load_guard(dtype="float32", device=dev)
+    ds = SyntheticPairDataset(n=16, hw=model.config.image_size, seed=meta["eval_seed"],
+                              n_scenes=16, max_angle_deg=12.0)
+    run = lambda fig_dir: validate_far(model, ds, 8, fig_dir=fig_dir,
+                                       generator=torch.Generator(device=dev).manual_seed(7))
+    with tempfile.TemporaryDirectory() as tmp:
+        if have:
+            table = run(tmp)
+            figs = sorted(p.name for p in Path(tmp).iterdir())
+            if figs != ["val_step0000000_pair0.png", "val_step0000000_pair1.png"]:
+                fail(f"figure dump: wrote {figs}")
+            what = f"matplotlib present: wrote {figs}"
+        else:
+            try:
+                run(tmp)
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    fail(f"figure dump: ImportError not naming matplotlib: {e}")
+                what = f"no matplotlib: ImportError '{e}'"
+            else:
+                fail("figure dump: no matplotlib, and validate_far(fig_dir=...) did not raise")
+            table = run(None)
+    med = table["rot median err"]
+    print(f"figure dump: {what}; rot median err {med} against phase 9's {phase9_median} "
+          f"(tol 0.01)", flush=True)
+    if not abs(med - phase9_median) <= 0.01:
+        fail(f"figure dump: rot median err {med}, phase 9's {phase9_median}")
+
+
+def _variant_close(name: str, got, ref, tol_rel: float = 1e-4) -> float:
+    """The card's error relative to max|ref|, held to ``tol_rel``."""
+    rel = max_err(got.cpu(), ref) / max(float(ref.abs().max()), 1e-30)
+    if not rel <= tol_rel:
+        fail(f"6DReg variant {name}: card vs CPU {rel:.3e} max|ref| > {tol_rel}")
+    return rel
+
+
+def sixdreg_variants(dev, card: str) -> None:
+    """Phase 17 (e): each aggregator on the regressor's encoder maps (B=2,
+    32 channels at 92x68, SixDRegConfig()'s 368x272) and each head on the
+    aggregator's output, float32, init_weights(seed 1): card against CPU
+    within 1e-4 max|ref| (AngularBinsHead's R and t where the card's argmax
+    bins are the CPU's; elsewhere the two bins must be a near-tie), CUDA-
+    event ms each. Then mapfree_forward at B=4 in bf16 with normalise_dot,
+    cv_half_channels and position_encoder_im1 (launches 16/1/1/0)."""
+    import torch
+
+    from far_tpu_torch.models import sixdreg as S
+    from far_tpu_torch.pipeline import init_model, init_sixdreg, mapfree_forward
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig
+    from far_tpu_torch.utils.convert_weights import init_weights
+
+    cfg = S.SixDRegConfig(dtype="float32")
+    g = torch.Generator().manual_seed(17)
+    vols = [torch.randn(2, cfg.encoder_out_layers, REG_HW[0] // 4, REG_HW[1] // 4, generator=g)
+            for _ in range(2)]
+    flags = S.SixDRegConfig(dtype="float32", normalise_dot=True, cv_half_channels=True,
+                            position_encoder_im1=True)
+    aggs = {"CorrelationVolumeWarping": S.CorrelationVolumeWarping(cfg),
+            "CorrelationVolumeWarping (normalise_dot, cv_half_channels, "
+            "position_encoder_im1)": S.CorrelationVolumeWarping(flags),
+            "CorrelationVolumeWarpingQKV": S.CorrelationVolumeWarpingQKV(cfg),
+            "CorrelationVolumeWarpingQKV (residual)": S.CorrelationVolumeWarpingQKV(cfg, True),
+            "ConcatAggregator": S.ConcatAggregator(cfg)}
+    report = {}
+    gvol = None
+    with torch.inference_mode():
+        for name, mod in aggs.items():
+            init_weights(mod, 1)
+            ref = mod(*vols)
+            m = mod.to(dev)
+            dv = [v.to(dev) for v in vols]
+            err = _variant_close(name, m(*dv), ref)
+            report[name] = (err, cuda_ms(lambda: m(*dv), 5))
+            if name == "CorrelationVolumeWarping":
+                gvol = ref
+        cin = gvol.shape[1]
+        heads = {"DeepResBlockHead (full_forward_pass)": S.DeepResBlockHead(cin, True),
+                 "ProcrustesHead": S.ProcrustesHead(cin),
+                 "AngularBinsHead": S.AngularBinsHead(cin),
+                 "QuaternionHead": S.QuaternionHead(cin)}
+        for name, mod in heads.items():
+            init_weights(mod, 1).eval()
+            ref = mod(gvol)
+            m = mod.to(dev)
+            x = gvol.to(dev)
+            out = m(x)
+            if name == "AngularBinsHead":
+                logits = ref[2]
+                errs = [_variant_close(f"{name} logits", out[2], logits)]
+                same = out[2].cpu().argmax(-1) == logits.argmax(-1)
+                gap = (logits.gather(-1, out[2].cpu().argmax(-1, keepdim=True))[:, 0]
+                       - logits.amax(-1)).abs()
+                tie = 2e-4 * float(logits.abs().max())
+                if not bool((same | (gap <= tie)).all()):
+                    fail(f"{name}: argmax bins differ beyond a near-tie ({gap.tolist()})")
+                if bool(same.all()):
+                    errs += [_variant_close(name, o, r) for o, r in zip(out[:2], ref[:2])]
+            else:
+                errs = [_variant_close(name, o, r) for o, r in zip(out, ref)]
+            report[name] = (max(errs), cuda_ms(lambda: m(x), 5))
+    print("6DReg variants, float32, B=2, card vs CPU error / max|ref| and card ms: " + "; ".join(
+        f"{k} {e:.3e} / {ms:.3f} ms" for k, (e, ms) in report.items()) + f" on {card}",
+        flush=True)
+
+    totals = {k: 0 for k in counters()}
+    reg_cfg = S.SixDRegConfig(dtype="bfloat16", normalise_dot=True, cv_half_channels=True,
+                              position_encoder_im1=True)
+    batch = synthetic_batch(B_REQUEST, 720, 544, dev)
+    matcher = init_model(FARConfig(image_size=(720, 544), regress_rt=False, dtype="bfloat16"),
+                         seed=0, device=dev)
+    reg = init_sixdreg(reg_cfg, seed=1, device=dev)
+    gi = torch.Generator().manual_seed(12)
+    im0, im1 = (torch.rand(B_REQUEST, *reg.config.image_hw, 3, generator=gi).to(dev)
+                for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def check(out):
+        R, t, gate, est = out
+        for v in (R, t, gate, est.rt34):
+            if not bool(v.isfinite().all()):
+                fail("mapfree_forward with the aggregator flags: non-finite output")
+        if orth_err(R) > 1e-3:
+            fail(f"mapfree_forward with the aggregator flags: R orthonormal to "
+                 f"{orth_err(R):.2e}")
+
+    timed_requests("mapfree_forward 368x272 (normalise_dot, cv_half_channels, "
+                   "position_encoder_im1; matcher 720x544)", "bfloat16",
+                   lambda: mapfree_forward(matcher, reg, batch, im0, im1, generator=gen),
+                   MAPFREE, check, card, totals)
+    del matcher, reg
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2722,7 +3107,7 @@ def main() -> int:
     train_functions(dev)
     train_small_agreement(dev)
     train_launches = train_full(dev, card)
-    validation_pairs_s = validation(dev, card, guard_medians)
+    validation_pairs_s, validation_medians = validation(dev, card, guard_medians)
     sinkhorn_requests(dev, card)
     sinkhorn_train(dev, card)
     remat_steps(dev, card)
@@ -2745,6 +3130,13 @@ def main() -> int:
     simple_transformer_request(dev, card)
     matcher_clis(dev, card, cli_launches)
     print(f"options and matchers (phase 16): {time.perf_counter() - t_opt:.1f} s", flush=True)
+    t_17 = time.perf_counter()
+    profiled_requests(dev, card)
+    visloc(dev, card)
+    figure_dump(dev, validation_medians["float32"])
+    sixdreg_variants(dev, card)
+    print(f"profiler, trace, visloc, figures, 6DReg variants (phase 17): "
+          f"{time.perf_counter() - t_17:.1f} s", flush=True)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",

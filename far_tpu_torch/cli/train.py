@@ -269,7 +269,8 @@ def _train(args):
                     table = validate_far(
                         trainer.model, val_dataset, args.batch_size,
                         max_matches=cfg.match.max_matches,
-                        max_batches=args.val_max_batches, generator=gen)
+                        max_batches=args.val_max_batches, generator=gen,
+                        fig_dir=f"{args.log_dir}/figures", step=step)
                 finally:
                     trainer.model.train()
                 logger.log(step, {f"val/{k}": float(v) for k, v in table.items()})

@@ -1,7 +1,6 @@
 """Essential-matrix algebra and epipolar residuals.
 
-Counterpart of the parts of ``far_tpu/geometry/epipolar.py`` that RANSAC
-uses. The residuals are written as broadcast arithmetic, so (B, H, N)
+Counterpart of ``far_tpu/geometry/epipolar.py``. The residuals are written as broadcast arithmetic, so (B, H, N)
 hypothesis x point grids never build (B, H, N, 3) intermediates.
 """
 
@@ -20,9 +19,26 @@ def cross_product_matrix(v: torch.Tensor) -> torch.Tensor:
     return m.reshape(*v.shape[:-1], 3, 3)
 
 
+def essential_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """E = [t]_x R for the relative motion x2 ~ R x1 + t."""
+    return cross_product_matrix(t) @ R
+
+
 def essential_from_pose34(T: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) relative pose -> E = [t]_x R."""
-    return cross_product_matrix(T[..., :3, 3]) @ T[..., :3, :3]
+    return essential_from_Rt(T[..., :3, :3], T[..., :3, 3])
+
+
+def fundamental_from_essential(E: torch.Tensor, K1: torch.Tensor,
+                               K2: torch.Tensor) -> torch.Tensor:
+    """F = K2^-T E K1^-1 (Hartley/Zisserman 9.12)."""
+    return torch.linalg.inv(K2).transpose(-1, -2) @ E @ torch.linalg.inv(K1)
+
+
+def essential_from_fundamental(F: torch.Tensor, K1: torch.Tensor,
+                               K2: torch.Tensor) -> torch.Tensor:
+    """E = K2^T F K1."""
+    return K2.transpose(-1, -2) @ F @ K1
 
 
 def _epipolar_terms(pts1, pts2, Fm):

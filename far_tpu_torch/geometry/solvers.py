@@ -206,3 +206,43 @@ def recover_pose_from_essential(E, x1, x2, weights=None,
         return torch.gather(a, best.ndim, idx).squeeze(best.ndim)
 
     return take(Rs), take(ts), take(counts), take(good)
+
+
+def triangulate_points(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor,
+                       x2: torch.Tensor) -> torch.Tensor:
+    """Batched two-view DLT triangulation: (..., 3, 4) projections and
+    (..., N, 2) points in their frames -> (..., N, 3), the eigenvector of
+    A^T A's smallest eigenvalue (``torch.linalg.eigh``, as the JAX
+    package solves it)."""
+    def rows(P, x):
+        P = P[..., None, :, :]
+        return (x[..., 0:1] * P[..., 2, :] - P[..., 0, :],
+                x[..., 1:2] * P[..., 2, :] - P[..., 1, :])
+
+    A = torch.stack([*rows(P1, x1), *rows(P2, x2)], dim=-2)   # (..., N, 4, 4)
+    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    Xh = V[..., :, 0]
+    w = Xh[..., 3:4]
+    return Xh[..., :3] / (w + torch.where(w < 0, -_EPS, _EPS))
+
+
+def procrustes(A: torch.Tensor, B: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Kabsch: the rigid (R (..., 3, 3), t (..., 3)) with
+    b ~= R a + t minimising sum_i w_i ||R a_i + t - b_i||^2 over (..., N, 3)
+    point sets (crockwell/far: mapfree_6dreg/lib/utils/solver.py:4-37).
+    ``torch.linalg.svd`` of the weighted covariance, its last singular
+    direction flipped where det(V U^T) < 0, so R is never a reflection."""
+    w = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device) if weights is None \
+        else weights
+    wsum = w.sum(-1, keepdim=True) + _EPS
+    ca = (A * w[..., None]).sum(-2) / wsum
+    cb = (B * w[..., None]).sum(-2) / wsum
+    H = torch.einsum("...ni,...nj->...ij", (A - ca[..., None, :]) * w[..., None],
+                     B - cb[..., None, :])
+    U, _, Vt = torch.linalg.svd(H)
+    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    D = torch.ones(H.shape[:-2] + (3,), dtype=H.dtype, device=H.device)
+    D[..., -1] = torch.linalg.det(V @ Ut)
+    R = V @ (D[..., :, None] * Ut)
+    return R, cb - torch.einsum("...ij,...j->...i", R, ca)

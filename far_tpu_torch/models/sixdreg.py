@@ -3,8 +3,10 @@ head, vanilla transformer and MoE fusion with the solver pose (NCHW inside).
 
 Counterpart of ``far_tpu/models/sixdreg.py`` (``SixDRegConfig``,
 ``PreActBlock``, ``PreActBottleneck``, ``ResUNet``,
-``CorrelationVolumeWarping``, ``DeepResBlockHead`` with
-``full_forward_pass=False``, ``TorchTransformerEncoderLayer``,
+``CorrelationVolumeWarping`` under every aggregator flag,
+``CorrelationVolumeWarpingQKV``, ``ConcatAggregator``,
+``DeepResBlockHead``, ``ProcrustesHead``, ``AngularBinsHead``,
+``QuaternionHead``, ``TorchTransformerEncoderLayer``,
 ``MapfreeRegression``) with the reference's module names
 (mapfree_6dreg ``lib/models/regression``): ``encoder`` (``firstconv``,
 ``encoder1.0.shortcut.0``, ``upconv4.conv1.conv``, ``iconv4.normalize``,
@@ -31,7 +33,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from far_tpu_torch.geometry.rotations import matrix_to_rotation_6d, rotation_6d_to_matrix
+from far_tpu_torch.geometry.rotations import (
+    matrix_to_rotation_6d,
+    quaternion_to_matrix,
+    rotation_6d_to_matrix,
+)
+from far_tpu_torch.geometry.solvers import procrustes
 from far_tpu_torch.models.attention import full_attention
 from far_tpu_torch.models.backbone import _up2, bn, conv
 from far_tpu_torch.models.loftr import compute_dtype
@@ -186,56 +193,230 @@ class ResUNet(nn.Module):
         return self.outconv(self.iconv3(y))
 
 
-# the FAR configuration's aggregator (reference config/default.py); the
-# JAX package's other values are ROADMAP work
-_FAR_AGGREGATOR = dict(position_encoder=True, position_encoder_im1=False,
-                       max_score_channel=True, normalise_dot=False,
-                       cv_half_channels=False)
+def _grid(H: int, W: int, device) -> torch.Tensor:
+    """(H W, 2) positions on a [-1, 1] grid, ``ij`` order."""
+    uu, vv = torch.meshgrid(torch.linspace(-1.0, 1.0, H, device=device),
+                            torch.linspace(-1.0, 1.0, W, device=device), indexing="ij")
+    return torch.stack([uu, vv], -1).reshape(H * W, 2)
+
+
+def _warp_parts(cfg: SixDRegConfig, f0, f1, sim, H: int, W: int) -> list:
+    """[f0, the warped f1, the expected match position, the max score]
+    from the (B, N, M) similarities, as the flags ask."""
+    cvol = torch.softmax(sim, dim=2)                    # over image 1's positions
+    parts = [f0, cvol @ f1]
+    if cfg.position_encoder:
+        grid = _grid(H, W, f0.device)
+        parts.append(cvol @ grid)
+    if cfg.max_score_channel:
+        parts.append(cvol.amax(dim=2, keepdim=True))
+    return parts
+
+
+def _to_map(parts: list, like: torch.Tensor) -> torch.Tensor:
+    B, _, H, W = like.shape
+    return torch.cat(parts, dim=-1).to(like.dtype).transpose(1, 2).reshape(B, -1, H, W)
 
 
 class CorrelationVolumeWarping(nn.Module):
     """Global correlation volume softmax(f0 f1^T) over image 1's positions,
     the warped f1, the expected match position ([-1, 1] grid, ``ij``) and
-    the max score, concatenated to f0: 2 D + 3 channels (reference
-    aggregator.py:6-116, the FAR configuration). No parameters; float32
-    products."""
+    the max score, concatenated to f0 (reference aggregator.py:6-116).
+    Flags: ``normalise_dot`` L2-normalises f0 and f1 first (both then go
+    into the output); ``cv_half_channels`` correlates only their first D/2
+    channels; ``position_encoder_im1`` appends the grid itself. No
+    parameters; float32 products."""
 
     def __init__(self, cfg: SixDRegConfig):
         super().__init__()
-        other = {k: getattr(cfg, k) for k, v in _FAR_AGGREGATOR.items()
-                 if getattr(cfg, k) != v}
-        if other:
-            raise ValueError(f"the port's aggregator is the FAR configuration's; got {other}")
+        self.cfg = cfg
+
+    @staticmethod
+    def channels(cfg: SixDRegConfig) -> int:
+        """Output channels for the config's encoder width and flags."""
+        pos = 2 * cfg.position_encoder
+        return (2 * cfg.encoder_out_layers + pos + pos * cfg.position_encoder_im1
+                + cfg.max_score_channel)
 
     def forward(self, vol0: torch.Tensor, vol1: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         B, D, H, W = vol0.shape
         f0 = vol0.flatten(2).transpose(1, 2).float()       # (B, N, D)
         f1 = vol1.flatten(2).transpose(1, 2).float()
-        cvol = torch.softmax(f0 @ f1.transpose(1, 2), dim=2)   # (B, N, M)
-        uu, vv = torch.meshgrid(torch.linspace(-1.0, 1.0, H, device=vol0.device),
-                                torch.linspace(-1.0, 1.0, W, device=vol0.device),
-                                indexing="ij")
-        grid = torch.stack([uu, vv], -1).reshape(H * W, 2)
-        out = torch.cat([f0, cvol @ f1, cvol @ grid, cvol.amax(dim=2, keepdim=True)],
-                        dim=-1).to(vol0.dtype)
-        return out.transpose(1, 2).reshape(B, -1, H, W)
+        if cfg.normalise_dot:
+            f0 = f0 / (torch.linalg.norm(f0, dim=-1, keepdim=True) + 1e-8)
+            f1 = f1 / (torch.linalg.norm(f1, dim=-1, keepdim=True) + 1e-8)
+        d = D // 2 if cfg.cv_half_channels else D
+        parts = _warp_parts(cfg, f0, f1, f0[..., :d] @ f1[..., :d].transpose(1, 2), H, W)
+        if cfg.position_encoder and cfg.position_encoder_im1:
+            parts.insert(3, _grid(H, W, vol0.device).expand(B, -1, -1))
+        return _to_map(parts, vol0)
+
+
+class CorrelationVolumeWarpingQKV(nn.Module):
+    """Learned-projection variant (reference aggregator.py:119-199): the
+    similarity of q = q_proj(f0) and k = k_proj(f1) (plus f0, f1 with
+    ``residual``) scaled by 1/sqrt(D), V = f1; the output channels as
+    ``CorrelationVolumeWarping``'s without the image-1 grid, which this
+    variant never appends. The projections run in the volume's dtype."""
+
+    def __init__(self, cfg: SixDRegConfig, residual: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.residual = residual
+        D = cfg.encoder_out_layers
+        self.q_proj = nn.Linear(D, D)
+        self.k_proj = nn.Linear(D, D)
+
+    def forward(self, vol0: torch.Tensor, vol1: torch.Tensor) -> torch.Tensor:
+        B, D, H, W = vol0.shape
+        f0 = vol0.flatten(2).transpose(1, 2)
+        f1 = vol1.flatten(2).transpose(1, 2)
+        q, k = lin(self.q_proj, f0), lin(self.k_proj, f1)
+        if self.residual:
+            q, k = q + f0, k + f1
+        sim = (q.float() @ k.float().transpose(1, 2)) / D ** 0.5
+        return _to_map(_warp_parts(self.cfg, f0.float(), f1.float(), sim, H, W), vol0)
+
+
+class ConcatAggregator(nn.Module):
+    """No-warping ablation: the two volumes concatenated over channels
+    (reference aggregator 'Concat' option, 3d3d_no_warping.yaml)."""
+
+    def __init__(self, cfg: SixDRegConfig):
+        super().__init__()
+
+    def forward(self, vol0: torch.Tensor, vol1: torch.Tensor) -> torch.Tensor:
+        return torch.cat([vol0, vol1], dim=1)
 
 
 HEAD_WIDTH = 256  # channels out of the head's resblock3
 
 
+def _trunk(module: nn.Module, cin: int, n: int) -> None:
+    """``resblock1``-``resblock{n}``: stride-2 PreActBlocks 64-128-256-512."""
+    for i, planes in enumerate((64, 128, HEAD_WIDTH, 512)[:n]):
+        setattr(module, f"resblock{i + 1}", PreActBlock(cin, planes, 2))
+        cin = planes
+
+
+def _pooled(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The four-block trunk, then the spatial mean (AVG_POOL): (B, 512)."""
+    for i in range(1, 5):
+        x = getattr(module, f"resblock{i}")(x)
+    return x.mean(dim=(2, 3))
+
+
 class DeepResBlockHead(nn.Module):
-    """resblock1-3 of the reference DeepResBlock (head.py:27-55) with
-    ``full_forward_pass=False``: three stride-2 PreActBlocks 64-128-256."""
+    """The reference DeepResBlock (head.py:27-55, DirectDeepResBlockMLP
+    248-281): resblock1-3, stride-2 PreActBlocks 64-128-256, whose features
+    ``forward`` returns; with ``full_forward_pass`` also resblock4 (512),
+    the spatial mean and ``mlp`` (256, 128, 9), and ``forward`` returns
+    (pose (B, 9) float32 as (t, 6D rotation), features)."""
 
-    def __init__(self, cin: int):
+    def __init__(self, cin: int, full_forward_pass: bool = False):
         super().__init__()
-        self.resblock1 = PreActBlock(cin, 64, 2)
-        self.resblock2 = PreActBlock(64, 128, 2)
-        self.resblock3 = PreActBlock(128, HEAD_WIDTH, 2)
+        self.full_forward_pass = full_forward_pass
+        _trunk(self, cin, 4 if full_forward_pass else 3)
+        if full_forward_pass:
+            self.mlp = _seq(512, 256, 128, 9)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.resblock3(self.resblock2(self.resblock1(x)))
+    def forward(self, x: torch.Tensor):
+        x3 = self.resblock3(self.resblock2(self.resblock1(x)))
+        if not self.full_forward_pass:
+            return x3
+        out = run_seq(self.mlp, self.resblock4(x3).mean(dim=(2, 3))).float()
+        return torch.cat([out[..., 6:], out[..., :6]], -1), x3   # reference order (6D, t)
+
+
+class ProcrustesHead(nn.Module):
+    """3D-3D correspondence head (reference head.py ProcrustesDeepResBlock):
+    the four-block trunk and its mean, ``mlp`` (256, 3 num_pts) predicting
+    num_pts anchors, half for each camera (with 3, the basis e1-e3 for
+    camera 0), the basis added where ``add_basis`` and num_pts is 3 or 6;
+    (R, t) from the weighted Procrustes solve, differentiable through the
+    SVD."""
+
+    def __init__(self, cin: int, num_pts: int = 6, add_basis: bool = True):
+        super().__init__()
+        self.num_pts = num_pts
+        self.add_basis = add_basis
+        _trunk(self, cin, 4)
+        self.mlp = _seq(512, 256, 3 * num_pts)
+
+    def forward(self, x: torch.Tensor):
+        xyz = run_seq(self.mlp, _pooled(self, x)).float().reshape(x.shape[0], -1, 3)
+        basis = torch.eye(3, device=x.device).expand(x.shape[0], 3, 3)
+        if self.num_pts == 3:
+            cor0, cor1 = basis, xyz
+        else:
+            half = self.num_pts // 2
+            cor0, cor1 = xyz[:, :half], xyz[:, half:]
+        if self.add_basis and self.num_pts in (3, 6):
+            if self.num_pts == 6:
+                cor0 = cor0 + basis
+            cor1 = cor1 + basis
+        return procrustes(cor0, cor1)
+
+
+def _euler_zyx(ax: torch.Tensor, ay: torch.Tensor, az: torch.Tensor) -> torch.Tensor:
+    """Rz(az) Ry(ay) Rx(ax) from angles in degrees, (B, 3, 3)."""
+    a, b, c = (torch.deg2rad(v) for v in (ax, ay, az))
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    Rx = torch.stack([one, zero, zero, zero, a.cos(), -a.sin(), zero, a.sin(), a.cos()], -1)
+    Ry = torch.stack([b.cos(), zero, b.sin(), zero, one, zero, -b.sin(), zero, b.cos()], -1)
+    Rz = torch.stack([c.cos(), -c.sin(), zero, c.sin(), c.cos(), zero, zero, zero, one], -1)
+    return Rz.reshape(-1, 3, 3) @ Ry.reshape(-1, 3, 3) @ Rx.reshape(-1, 3, 3)
+
+
+class AngularBinsHead(nn.Module):
+    """Classification head (reference head.py:284-338): the four-block trunk
+    and its mean, ``mlp`` to 900 rotation bins (x 360, y 180, z 360, one
+    degree each) and, with ``separate_scale``, 360 azimuth and 180
+    elevation bins and a scale (541), else a raw t (3). R = Rz Ry Rx of
+    the argmax bins; t = |scale| times the spherical direction. Returns
+    (R, t, the rotation logits (B, 900))."""
+
+    def __init__(self, cin: int, separate_scale: bool = True):
+        super().__init__()
+        self.separate_scale = separate_scale
+        _trunk(self, cin, 4)
+        self.mlp = nn.Linear(512, 900 + (541 if separate_scale else 3))
+
+    def forward(self, x: torch.Tensor):
+        out = lin(self.mlp, _pooled(self, x)).float()
+        bins = lambda lo, hi: out[:, lo:hi].argmax(-1).float()
+        R = _euler_zyx(bins(0, 360) - 180.0, bins(360, 540) - 90.0, bins(540, 900) - 180.0)
+        if self.separate_scale:
+            phi, theta = torch.deg2rad(bins(900, 1260)), torch.deg2rad(bins(1260, 1440))
+            t = out[:, -1].abs()[:, None] * torch.stack(
+                [phi.cos() * theta.sin(), phi.sin() * theta.sin(), theta.cos()], -1)
+        else:
+            t = out[:, 900:903]
+        return R, t, out[:, :900]
+
+
+class QuaternionHead(nn.Module):
+    """Quaternion head (reference head.py QuatDeepResBlock): the four-block
+    trunk and its mean, ``mlp`` to a wxyz quaternion and, with
+    ``separate_scale``, a direction and a scale (8), else a raw t (7).
+    Returns (R, t, the unit quaternion)."""
+
+    def __init__(self, cin: int, separate_scale: bool = True):
+        super().__init__()
+        self.separate_scale = separate_scale
+        _trunk(self, cin, 4)
+        self.mlp = nn.Linear(512, 4 + (4 if separate_scale else 3))
+
+    def forward(self, x: torch.Tensor):
+        out = lin(self.mlp, _pooled(self, x)).float()
+        q = out[:, :4] / (torch.linalg.norm(out[:, :4], dim=-1, keepdim=True) + 1e-8)
+        if self.separate_scale:
+            d = out[:, 4:7]
+            t = out[:, 7:8].abs() * d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-8)
+        else:
+            t = out[:, 4:7]
+        return quaternion_to_matrix(q), t, q
 
 
 class _SelfAttention(nn.Module):
@@ -314,19 +495,17 @@ class MapfreeRegression(nn.Module):
     def __init__(self, cfg: Optional[SixDRegConfig] = None):
         super().__init__()
         cfg = cfg or SixDRegConfig()
-        if cfg.d_im != HEAD_WIDTH:
-            # the JAX package's layers take their width from the head's
-            # output whatever d_im says; here d_im sizes them
-            raise ValueError(f"d_im={cfg.d_im}: the head emits {HEAD_WIDTH} channels")
         self.config = cfg
         self.dtype = compute_dtype(cfg)
         self.encoder = ResUNet(cfg)
         self.aggregator = CorrelationVolumeWarping(cfg)
-        self.head = DeepResBlockHead(2 * cfg.encoder_out_layers + 3)
+        self.head = DeepResBlockHead(CorrelationVolumeWarping.channels(cfg))
+        # the transformer and the MLPs take the head's width, whatever d_im
+        # says, as the JAX package's layers do
         if cfg.use_vanilla_transformer:
-            self.transformer = TransformerEncoder(cfg.d_im, cfg.transformer_heads,
+            self.transformer = TransformerEncoder(HEAD_WIDTH, cfg.transformer_heads,
                                                   cfg.transformer_layers)
-        feat = cfg.d_im * head_tokens(cfg.image_hw)
+        feat = HEAD_WIDTH * head_tokens(cfg.image_hw)
         self.pose_regressor = _seq(feat, cfg.hidden, cfg.hidden, 9)
         if cfg.use_solver_preds:
             self.moe_predictor = _seq(feat + 9 + 9 + 3, cfg.hidden, cfg.hidden, 2)

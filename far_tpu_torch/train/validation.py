@@ -5,14 +5,14 @@ a validation set in sequential shards, the per-pair pose errors and the
 per-match symmetric epipolar distances of the K-normalised keypoints
 against the ground truth's essential matrix, the gather across processes
 (the identity in one) and the Matterport table. Its ``rot mean err`` is
-the signal a trainer keeps its best checkpoint by. The JAX package can
-also dump match figures of the first batch; that needs matplotlib, which
-the port does not import, so it is left out (ROADMAP, with
-``eval/visualise.py``).
+the signal a trainer keeps its best checkpoint by. With ``fig_dir`` it
+also saves match figures of the first batch (``utils/plotting.py``),
+which need matplotlib: without it the pass raises ImportError.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +50,9 @@ def validate_far(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[Sequence[Sequence[torch.Tensor]]] = None,
     prior_pcl: Optional[torch.Tensor] = None,
+    fig_dir: Optional[str] = None,
+    n_figs: int = 2,
+    step: int = 0,
 ) -> Dict:
     """One validation pass of ``model`` (``build_inference_fn``, on the
     model's device) over ``dataset`` -> the Matterport table.
@@ -64,15 +67,37 @@ def validate_far(
         uniforms: optional sampler draws in place of the generator's: for
             each batch the per-round list that ``far_forward`` takes.
         prior_pcl: optional probe cloud of the prior rounds.
+        fig_dir: when set, process 0 saves the match figures of the first
+            batch's first ``n_figs`` pairs there, as
+            ``val_step{step:07d}_pair{i}.png`` at dpi 75.
     Returns:
         the table of ``aggregate_metrics``, with 'rot mean err'.
     """
     max_matches = max_matches or model.config.match.max_matches
     acc = {k: [] for k in _KEYS}
-    for batch, meta, out in far_batches(model, dataset, batch_size, max_batches, generator,
-                                        uniforms, prior_pcl):
-        accumulate_far(acc, out, batch, meta, max_matches)
+    batches = far_batches(model, dataset, batch_size, max_batches, generator, uniforms,
+                          prior_pcl)
+    for bi, (batch, meta, out) in enumerate(batches):
+        epi = accumulate_far(acc, out, batch, meta, max_matches)
+        if bi == 0 and fig_dir is not None and process_index() == 0:
+            save_match_figures(out, batch, epi, fig_dir, step, n_figs)
     return aggregate_metrics(gather_pair_metrics(acc))
+
+
+def save_match_figures(out: FarOutput, batch: PairBatch, epi: np.ndarray, fig_dir: str,
+                       step: int, n_figs: int) -> None:
+    """The first ``n_figs`` pairs' match figures, coloured by their (B, K)
+    epipolar distances, saved under ``fig_dir``; every figure is closed."""
+    from far_tpu_torch.utils.plotting import make_matching_figures, pyplot
+
+    figs = make_matching_figures(out, batch, "validation", epi)["validation"]
+    d = Path(fig_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    plt = pyplot()
+    for i, fig in enumerate(figs):
+        if i < n_figs:
+            fig.savefig(d / f"val_step{step:07d}_pair{i}.png", dpi=75)
+        plt.close(fig)
 
 
 def far_batches(model: FARLoFTR, dataset, batch_size: int, max_batches: int = 0,
@@ -99,11 +124,12 @@ def far_batches(model: FARLoFTR, dataset, batch_size: int, max_batches: int = 0,
         yield batch, meta, out
 
 
-def accumulate_far(acc: Dict[str, list], out, batch, meta, max_matches: int) -> None:
+def accumulate_far(acc: Dict[str, list], out, batch, meta, max_matches: int) -> np.ndarray:
     """Append each pair of a ``far_forward`` output to ``acc``: its
     identifier (``pair_names`` joined with '#'), the fused pose's errors,
     the solver's success, and the symmetric epipolar distances of its valid
-    matches against the ground truth, NaN-padded to ``max_matches``."""
+    matches against the ground truth, NaN-padded to ``max_matches``.
+    Returns every match slot's distance, (B, K)."""
     m = out.matches
     with torch.inference_mode():
         E_gt = essential_from_pose34(batch.T_0to1[:, :3, :4])
@@ -125,6 +151,7 @@ def accumulate_far(acc: Dict[str, list], out, batch, meta, max_matches: int) -> 
         ev = epi[b][valid[b]][:max_matches]
         e[: len(ev)] = ev
         acc["epi_errs"].append(e)
+    return epi
 
 
 def gather_pair_metrics(acc: Dict[str, list]) -> Dict[str, list]:

@@ -329,6 +329,8 @@ def build_vitess_mapping(cfg) -> Tuple[list, list]:
         bn("pool_transformer_output.1", ("pool_bn1",))
         bn("pool_transformer_output.4", ("pool_bn2",))
 
+    from far_tpu_torch.models.sixdreg import HEAD_WIDTH
+
     def head_entries(src, dst_fmt, n_extra):
         first = _linear if cfg.fusion_transformer else \
             _perm_linear(cfg.pool_size, n_extra=n_extra, n_blocks=2)
@@ -345,6 +347,21 @@ def build_vitess_mapping(cfg) -> Tuple[list, list]:
     return P, S
 
 
+def _preact_entries(src: str, dst: Tuple[str, ...], has_shortcut: bool,
+                    n_convs: int) -> Tuple[list, list]:
+    """(param entries, batch_stats entries) of one pre-activation block."""
+    P: List = []
+    S: List = []
+    for c in range(1, n_convs + 1):
+        p, st = _bn_entries(f"{src}.bn{c}", dst + (f"bn{c}",))
+        P += p
+        S += st
+        P.append((f"{src}.conv{c}.weight", dst + (f"conv{c}", "kernel"), _conv))
+    if has_shortcut:
+        P.append((f"{src}.shortcut.0.weight", dst + ("shortcut", "kernel"), _conv))
+    return P, S
+
+
 def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
     """(param entries, batch_stats entries) for MapfreeRegression (the
     reference's keys that the FAR configuration runs)."""
@@ -357,11 +374,9 @@ def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
         S.extend(s)
 
     def preact(src, dst, has_shortcut, n_convs):
-        for c in range(1, n_convs + 1):
-            bn(f"{src}.bn{c}", dst + (f"bn{c}",))
-            P.append((f"{src}.conv{c}.weight", dst + (f"conv{c}", "kernel"), _conv))
-        if has_shortcut:
-            P.append((f"{src}.shortcut.0.weight", dst + ("shortcut", "kernel"), _conv))
+        p, s = _preact_entries(src, dst, has_shortcut, n_convs)
+        P.extend(p)
+        S.extend(s)
 
     exp = 4 if cfg.encoder_bottleneck else 1
     n_convs = 3 if cfg.encoder_bottleneck else 2
@@ -391,10 +406,12 @@ def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
         for i in range(cfg.transformer_layers):
             P += _torch_encoder_layer_entries(f"transformer.layers.{i}", (f"transformer_{i}",))
 
+    from far_tpu_torch.models.sixdreg import HEAD_WIDTH
+
     def head_entries(src, dst_fmt, n_extra):
         out = []
         for i, j in ((0, 0), (2, 1), (4, 2)):
-            tf = _perm_linear(cfg.d_im, n_extra=n_extra) if i == 0 else _linear
+            tf = _perm_linear(HEAD_WIDTH, n_extra=n_extra) if i == 0 else _linear
             out += [(f"{src}.{i}.weight", (dst_fmt.format(j), "kernel"), tf),
                     (f"{src}.{i}.bias", (dst_fmt.format(j), "bias"), _ident)]
         return out
@@ -402,6 +419,35 @@ def build_sixdreg_mapping(cfg) -> Tuple[list, list]:
     P += head_entries("pose_regressor", "pose_regressor_{}", 0)
     if cfg.use_solver_preds:  # [features, pred 9D, solver 9D + 3 counts]
         P += head_entries("moe_predictor", "moe_{}", 21)
+    return P, S
+
+
+def build_sixdreg_part_mapping(module: nn.Module) -> Tuple[list, list]:
+    """(param entries, batch_stats entries), keyed from the module itself,
+    of a 6DReg module that MapfreeRegression does not hold: a
+    ``DeepResBlockHead`` (``resblock4`` and ``mlp.{0,2,4}`` -> ``mlp_{0,1,2}``
+    with ``full_forward_pass``), ``ProcrustesHead`` (``mlp.{0,2}``),
+    ``AngularBinsHead`` or ``QuaternionHead`` (one Linear ``mlp``), or
+    ``CorrelationVolumeWarpingQKV`` (``q_proj``, ``k_proj``)."""
+    from far_tpu_torch.models.sixdreg import CorrelationVolumeWarpingQKV
+
+    if isinstance(module, CorrelationVolumeWarpingQKV):
+        return _lin_entries("q_proj", ("q_proj",)) + _lin_entries("k_proj", ("k_proj",)), []
+    P: List = []
+    S: List = []
+    b = 1
+    while hasattr(module, f"resblock{b}"):
+        p, st = _preact_entries(f"resblock{b}", (f"resblock{b}",), True, 2)
+        P += p
+        S += st
+        b += 1
+    mlp = getattr(module, "mlp", None)
+    if isinstance(mlp, nn.Sequential):
+        linears = [i for i, m in enumerate(mlp) if isinstance(m, nn.Linear)]
+        for j, i in enumerate(linears):
+            P += _lin_entries(f"mlp.{i}", (f"mlp_{j}",))
+    elif mlp is not None:
+        P += _lin_entries("mlp", ("mlp",))
     return P, S
 
 
@@ -461,6 +507,15 @@ def _fold_bn_conv1d(eps: float = 1e-5):
     return weight, bias
 
 
+def _heads_contiguous(dim: int, heads: int) -> np.ndarray:
+    """magicleap's channel of each port channel: its ``MultiHeadedAttention``
+    views a projection as (B, dim // heads, heads, N), so channel
+    ``j * heads + h`` is position j of head h, which the port's ``_MHA``
+    holds as channel ``h * (dim // heads) + j``."""
+    d = dim // heads
+    return (np.arange(d)[None, :] * heads + np.arange(heads)[:, None]).reshape(-1)
+
+
 def build_superglue_mapping(cfg) -> list:
     """Entries (magicleap key or keys, port key, transform) for SuperGlue
     from magicleap's superglue_{indoor,outdoor}.pth
@@ -468,7 +523,10 @@ def build_superglue_mapping(cfg) -> list:
     mapping (``far_tpu/utils/convert_weights.py``) in the port's layout:
     each Conv1d + BatchNorm1d of the MLPs folded into one Linear, the
     shared ``final_proj`` filling both ``final_proj`` and
-    ``final_proj2``."""
+    ``final_proj2``, and the attention's q/k/v rows (weight and bias) and
+    merge columns regrouped from magicleap's interleaved heads into the
+    port's contiguous ones (``_heads_contiguous``; the JAX package's
+    mapping copies them as they are)."""
     fold_w, fold_b = _fold_bn_conv1d()
     P = []
 
@@ -478,9 +536,9 @@ def build_superglue_mapping(cfg) -> list:
         P.append(((f"{conv}.bias", f"{bn}.weight", f"{bn}.bias",
                    f"{bn}.running_mean", f"{bn}.running_var"), f"{dst}.bias", fold_b))
 
-    def plain(conv, dst):
-        P.append((f"{conv}.weight", f"{dst}.weight", _conv1d_linear))
-        P.append((f"{conv}.bias", f"{dst}.bias", _ident))
+    def plain(conv, dst, weight=_conv1d_linear, bias=_ident):
+        P.append((f"{conv}.weight", f"{dst}.weight", weight))
+        P.append((f"{conv}.bias", f"{dst}.bias", bias))
 
     # keypoint encoder MLP([3, 32, 64, 128, 256, D]): Conv1d at 3i and
     # BatchNorm1d at 3i+1 for the first four layers, a bare Conv1d at 12
@@ -488,12 +546,15 @@ def build_superglue_mapping(cfg) -> list:
         folded(f"kenc.encoder.{3 * i}", f"kenc.encoder.{3 * i + 1}", f"kenc_{i}")
     plain("kenc.encoder.12", "kenc_4")
     # GNN: gnn.layers.{2i} is self_i, gnn.layers.{2i+1} cross_i
+    heads = _heads_contiguous(cfg.desc_dim, cfg.num_heads)
     for i in range(2 * cfg.num_layers):
         src = f"gnn.layers.{i}"
         dst = f"self_{i // 2}" if i % 2 == 0 else f"cross_{i // 2}"
         for j, name in enumerate(("q", "k", "v")):
-            plain(f"{src}.attn.proj.{j}", f"{dst}.attn.{name}")
-        plain(f"{src}.attn.merge", f"{dst}.attn.merge")
+            plain(f"{src}.attn.proj.{j}", f"{dst}.attn.{name}",
+                  lambda w: _conv1d_linear(w)[heads], lambda b: np.asarray(b)[heads])
+        plain(f"{src}.attn.merge", f"{dst}.attn.merge",
+              lambda w: _conv1d_linear(w)[:, heads])
         # mlp = MLP([2D, 2D, D]): Conv1d at 0, BatchNorm1d at 1, Conv1d at 3
         folded(f"{src}.mlp.0", f"{src}.mlp.1", f"{dst}.fc1")
         plain(f"{src}.mlp.3", f"{dst}.fc2")
@@ -552,13 +613,16 @@ def convert_superglue_state_dict(sd: Dict[str, Any], cfg):
 def build_mapping(cfg) -> Tuple[list, list]:
     """The mapping of ``cfg``'s family: FARConfig, ViTEssConfig,
     SixDRegConfig, SimpleTransformerConfig, SuperPointConfig or
-    SuperGlueConfig."""
+    SuperGlueConfig; given a 6DReg head or aggregator module in its place,
+    that module's (``build_sixdreg_part_mapping``)."""
     from far_tpu_torch.models.simple_transformer import SimpleTransformerConfig
     from far_tpu_torch.models.sixdreg import SixDRegConfig
     from far_tpu_torch.models.superglue import SuperGlueConfig
     from far_tpu_torch.models.superpoint import SuperPointConfig
     from far_tpu_torch.models.vitess import ViTEssConfig
 
+    if isinstance(cfg, nn.Module):
+        return build_sixdreg_part_mapping(cfg)
     if isinstance(cfg, ViTEssConfig):
         return build_vitess_mapping(cfg)
     if isinstance(cfg, SixDRegConfig):
@@ -580,8 +644,9 @@ def _get_path(tree: Dict[str, Any], path: Tuple[str, ...]):
 
 def flax_to_state_dict(variables_np: Dict[str, Any], cfg) -> Dict[str, np.ndarray]:
     """The JAX package's variables of ``cfg``'s model (FARLoFTR, ViTEss,
-    MapfreeRegression, SimpleTransformer, SuperPoint or SuperGlue) -> a
-    state dict with the port's torch keys (the reference's, no prefix). BatchNorms also get their ``num_batches_tracked`` counter
+    MapfreeRegression, SimpleTransformer, SuperPoint or SuperGlue, or a
+    6DReg head or aggregator given as the port's module) -> a state dict
+    with the port's torch keys (the reference's, no prefix). BatchNorms also get their ``num_batches_tracked`` counter
     (0), as a torch state dict has."""
     P, S = build_mapping(cfg)
     out: Dict[str, np.ndarray] = {}

@@ -148,19 +148,16 @@ def test_resunet_pads_odd_skips(small):
 @pytest.mark.parametrize("flags", [{}, dict(position_encoder_im1=True, normalise_dot=True,
                                             cv_half_channels=True, max_score_channel=False)])
 def test_correlation_volume_warping(flags):
-    """The FAR configuration's aggregator against JAX's; any other
-    aggregator flag is refused by name."""
+    """The aggregator against JAX's: the FAR configuration's (2 D + 3
+    channels) and one with every other flag flipped (2 D + 4: the image-1
+    grid, no max score)."""
     cfg = dict(SMALL, **flags)
-    if flags:
-        with pytest.raises(ValueError, match="normalise_dot"):
-            tsixdreg.CorrelationVolumeWarping(tsixdreg.SixDRegConfig(**cfg))
-        return
     rng = np.random.default_rng(2)
     v0, v1 = (rng.normal(size=(2, 12, 8, 8)).astype(np.float32) for _ in range(2))
     ref = jax.jit(jsixdreg.CorrelationVolumeWarping(jsixdreg.SixDRegConfig(**cfg)).apply)(
         {}, jnp.asarray(v0), jnp.asarray(v1))
     out = tsixdreg.CorrelationVolumeWarping(tsixdreg.SixDRegConfig(**cfg))(_nchw(v0), _nchw(v1))
-    assert out.shape[1] == 2 * 8 + 3
+    assert out.shape[1] == 2 * 8 + (4 if flags else 3)
     close(out.permute(0, 2, 3, 1), ref)
 
 

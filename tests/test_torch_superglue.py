@@ -10,6 +10,8 @@ indices and masks equal; float32 values within the stated multiple of
 max|ref|.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -229,11 +231,81 @@ def _magicleap_superglue_sd(cfg, rng):
     return sd
 
 
+# magicleap's attention, as published in SuperGluePretrainedNetwork/models/
+# superglue.py (``attention``, ``MultiHeadedAttention``; the GNN layer
+# ``AttentionalPropagation`` is x + mlp([x, attn(x, source, source)]))
+
+
+def ml_attention(query, key, value):
+    dim = query.shape[1]
+    scores = torch.einsum('bdhn,bdhm->bhnm', query, key) / dim**.5
+    prob = torch.nn.functional.softmax(scores, dim=-1)
+    return torch.einsum('bhnm,bdhm->bdhn', prob, value), prob
+
+
+class MultiHeadedAttention(torch.nn.Module):
+    def __init__(self, num_heads: int, d_model: int):
+        super().__init__()
+        assert d_model % num_heads == 0
+        self.dim = d_model // num_heads
+        self.num_heads = num_heads
+        self.merge = torch.nn.Conv1d(d_model, d_model, kernel_size=1)
+        self.proj = torch.nn.ModuleList([copy.deepcopy(self.merge) for _ in range(3)])
+
+    def forward(self, query, key, value):
+        batch_dim = query.size(0)
+        query, key, value = [l(x).view(batch_dim, self.dim, self.num_heads, -1)
+                             for l, x in zip(self.proj, (query, key, value))]
+        x, _ = ml_attention(query, key, value)
+        return self.merge(x.contiguous().view(batch_dim, self.dim*self.num_heads, -1))
+
+
+def _magicleap_gnn_layer(sd, i, D, heads):
+    """gnn.layers.{i} of a magicleap state dict as the published modules
+    (eval BatchNorm): (B, D, N) x, source -> x + delta."""
+    attn = MultiHeadedAttention(heads, D)
+    mlp = torch.nn.Sequential(torch.nn.Conv1d(2 * D, 2 * D, 1), torch.nn.BatchNorm1d(2 * D),
+                              torch.nn.ReLU(), torch.nn.Conv1d(2 * D, D, 1))
+    prefix = f"gnn.layers.{i}."
+    own = {k[len(prefix):]: torch.from_numpy(np.asarray(v)) for k, v in sd.items()
+           if k.startswith(prefix)}
+    attn.load_state_dict({k[5:]: v for k, v in own.items() if k.startswith("attn.")})
+    mlp.load_state_dict({k[4:]: v for k, v in own.items() if k.startswith("mlp.")})
+    mlp.eval()
+    return lambda x, src: x + mlp(torch.cat([x, attn(x, src, src)], dim=1))
+
+
+def test_converted_gnn_layer_matches_magicleap():
+    """A self and a cross layer of a synthesized magicleap state dict,
+    converted, against magicleap's published MultiHeadedAttention and MLP
+    on the same weights: within 1e-5 max|ref|. Its heads are interleaved
+    (channel j * heads + h): with the rows copied as they are, every output
+    of the layer moves."""
+    cfg = tsg.SuperGlueConfig(desc_dim=64, num_layers=1, num_heads=4)
+    sd = _magicleap_superglue_sd(cfg, np.random.default_rng(9))
+    ours, report = tconvert.convert_superglue_state_dict(sd, cfg)
+    assert not report["missing"] and not report["unused"], report
+    port = tsg.SuperGlue(cfg).eval()
+    port.load_state_dict({k: torch.from_numpy(v) for k, v in ours.items()}, strict=True)
+    rng = np.random.default_rng(10)
+    x, src = (torch.from_numpy(rng.normal(size=(2, 64, 11)).astype(np.float32))
+              for _ in range(2))
+    valid = torch.ones(2, 11, dtype=torch.bool)
+    with torch.no_grad():
+        for i, layer in enumerate((port.self_0, port.cross_0)):
+            ref = _magicleap_gnn_layer(sd, i, 64, 4)(x, src)
+            out = layer(x.transpose(1, 2), src.transpose(1, 2), valid).transpose(1, 2)
+            close(out, ref, 1e-5, f"gnn.layers.{i}")
+
+
 def test_superglue_converter_round_trip():
     """A synthesized magicleap SuperGlue state dict through the port's
     converter: nothing missing, nothing unused (the BatchNorm counters
     aside), loaded with strict=True, and equal to the JAX converter's
-    variables carried across (max abs 0: the same float32 fold)."""
+    variables carried across (max abs 0: the same float32 fold), but for
+    the attention's q/k/v rows and merge columns: the JAX converter copies
+    magicleap's interleaved heads as they are, so the port's are JAX's
+    regrouped (port channel h * d + j is JAX's j * heads + h)."""
     cfg_kw = dict(desc_dim=64, num_layers=2, sinkhorn_iterations=5)
     cfg = tsg.SuperGlueConfig(**cfg_kw)
     sd = _magicleap_superglue_sd(cfg, np.random.default_rng(5))
@@ -251,8 +323,16 @@ def test_superglue_converter_round_trip():
     assert not jreport["missing"]
     via_jax = tconvert.flax_to_state_dict(np_tree(jvars), cfg)
     assert sorted(via_jax) == sorted(ours)
+    heads, d = cfg.num_heads, cfg.desc_dim // cfg.num_heads
+    regroup = (np.arange(d)[None, :] * heads + np.arange(heads)[:, None]).reshape(-1)
+    n_regrouped = 0
     for k in ours:
-        np.testing.assert_allclose(ours[k], via_jax[k], rtol=0, atol=1e-6, err_msg=k)
+        want = via_jax[k]
+        if ".attn." in k and not k.endswith("merge.bias"):
+            want = want[:, regroup] if ".merge." in k else want[regroup]
+            n_regrouped += 1
+        np.testing.assert_allclose(ours[k], want, rtol=0, atol=1e-6, err_msg=k)
+    assert n_regrouped == 2 * cfg.num_layers * 7
 
 
 def test_superpoint_converter_round_trip():
