@@ -133,6 +133,25 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    each 6DReg aggregator and head, f32, card against CPU within 1e-4
    max|ref|, and ``mapfree_forward`` in bf16 with the aggregator flags
    normalise_dot, cv_half_channels and position_encoder_im1 (16/1/1/0).
+18. data parallelism (``far_tpu_torch.parallel.comm``, DDP in the
+   trainers): (a) a process group of one over NCCL in this process,
+   FARConfig() bf16 at B=2: 3 DDP steps bit-equal to 3 plain Trainer
+   steps from the same weights and generator (deterministic algorithms;
+   the plain run repeated to show it reproduces), K1 16 and K4 2 a step;
+   (b) two ranks on the card over gloo (subprocesses of this script,
+   ``--ddp-worker``): one float32 step (TF32 off) on a global batch of 4
+   against one process here, and the same step with bn's moments summed
+   by an all-reduce autograd does not see, which the backbone's tolerance
+   must fail; then 3 bf16 steps with their ms, the
+   gradient all-reduce's share (against DDP's ``no_sync``) and each
+   rank's peak memory; (c) one float64 step of ViTEssTrainer (interiornet
+   preset, B=6) and SixDRegTrainer (mapfree preset) on two ranks against
+   one process; (d) validate_far on two ranks with the guard's weights and
+   phase 7's draws (the median within 0.01 deg of phase 7's, K1/K2/K3/K4
+   8/1/1/2 a batch a rank) and with FARConfig() in bf16 at 480x640
+   (16/1/1/2 a batch a rank); (e) ``python -m torch.distributed.run
+   --nproc_per_node 1`` of ``cli.train`` (FARConfig() bf16, 3 steps at
+   B=2) and ``cli.evaluate --ckpt_dir``, the checkpoint restored bit-equal.
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 (B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
@@ -140,7 +159,8 @@ in both dtypes.
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
-result, when no CUDA device is present.
+result, when no CUDA device is present. ``--ddp-worker <dir>`` runs one
+rank of phase 18 (b)-(d); phase 18 starts those itself.
 """
 
 from __future__ import annotations
@@ -151,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
@@ -3076,8 +3097,619 @@ def sixdreg_variants(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 18: data parallelism ------------------------------------------------------
+
+DDP_STEPS = 3            # timed steps of each DDP run
+B_DDP = 4                # the two-rank runs' global batch (2 pairs a rank)
+DDP_RANKS = 2
+DDP_TIMEOUT_S = 600      # each subprocess of this phase
+# 18 (b): the float32 2-rank step against one process on the card (TF32
+# off), SGD(lr=1) so a parameter's change is its gradient. The two differ
+# in summation order only (the ranks' BatchNorm sums, cuDNN's algorithms
+# at 2 pairs against 4); the backbone's train-mode BatchNorms amplify that
+# through every stage, as they do the JAX package's own float32 error (5e-2
+# of max|g| against float64, tests/test_torch_train.py): on an H100 the
+# backbone's largest read 6.4e-3 (layer2.1.conv1) and its layer3 1.44e-3.
+# So the whole backbone is held to 5e-2, and every run also plants the
+# fault that lives there, bn's moments summed by an all-reduce autograd
+# does not see (``_planted_bn_fault``), which must read above that limit.
+# Every tensor past the backbone is held to 1e-3, a float32 sum's rounding
+# after that amplification
+DDP_F32_TOL = {"metrics": 1e-4, "stats": 1e-5, "front": 5e-2, "rest": 1e-3}
+DDP_FRONT = ("backbone.",)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fixed_solver(kpts0, kpts1, K0, K1, valid, *args, **kwargs):
+    """A solver result that depends on each pair alone (its count of valid
+    matches), not on the batch it sits in, for comparing two runs that
+    split a batch differently: RANSAC on a random model's matches picks
+    among near-ties."""
+    import torch
+
+    from far_tpu_torch.solvers.types import PoseEstimate
+
+    B, dev = kpts0.shape[0], kpts0.device
+    c, s = math.cos(0.2), math.sin(0.2)
+    R = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], device=dev).expand(B, 3, 3)
+    t = torch.tensor([0.3, -0.1, 0.9], device=dev).expand(B, 3)
+    n = valid.float().sum(-1)
+    return PoseEstimate(E=torch.zeros(B, 3, 3, device=dev), R=R, t=t, inliers=valid,
+                        num_inliers=torch.floor(0.5 * n) + 17, num_tight=torch.floor(0.1 * n) + 3,
+                        num_ultra_tight=torch.zeros(B, device=dev),
+                        success=torch.ones(B, dtype=torch.bool, device=dev))
+
+
+def _stub_solvers():
+    """``_fixed_solver`` in place of the trainers' ``estimate_pose``; returns
+    the function that puts the real one back."""
+    import far_tpu_torch.train.family_trainers as fam
+    import far_tpu_torch.train.trainer as trainer
+
+    real = trainer.estimate_pose
+    trainer.estimate_pose = fam.estimate_pose = _fixed_solver
+
+    def restore():
+        trainer.estimate_pose = fam.estimate_pose = real
+    return restore
+
+
+def _ddp_batches(dev):
+    """The two-rank runs' global batches: FAR (B_DDP pairs at 480x640 with
+    depth), ViTEss (B_FAMILY gated pairs at 384x512) and map-free (B_FAMILY
+    pairs at 368x272, 512 ground-truth matches)."""
+    from far_tpu_torch.configs import PRESETS
+    from far_tpu_torch.data.synthetic import (
+        GTCorrespondenceDataset, SolverPoseDataset, SyntheticPairDataset, collate)
+    from far_tpu_torch.train.family_trainers import collate_sixdreg, collate_vitess
+
+    ds = SyntheticPairDataset(n=B_DDP, hw=(480, 640), seed=0)
+    far = collate([ds[i] for i in range(B_DDP)], dev)[0]
+    ds = SolverPoseDataset(SyntheticPairDataset(n=B_FAMILY, hw=VITESS_TRAIN_HW, seed=0))
+    vit = collate_vitess([ds[i] for i in range(B_FAMILY)], dev)
+    hw = PRESETS["mapfree"]().model.image_hw
+    ds = GTCorrespondenceDataset(SyntheticPairDataset(n=B_FAMILY, hw=hw, seed=0),
+                                 max_matches=512)
+    return far, vit, collate_sixdreg([ds[i] for i in range(B_FAMILY)], dev)
+
+
+def _sgd_step(tr, batch, f64: bool = False) -> dict:
+    """One SGD(lr=1) step on this rank's rows of the global batch: its
+    metrics, each parameter's change (minus its gradient) and the
+    BatchNorm statistics on the CPU. With ``f64`` the model is made float64 and the step runs
+    under ``float64_compute`` with K4's plain version (no float64 kernel)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    import far_tpu_torch.models.regressor as regressor
+    from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_plain
+    from far_tpu_torch.parallel import comm
+    from far_tpu_torch.utils.float64 import float64_compute
+
+    k4 = regressor.bilinear_dual_softmax_auto
+    if f64:
+        tr.model.double()
+        batch = dataclasses.replace(batch, **{
+            f.name: getattr(batch, f.name).double() for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), torch.Tensor)
+            and getattr(batch, f.name).is_floating_point()})
+        regressor.bilinear_dual_softmax_auto = bilinear_dual_softmax_plain
+    params = tr.parameters() if callable(getattr(tr, "parameters", None)) \
+        else list(tr.model.parameters())
+    tr.optimizer = torch.optim.SGD(params, lr=1.0)
+    start = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    try:
+        with float64_compute() if f64 else contextlib.nullcontext():
+            metrics = tr.step(comm.shard_rows(batch))
+    finally:
+        regressor.bilinear_dual_softmax_auto = k4
+    state = tr.model.state_dict()
+    stats = ("running_mean", "running_var")
+    return {"metrics": metrics,
+            "delta": {k: (v - start[k]).cpu() for k, v in state.items()
+                      if v.is_floating_point() and not k.endswith(stats)},
+            "stats": {k: v.cpu() for k, v in state.items() if k.endswith(stats)},
+            "extra": {k: p.detach().cpu() for k, p in getattr(tr, "extra", {}).items()}}
+
+
+def _step_errors(got: dict, ref: dict, front=(), zero_grad=()) -> dict:
+    """The largest relative errors of a step against a reference: metrics
+    (of |ref|), BatchNorm statistics and parameter changes (of max|ref|)
+    in ``front`` and past it; a ``zero_grad`` bias (exact gradient 0)
+    against its convolution weight's max|ref change|. Each (error, name)."""
+    def rel(a, b, scale):
+        return float((a.double() - b.double()).abs().max()) / max(float(scale), 1e-30)
+
+    out = {"metrics": max((abs(got["metrics"][k] - v) / max(abs(v), 1e-30), k)
+                          for k, v in ref["metrics"].items() if v != 0.0),
+           "stats": max(((rel(got["stats"][k], v, v.abs().max()), k)
+                         for k, v in ref["stats"].items()), default=(0.0, "")),
+           "front": (0.0, ""), "rest": (0.0, "")}
+    for k, v in ref["delta"].items():
+        scale = ref["delta"][k[:-4] + "weight"].abs().max() if k in zero_grad \
+            else v.abs().max()
+        where = "front" if k.startswith(front) else "rest"
+        out[where] = max(out[where], (rel(got["delta"][k], v, scale), k))
+    for k, v in ref["extra"].items():
+        out["rest"] = max(out["rest"], (rel(got["extra"][k], v, v.abs().max()), k))
+    return out
+
+
+def _ddp_reference_steps(dev, far, vit, mf) -> dict:
+    """One SGD(1) step, the solver stubbed, of FARConfig() in float32 on
+    ``far`` and, in float64, of ViTEssTrainer (the interiornet preset's
+    model) on ``vit`` and SixDRegTrainer (the mapfree preset's) on ``mf``:
+    the same calls in one process and on each rank."""
+    import dataclasses
+
+    from far_tpu_torch.configs import PRESETS
+    from far_tpu_torch.train.family_trainers import SixDRegTrainer, ViTEssTrainer
+    from far_tpu_torch.train.trainer import Trainer
+
+    model = lambda preset: dataclasses.replace(PRESETS[preset]().model, dtype="float32")
+    restore = _stub_solvers()
+    try:
+        return {"far_f32": _sgd_step(Trainer(_train_cfg(), device=dev).init(seed=0), far),
+                "vitess": _sgd_step(ViTEssTrainer(model("interiornet"),
+                                                  device=dev).init(seed=0), vit, f64=True),
+                "sixdreg": _sgd_step(SixDRegTrainer(model("mapfree"),
+                                                    device=dev).init(seed=0), mf, f64=True)}
+    finally:
+        restore()
+
+
+def _planted_bn_fault(dev, far) -> dict:
+    """``_sgd_step`` of the float32 FAR step with bn's moments summed over
+    ranks by a plain all-reduce, one that autograd does not see: the
+    forward is right, x's gradient lacks the other ranks' terms. Phase 18
+    (b)'s backbone tolerance must fail it."""
+    import torch.distributed as dist
+
+    import far_tpu_torch.models.backbone as backbone
+    from far_tpu_torch.train.trainer import Trainer
+
+    def plain_all_reduce(x):
+        total = x.detach().clone()
+        dist.all_reduce(total)
+        return x + (total - x.detach())
+
+    real, backbone.all_reduce_sum = backbone.all_reduce_sum, plain_all_reduce
+    restore = _stub_solvers()
+    try:
+        return _sgd_step(Trainer(_train_cfg(), device=dev).init(seed=0), far)
+    finally:
+        backbone.all_reduce_sum = real
+        restore()
+
+
+def ddp_nccl_world1(dev, card: str) -> dict:
+    """Phase 18 (a): a process group of one over NCCL in this process.
+    FARConfig() in bfloat16 at 480x640, B=2 synthetic pairs with depth,
+    AdamW as phase 8 (c): 3 steps of the plain Trainer (no group), then
+    3 DDP steps from the same weights and generator in the group. cuDNN
+    and PyTorch's scatters run their deterministic algorithms, so the
+    plain run is repeated to show it is bit-reproducible; the DDP run's
+    metrics and every parameter and statistic must then be bit-equal to
+    it, and each DDP step launch K1 16 and K4 twice (K2, K3 none), read
+    from the counters set to 0 before it. Returns the first DDP step's
+    launches, as the counters read them."""
+    import torch
+    import torch.distributed as dist
+
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset, collate
+    from far_tpu_torch.parallel import comm
+    from far_tpu_torch.train.optim import OptimConfig
+    from far_tpu_torch.train.trainer import Trainer
+
+    cfg = _train_cfg(dtype="bfloat16")
+    ds = SyntheticPairDataset(n=B_TRAIN, hw=cfg.image_size, seed=0)
+    batch, _ = collate([ds[i] for i in range(B_TRAIN)], dev)
+    fns = counters()
+
+    def run():
+        tr = Trainer(cfg, OptimConfig(lr=TRAIN_LR, warmup_steps=0, scheduler="none"),
+                     device=dev).init(seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        metrics, times, launched = [], [], []
+        for _ in range(DDP_STEPS):
+            reset_counters()
+            t0 = time.perf_counter()
+            metrics.append(tr.step(batch, generator=gen))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launched.append({k: f.launches for k, f in fns.items()})
+        state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+        return metrics, times, launched, state, type(tr._ddp).__name__
+
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            plain = run()
+            again = run()
+        nondet = sorted({str(w.message).split(" does not have")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        comm.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device=dev)
+        backend = dist.get_backend()
+        ddp = run()
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    same = lambda a, b: a[0] == b[0] and all(torch.equal(v, b[3][k]) for k, v in a[3].items())
+    want = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 0, "K3_fine_transformer": 0,
+            "K4_bilinear_dual_softmax": 2}
+    ms = lambda r: statistics.median(r[1][1:])
+    print(f"ddp (a) NCCL world of 1, FARConfig() bf16 B={B_TRAIN} 480x640: backend {backend}, "
+          f"wrapper {ddp[4]}; plain run bit-reproducible {same(again, plain)}, DDP run "
+          f"bit-equal to it {same(ddp, plain)}; loss by step "
+          f"{[m['loss'] for m in ddp[0]]}; ms/step median (steps 2-{DDP_STEPS}) DDP "
+          f"{ms(ddp):.2f}, plain {ms(plain):.2f}, {ms(again):.2f} (deterministic "
+          f"algorithms; ops without a deterministic one: {nondet}); launches a DDP step "
+          f"{ddp[2]} on {card}", flush=True)
+    if backend != "nccl" or ddp[4] != "DistributedDataParallel" or plain[4] != "FarStep":
+        fail(f"ddp (a): backend {backend}, wrapper {ddp[4]} / {plain[4]}")
+    if not same(again, plain):
+        fail("ddp (a): two plain runs under deterministic algorithms differ")
+    if not same(ddp, plain):
+        fail("ddp (a): the DDP run in a world of one differs from the plain run")
+    if any(got != want for got in ddp[2]):
+        fail(f"ddp (a): launches {ddp[2]}, expected {want} a step")
+    launched = ddp[2][0]
+    del plain, again, ddp
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _guard_draws(dev) -> list:
+    """Phase 7's sampler draws for the guard's 16 pairs, one list of round
+    tensors a pair: guard_eval's two batches of 8 draw each round's (8,
+    n_samples, S) uniforms from a generator seeded 7, as
+    ``train.trainer.solver_draws`` does in one process."""
+    import torch
+
+    from far_tpu_torch.tools.guard import tiny_config
+    from far_tpu_torch.train.trainer import solver_draws
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rounds = [solver_draws(tiny_config("float32"), 8, gen, dev) for _ in range(2)]
+    return [[u[i % 8].cpu() for u in rounds[i // 8]] for i in range(16)]
+
+
+def _guard_per_batch() -> dict:
+    from far_tpu_torch.tools.guard import tiny_config
+
+    cfg = tiny_config("float32")
+    return {"K1_loftr_layer": 2 * len(cfg.coarse.layer_names)
+            + 4 * cfg.regress.num_loftr_layers, "K2_dual_softmax_rowcol": 1,
+            "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 2}
+
+
+def ddp_worker(work: Path) -> int:
+    """One rank of phase 18 (b)-(d), started by ``ddp_two_ranks`` with the
+    environment torch.distributed.run sets: both ranks on card 0, joined
+    over gloo (NCCL refuses two ranks on one card). Saves what it
+    measured to ``<work>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from far_tpu_torch.data.sampler import sequential_indices
+    from far_tpu_torch.data.synthetic import SyntheticPairDataset
+    from far_tpu_torch.parallel import comm
+    from far_tpu_torch.pipeline import init_model
+    from far_tpu_torch.tools.guard import load_guard
+    from far_tpu_torch.train.optim import OptimConfig
+    from far_tpu_torch.train.trainer import Trainer
+    from far_tpu_torch.train.validation import validate_far
+    from far_tpu_torch.utils.config import FARConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo")
+    rank = comm.process_index()
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    far, vit, mf = _ddp_batches(dev)
+    fns = counters()
+
+    out = _ddp_reference_steps(dev, far, vit, mf)
+    out["far_f32_fault"] = _planted_bn_fault(dev, far)
+    far = comm.shard_rows(far)
+
+    # bf16 with the real solver: DDP steps, then steps without the gradient
+    # all-reduce (DDP's no_sync), the ms of each and the peak memory
+    tr = Trainer(_train_cfg(dtype="bfloat16"), OptimConfig(lr=TRAIN_LR, warmup_steps=0,
+                                                           scheduler="none"),
+                 device=dev).init(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"synced": [], "no_sync": []}
+    for mode in runs:
+        for _ in range(DDP_STEPS + 1):
+            reset_counters()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "synced":
+                m = tr.step(far, generator=gen)
+            else:
+                with tr._ddp.no_sync():
+                    m = tr.step(far, generator=gen)
+            torch.cuda.synchronize()
+            runs[mode].append(((time.perf_counter() - t0) * 1e3, m,
+                               {k: f.launches for k, f in fns.items()}))
+    out["bf16"] = {"runs": runs, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del tr
+    torch.cuda.empty_cache()
+
+    # validation with the guard's weights on this rank's shard of its 16
+    # pairs, with phase 7's draws for those pairs
+    mine = sequential_indices(16, rank=rank, world_size=comm.process_count())
+    uniforms = [torch.stack([inp["guard_draws"][i][r] for i in mine]).to(dev)
+                for r in range(len(inp["guard_draws"][0]))]
+    out["validation"] = {}
+    for dtype in ("float32", "bfloat16"):
+        model, meta = load_guard(dtype=dtype, device=dev)
+        ds = SyntheticPairDataset(n=16, hw=model.config.image_size, seed=meta["eval_seed"],
+                                  n_scenes=16, max_angle_deg=12.0)
+        reset_counters()
+        table = validate_far(model, ds, len(mine), uniforms=[uniforms])
+        torch.cuda.synchronize()
+        out["validation"][dtype] = {"table": table,
+                                    "launches": {k: f.launches for k, f in fns.items()}}
+    # FARConfig() in bf16 at full width: 8 synthetic pairs, one batch of 4 a rank
+    model = init_model(FARConfig(dtype="bfloat16"), seed=0, device=dev)
+    ds = SyntheticPairDataset(n=DDP_RANKS * B_REQUEST, hw=(480, 640), seed=0)
+    reset_counters()
+    table = validate_far(model, ds, B_REQUEST,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    out["validation"]["FARConfig() bfloat16"] = {
+        "table": table, "launches": {k: f.launches for k, f in fns.items()}}
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def ddp_two_ranks(dev, card: str, guard_medians: dict) -> dict:
+    """Phase 18 (b)-(d): two ranks (``ddp_worker``) on this card over gloo,
+    each a subprocess under a timeout. (b) FARConfig() in float32 (TF32
+    off), one SGD(1) step on a global batch of 4 with the solver stubbed,
+    against the one-process step on the 4 pairs here, within DDP_F32_TOL,
+    and the planted fault (``_planted_bn_fault``) outside the backbone's
+    tolerance; then in bfloat16 with the real solver, 3 DDP steps (after one
+    warm-up), finite, K1 16 and K4 2 a step on each rank, their ms, the
+    same steps without the gradient all-reduce (``no_sync``), whose gap
+    is the all-reduce's share, and the peak memory of each rank. (c) one
+    float64 step of ViTEssTrainer (interiornet preset, global B=6) and of
+    SixDRegTrainer (mapfree preset, B=6), solver stubbed, against one
+    process within F64_TOL. (d) validate_far with the guard's weights, 8
+    of its 16 pairs a rank with phase 7's draws, float32 and bfloat16: the
+    table's median within 0.01 deg of phase 7's, 16 pairs, and the guard
+    config's launches (K1/K2/K3/K4 8/1/1/2: 4 coarse layers, no regressor
+    LoFTR) for the one batch of each rank; then FARConfig() in bf16, 8
+    pairs at 480x640, one batch of 4 a rank: 8 finite pairs, K1/K2/K3/K4
+    16/1/1/2. Both ranks' metrics, states and tables must agree. Returns
+    the launches of rank 0's FARConfig() validation batch, as its counters
+    read them, and the bf16 steps' ms and peak memory."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from far_tpu_torch.models.sixdreg import MapfreeRegression
+    from far_tpu_torch.models.vitess import ViTEss
+
+    far, vit, mf = _ddp_batches(dev)
+    ref = _ddp_reference_steps(dev, far, vit, mf)
+    del far, vit, mf
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        torch.save({"guard_draws": _guard_draws(dev)}, work / "inputs.pt")
+        port = _free_port()
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        for rank in range(DDP_RANKS):
+            env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+                   "WORLD_SIZE": str(DDP_RANKS), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(port)}
+            log = open(work / f"rank{rank}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--ddp-worker", str(work)],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(DDP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        codes = [p.returncode for p in procs]
+        if codes != [0] * DDP_RANKS:
+            tails = "\n".join((work / f"rank{r}.log").read_text()[-3000:]
+                              for r in range(DDP_RANKS))
+            fail(f"ddp: the rank processes exited with {codes} (killed after "
+                 f"{DDP_TIMEOUT_S} s if still running):\n{tails}")
+        print(f"ddp: two ranks on the card over gloo ran (b)-(d) in "
+              f"{time.perf_counter() - t0:.1f} s (each process's start included)", flush=True)
+        out = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(DDP_RANKS)]
+
+    failures = []
+    for key in ("far_f32", "vitess", "sixdreg"):
+        a, b = out[0][key], out[1][key]
+        agree = a["metrics"] == b["metrics"] and all(
+            torch.equal(v, b[part][k]) for part in ("delta", "stats", "extra")
+            for k, v in a[part].items())
+        if not agree:
+            failures.append(f"ddp {key}: the two ranks' metrics or states differ")
+
+    err = _step_errors(out[0]["far_f32"], ref["far_f32"], DDP_FRONT)
+    ok = all(err[k][0] <= DDP_F32_TOL[k] for k in DDP_F32_TOL)
+    print(f"ddp (b) FARConfig() f32 2 ranks x {B_DDP // DDP_RANKS} pairs vs one process "
+          f"x {B_DDP}, SGD(1): metrics {out[0]['far_f32']['metrics']}; max rel err metrics "
+          f"{err['metrics']}, BatchNorm statistics {err['stats']}, parameter changes in "
+          f"the backbone {err['front']} and past it {err['rest']}; tolerances "
+          f"{DDP_F32_TOL}" + (" ok" if ok else " FAILED"), flush=True)
+    if not ok:
+        failures.append("ddp (b): the float32 two-rank step disagrees with one process")
+    fault = _step_errors(out[0]["far_f32_fault"], ref["far_f32"], DDP_FRONT)
+    caught = fault["front"][0] > DDP_F32_TOL["front"]
+    print(f"ddp (b) planted fault, bn's moments by an all-reduce autograd does not see: "
+          f"parameter changes in the backbone {fault['front']} and past it {fault['rest']}; "
+          + ("over the backbone's tolerance, caught" if caught else "NOT caught"), flush=True)
+    if not caught:
+        failures.append("ddp (b): the backbone's tolerance passes bn without the other "
+                        "rank's gradient terms")
+
+    for key, preset in (("vitess", "interiornet"), ("sixdreg", "mapfree")):
+        biases = (ViTEss if key == "vitess" else MapfreeRegression).BIAS_BEFORE_BN
+        err = _step_errors(out[0][key], ref[key], zero_grad=biases)
+        worst = max(err["metrics"], err["stats"], err["rest"])
+        print(f"ddp (c) {key} ({preset} preset) f64 2 ranks x {B_FAMILY // DDP_RANKS} vs one "
+              f"process x {B_FAMILY}, SGD(1): metrics {out[0][key]['metrics']}; max rel err "
+              f"{worst} (tol {F64_TOL})" + (" ok" if worst[0] <= F64_TOL else " FAILED"),
+              flush=True)
+        if not worst[0] <= F64_TOL:
+            failures.append(f"ddp (c): the {key} two-rank step disagrees with one process")
+
+    want_step = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 0, "K3_fine_transformer": 0,
+                 "K4_bilinear_dual_softmax": 2}
+    want_batch = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1, "K3_fine_transformer": 1,
+                  "K4_bilinear_dual_softmax": 2}
+    summary = {}
+    for r, o in enumerate(out):
+        runs = o["bf16"]["runs"]
+        for mode, steps in runs.items():
+            if any(launched != want_step for _, _, launched in steps):
+                failures.append(f"ddp (b) rank {r} {mode}: launches {[s[2] for s in steps]}")
+            if not all(math.isfinite(v) for _, m, _ in steps for v in m.values()):
+                failures.append(f"ddp (b) rank {r} {mode}: non-finite metrics")
+        synced = statistics.median(t for t, _, _ in runs["synced"][1:])
+        alone = statistics.median(t for t, _, _ in runs["no_sync"][1:])
+        summary[r] = (synced, alone, o["bf16"]["peak_gib"])
+        print(f"ddp (b) rank {r} FARConfig() bf16 global B={B_DDP} 480x640 over gloo on one "
+              f"card: ms/step median {synced:.2f} (steps 2-{DDP_STEPS + 1}: "
+              f"{[round(t, 2) for t, _, _ in runs['synced']]}), without the gradient "
+              f"all-reduce {alone:.2f}, the all-reduce's share {1 - alone / synced:.3f}, peak "
+              f"memory {o['bf16']['peak_gib']:.3f} GiB; loss by step "
+              f"{[round(m['loss'], 6) for _, m, _ in runs['synced']]} on {card}", flush=True)
+
+    per_batch = _guard_per_batch()
+    for dtype in ("float32", "bfloat16"):
+        for r, o in enumerate(out):
+            v = o["validation"][dtype]
+            med = v["table"]["rot median err"]
+            gap = abs(med - guard_medians[dtype])
+            print(f"ddp (d) validate_far guard {dtype} rank {r}: rot median err {med} against "
+                  f"phase 7's {guard_medians[dtype]:.4f} (gap {gap:.4f}, tol 0.01), dset size "
+                  f"{v['table']['dset size']}, launches {v['launches']}", flush=True)
+            if not (gap <= 0.01 and v["table"]["dset size"] == 16
+                    and v["launches"] == per_batch):
+                failures.append(f"ddp (d) {dtype} rank {r}: table {v['table']}, launches "
+                                f"{v['launches']}, expected {per_batch}")
+        if out[0]["validation"][dtype]["table"] != out[1]["validation"][dtype]["table"]:
+            failures.append(f"ddp (d) {dtype}: the ranks' tables differ")
+    full = "FARConfig() bfloat16"
+    n_full = DDP_RANKS * B_REQUEST
+    for r, o in enumerate(out):
+        v = o["validation"][full]
+        print(f"ddp (d) validate_far {full} 480x640, {n_full} pairs, B={B_REQUEST} a rank, rank "
+              f"{r}: {json.dumps(v['table'])}; launches {v['launches']}", flush=True)
+        if v["launches"] != want_batch or not (v["table"]["dset size"] == n_full and all(
+                math.isfinite(x) for x in v["table"].values())):
+            failures.append(f"ddp (d) {full} rank {r}: table {v['table']}, launches "
+                            f"{v['launches']}, expected {want_batch}")
+    if out[0]["validation"][full]["table"] != out[1]["validation"][full]["table"]:
+        failures.append(f"ddp (d) {full}: the ranks' tables differ")
+    if failures:
+        fail("; ".join(failures))
+    return {"per_batch": out[0]["validation"][full]["launches"], "bf16": summary}
+
+
+def ddp_cli(dev, card: str) -> None:
+    """Phase 18 (e): ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m far_tpu_torch.cli.train --device cuda``,
+    FARConfig() in bfloat16 at 480x640, 3 steps at B=2 (NCCL, a world of
+    one), then ``evaluate --ckpt_dir`` the same way on 4 pairs: the
+    entry points report their NCCL group, the evaluation a finite table, and the
+    checkpoint's weights restored by ``evaluate._restore_variables`` equal
+    to it bit for bit."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from far_tpu_torch.cli import evaluate
+    from far_tpu_torch.pipeline import init_model
+
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m"]
+    common = ["--dataset", "synthetic", "--image_size", "480x640", "--dtype", "bfloat16",
+              "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, argv in (
+                ("train", ["far_tpu_torch.cli.train"] + common + [
+                    "--n_synthetic", "8", "--batch_size", "2", "--sampler", "sequential",
+                    "--log_every", "1", "--steps", "3", "--ckpt_dir", str(tmp / "ckpt"),
+                    "--log_dir", str(tmp / "logs")]),
+                ("evaluate", ["far_tpu_torch.cli.evaluate"] + common + [
+                    "--n_synthetic", "4", "--batch_size", "4", "--ckpt_dir",
+                    str(tmp / "ckpt"), "--out_dir", str(tmp / "eval")])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(run + argv, capture_output=True, text=True,
+                                  timeout=DDP_TIMEOUT_S)
+            sec = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"ddp (e) torch.distributed.run {name}: exit {proc.returncode}\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+            print(f"ddp (e) torch.distributed.run --nproc_per_node 1 {name}: {sec:.1f} s "
+                  f"(the process's start included); its output ends "
+                  f"{proc.stdout.strip().splitlines()[-1][:200]!r}", flush=True)
+            if "data parallel: 1 process, nccl" not in proc.stdout:
+                fail(f"ddp (e) {name}: no NCCL group reported:\n{proc.stdout[-2000:]}")
+            if name == "evaluate":
+                text = proc.stdout
+                table = json.loads(text[text.rindex("\n{\n"):])["fused"]
+                _finite_table("ddp (e) evaluate", table, 4)
+        args = evaluate.parse_args(["--image_size", "480x640", "--dtype", "bfloat16",
+                                    "--ckpt_dir", str(tmp / "ckpt"), "--device", "cuda"])
+        restored = evaluate._restore_variables(
+            args.ckpt_dir, init_model(evaluate.far_config(args), seed=1, device=dev))
+        saved = torch.load(tmp / "ckpt" / "3.pt", map_location="cpu", weights_only=False)
+        bad = [k for k, v in restored.state_dict().items()
+               if not torch.equal(v.cpu(), saved["model"][k])]
+        if saved["step"] != 3 or bad:
+            fail(f"ddp (e): checkpoint step {saved['step']}, restored unlike it: {bad[:4]}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        return ddp_worker(Path(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -3137,6 +3769,11 @@ def main() -> int:
     sixdreg_variants(dev, card)
     print(f"profiler, trace, visloc, figures, 6DReg variants (phase 17): "
           f"{time.perf_counter() - t_17:.1f} s", flush=True)
+    t_18 = time.perf_counter()
+    ddp_step = ddp_nccl_world1(dev, card)
+    ddp = ddp_two_ranks(dev, card, guard_medians)
+    ddp_cli(dev, card)
+    print(f"data parallelism (phase 18): {time.perf_counter() - t_18:.1f} s", flush=True)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -3188,6 +3825,10 @@ def main() -> int:
         kernels[-1]["launches_options"] = {
             option: {dtype: got[name] for dtype, got in by_dtype.items()}
             for option, by_dtype in option_launches.items()}
+        # a DDP training step (NCCL, phase 18 (a)) and a distributed
+        # validation batch on each rank (two ranks, phase 18 (d))
+        kernels[-1]["launches_ddp_step"] = ddp_step[name]
+        kernels[-1]["launches_ddp_validation_batch_per_rank"] = ddp["per_batch"][name]
     print(f"family training (phase 13): {json.dumps(family)}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -15,7 +15,9 @@ evaluates the 8-point ViT instead (``results.txt``, ``pred_R.npy``)::
 
 ``--ckpt_dir`` restores the weights from the port's checkpoints
 (``train/checkpoint.py``, ``torch.save``); a JAX orbax directory is not
-read.
+read. Under ``python -m torch.distributed.run --nproc_per_node N`` each
+rank evaluates its strided shard of the split, the pairs are gathered
+to every rank and rank 0 prints and writes the files.
 """
 
 from __future__ import annotations
@@ -41,7 +43,12 @@ from far_tpu_torch.eval.metrics import (
 )
 from far_tpu_torch.geometry.rotations import rotation_6d_to_matrix
 from far_tpu_torch.models.vitess import ViTEssConfig
-from far_tpu_torch.parallel.comm import process_count, process_index
+from far_tpu_torch.parallel.comm import (
+    group_summary,
+    init_distributed,
+    process_count,
+    process_index,
+)
 from far_tpu_torch.pipeline import init_model, init_vitess, resolve_device
 from far_tpu_torch.train.checkpoint import CheckpointManager, surgical_load
 from far_tpu_torch.train.family_trainers import collate_vitess
@@ -195,6 +202,8 @@ def evaluate_far(model, dataset, args, generator: Optional[torch.Generator] = No
     solver_table = agg({**acc, "R_errs": acc["solver_R_errs"],
                         "t_errs": acc["solver_t_errs"],
                         "t_errs_abs": acc["solver_t_errs_abs"]})
+    if process_index() != 0:
+        return table
 
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -210,7 +219,11 @@ def evaluate_far(model, dataset, args, generator: Optional[torch.Generator] = No
 
 def main(argv=None):
     args = parse_args(argv)
+    init_distributed(device=args.device)
     dev = resolve_device(args.device)
+    summary = group_summary()
+    if summary and process_index() == 0:
+        print(summary)
     if args.model == "vitess":
         return _eval_vitess(args, dev)
     model = init_model(far_config(args), seed=args.seed, device=dev)
@@ -268,6 +281,8 @@ def _eval_vitess(args, dev: torch.device):
     acc = gather_pair_metrics(acc)
 
     table = aggregate_metrics_interiornet_streetlearn(acc)
+    if process_index() != 0:
+        return table
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     _write_table(out_dir / "results.txt", table)

@@ -1,4 +1,4 @@
-"""Training CLI for the three model families, on one card.
+"""Training CLI for the three model families, on one card or data-parallel on N.
 
 Counterpart of ``far_tpu/cli/train.py`` (after crockwell/far:
 mp3d_loftr/train.py, interiornetStreetlearn_8ptVit/train.py and
@@ -8,10 +8,18 @@ with warm-up, the non-finite skip, scene-balanced sampling, checkpoints
 every ``--ckpt_every`` steps, ``--resume``, validation during training
 with the best checkpoint kept by ``rot mean err`` (lightning_loftr.py:
 266-323, train.py:314-324), the 8-point ViT's subepoch scheme and JSONL
-logging. The JAX package's data-parallel mesh is not ported (ROADMAP
-Queue 1 item 6)::
+logging.
+
+Under ``torch.distributed.run`` it is the JAX package's run over a mesh,
+one process a card: ``--batch_size`` is the global batch (W must divide
+it), each rank loads its contiguous rows of every global batch of the
+same index stream, the trainers' DDP steps give the global batch's
+metrics, rank 0 logs and writes the checkpoints, and every rank reads the
+same validation table, so all decide alike on the best checkpoint::
 
     python -m far_tpu_torch.cli.train --dataset synthetic --steps 20
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m far_tpu_torch.cli.train --dataset synthetic --batch_size 8
     python -m far_tpu_torch.cli.train --model vitess --dataset synthetic ...
     python -m far_tpu_torch.cli.train --model sixdreg --dataset synthetic \\
         --image_size 368x272 ...
@@ -42,7 +50,12 @@ from far_tpu_torch.data.synthetic import (
 )
 from far_tpu_torch.models.sixdreg import SixDRegConfig
 from far_tpu_torch.models.vitess import ViTEssConfig
-from far_tpu_torch.parallel.comm import process_count, process_index
+from far_tpu_torch.parallel.comm import (
+    group_summary,
+    init_distributed,
+    process_count,
+    process_index,
+)
 from far_tpu_torch.pipeline import resolve_device
 from far_tpu_torch.train.checkpoint import CheckpointManager
 from far_tpu_torch.train.family_trainers import (
@@ -154,6 +167,19 @@ def _subepoch_indices(indices, subepochs, sub):
     return indices[sub * n: (sub + 1) * n]
 
 
+def _rank_rows(indices, batch_size: int):
+    """(this rank's indices, its rows a batch): its contiguous rows of each
+    global batch of ``indices``, as the JAX package's ``P("data")``
+    places them; the global tail is dropped, as the loader drops it."""
+    w = process_count()
+    if batch_size % w:
+        raise ValueError(f"--batch_size {batch_size} (the global batch) does not split "
+                         f"over {w} processes")
+    rows = batch_size // w
+    indices = np.asarray(indices)[: len(indices) // batch_size * batch_size]
+    return indices.reshape(-1, w, rows)[:, process_index()].reshape(-1), rows
+
+
 def _build_trainer_and_loaderfn(args, family, cfg, optim, dev):
     """(trainer, make_loader(sub=None) -> iterable of batches on ``dev``)."""
     dataset = build_dataset(args)
@@ -196,9 +222,10 @@ def _build_trainer_and_loaderfn(args, family, cfg, optim, dev):
 
     def make_loader(sub=None):
         idx = indices if sub is None else _subepoch_indices(indices, args.subepochs, sub)
+        idx, rows = _rank_rows(idx, args.batch_size)
         if collate is None:
-            return (to_device(b, dev) for b in Loader(dataset, idx, args.batch_size))
-        return Loader(dataset, idx, args.batch_size, collate=collate)
+            return (to_device(b, dev) for b in Loader(dataset, idx, rows))
+        return Loader(dataset, idx, rows, collate=collate)
 
     return trainer, make_loader
 
@@ -215,7 +242,11 @@ def main(argv=None):
 
 
 def _train(args):
+    init_distributed(device=args.device)
     dev = resolve_device(args.device)
+    summary = group_summary()
+    if summary and process_index() == 0:
+        print(summary)
     family, cfg, optim = _resolve_family(args)
     if args.debug_nans:
         # surface the NaN instead of skipping the update
@@ -231,7 +262,8 @@ def _train(args):
     mgr = CheckpointManager(args.ckpt_dir)
     if args.resume and mgr.latest_step() is not None:
         trainer.load_state_dict(mgr.restore())
-        print(f"resumed from step {mgr.latest_step()}")
+        if process_index() == 0:
+            print(f"resumed from step {mgr.latest_step()}")
 
     logger = MetricLogger(args.log_dir, "train", rank=process_index(),
                           print_every=args.log_every)
@@ -296,7 +328,8 @@ def _train(args):
                 if count:
                     logger.log(step, {f"val/{k}": v / count for k, v in sums.items()})
     logger.close()
-    print(f"done: {step} steps, final loss {float(metrics['loss']):.4f}")
+    if process_index() == 0:
+        print(f"done: {step} steps, final loss {float(metrics['loss']):.4f}")
     return trainer
 
 

@@ -17,7 +17,12 @@ variance biased (E[x^2] - mu^2, clipped at 0) in the normalisation and in
 the running update ``running = 0.9 running + 0.1 batch`` (Flax's momentum
 0.9 is the module's torch momentum 0.1; another is read from the
 module). That is not ``F.batch_norm(training=True)``, whose running
-variance is unbiased.
+variance is unbiased. Under a process group of several ranks the batch is
+every rank's rows: one differentiable all-reduce of [sum x, sum x^2, n]
+gives the moments, their gradient reaches every rank's x, and the running
+statistics move alike on every rank (the JAX package's BatchNorm over a
+mesh; ``nn.SyncBatchNorm`` would never run, as every family's BatchNorm
+goes through ``bn``).
 
 Under ``deferred_running_stats(sink)`` a train-mode BatchNorm appends
 (module, batch mean, batch variance) to ``sink`` instead of updating its
@@ -37,6 +42,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from far_tpu_torch.parallel.comm import all_reduce_sum, process_count
 
 
 def conv(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
@@ -76,8 +83,18 @@ def bn(x: torch.Tensor, m: nn.BatchNorm2d) -> torch.Tensor:
         return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
                             False, 0.0, m.eps)
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    if process_count() == 1:
+        mean = x32.mean(dim=(0, 2, 3))
+        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    else:
+        # the moments of every rank's rows, and their gradient through the
+        # other ranks' losses, as the JAX package's step over a mesh
+        C = x32.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+            x32.new_full((1,), x32.numel() // C)]))
+        mean = sums[:C] / sums[-1]
+        var = (sums[C:2 * C] / sums[-1] - mean * mean).clamp(min=0.0)
     sink = _DEFERRED.get()
     if sink is None:
         update_running_stats([(m, mean, var)])

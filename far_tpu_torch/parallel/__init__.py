@@ -1,1 +1,1 @@
-"""Communication helpers of the port (one process; DDP is not ported)."""
+"""Data parallelism of the port: ``torch.distributed`` across processes, one a card."""

@@ -20,6 +20,7 @@ from far_tpu_torch.models.constants import denormalize_9d
 from far_tpu_torch.models.loftr import FARLoFTR
 from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
 from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
+from far_tpu_torch.parallel.comm import local_device
 from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
 from far_tpu_torch.types import FarOutput, PairBatch, SolverSummary
 from far_tpu_torch.utils.config import FARConfig
@@ -204,12 +205,13 @@ def build_inference_fn(model: FARLoFTR) -> Callable[..., FarOutput]:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless asked otherwise."""
+    """The device an entry point runs on: CUDA unless asked otherwise, and
+    ``"cuda"`` this rank's card (``parallel.comm.local_device``)."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: far_tpu_torch runs on the GPU; "
                            "pass device='cpu' for the plain CPU versions")
-    return dev
+    return local_device(dev)
 
 
 def init_model(cfg: Optional[FARConfig] = None, seed: int = 0,

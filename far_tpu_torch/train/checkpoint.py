@@ -6,7 +6,8 @@ or, with ``best_fn_key``, the best by that metric (``best_mode`` 'min' or
 'max'), as orbax's manager keeps them; ``restore`` of the newest or a
 given step. ``surgical_load`` merges a restored state dict into a
 template, keeping the template's entry wherever a key is missing or a
-shape changed between curriculum phases.
+shape changed between curriculum phases. Under a process group rank 0
+writes and every rank waits for it, so each reads what was written.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from far_tpu_torch.parallel.comm import barrier, process_index
 
 
 class CheckpointManager:
@@ -46,6 +49,13 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any,
              metrics: Optional[Dict[str, float]] = None) -> None:
+        """Rank 0 writes ``state`` (every rank holds the same) and prunes;
+        every rank returns once it has."""
+        if process_index() == 0:
+            self._write(step, state, metrics)
+        barrier()
+
+    def _write(self, step: int, state: Any, metrics: Optional[Dict[str, float]]) -> None:
         tmp = self.directory / f"{step}.pt.tmp"
         torch.save(state, tmp)
         (self.directory / f"{step}.json").write_text(

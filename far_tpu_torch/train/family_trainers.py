@@ -1,8 +1,7 @@
-"""Training steps of the ViTEss and map-free 6DReg families on one device.
+"""Training steps of the ViTEss and map-free 6DReg families.
 
-Counterpart of ``far_tpu/train/family_trainers.py`` (its data parallelism
-over a mesh is not ported; the FAR family's trainer is
-``train/trainer.py``):
+Counterpart of ``far_tpu/train/family_trainers.py`` (the FAR family's
+trainer is ``train/trainer.py``):
 
 - ``ViTEssTrainer``: ``w_tr MSE(t) + w_rot MSE(6D)`` of the 9D pose in
   the dataset's normalised space (``VITESS_POSE_STATS``), gated by the
@@ -22,6 +21,14 @@ Both have the FAR trainer's optimizer (``train/optim.py``), ``step``
 clipping), ``eval_step`` (the model in eval mode: running statistics, no
 update of them or of the parameters) and ``state_dict`` /
 ``load_state_dict``; they run on CUDA unless given ``device="cpu"``.
+Under a process group they are data-parallel as the FAR trainer is (the
+JAX package's ``_SpmdTrainer`` over a mesh): ``step`` and ``eval_step``
+take this rank's rows of the global batch (``comm.shard_rows``), the
+model and the trainer's own parameters run inside one DDP module,
+BatchNorm's moments cover every rank's rows, and the metrics are the
+global batch's. Every
+loss here is a plain mean over equal shards, so DDP's average of the
+gradients is the global loss's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from far_tpu_torch.geometry.rotations import matrix_to_rotation_6d
 from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
 from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
+from far_tpu_torch.parallel import comm
 from far_tpu_torch.pipeline import resolve_device
 from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
 from far_tpu_torch.train.mapfree_losses import combined_loss
@@ -102,18 +110,44 @@ def collate_sixdreg(samples: List[Dict], device) -> MapfreeBatch:
 
 # ---- the shared step ---------------------------------------------------------
 
+def _images(batch) -> torch.Tensor:
+    """A family batch's first field, its images."""
+    return getattr(batch, dataclasses.fields(batch)[0].name)
+
+
+class _FamilyStep(torch.nn.Module):
+    """The model and the trainer's own parameters as one module, whose
+    ``forward(batch, uniforms, prior_pcl)`` is the trainer's loss: DDP
+    reduces the gradients of what it holds, and prepares that in
+    ``forward``."""
+
+    def __init__(self, model: torch.nn.Module, extra: Dict[str, torch.nn.Parameter],
+                 loss_fn):
+        super().__init__()
+        self.model = model
+        self.extra = torch.nn.ParameterDict(extra)
+        self.loss_fn = loss_fn
+
+    def forward(self, batch, uniforms=None, prior_pcl=None):
+        return self.loss_fn(batch, uniforms, prior_pcl)
+
+
 class _FamilyTrainer:
-    """One model on one device, its optimizer over the model's parameters
-    and the trainer's own (``self.extra``), and the step count."""
+    """One model on one device (this rank's card under a process group),
+    its optimizer over the model's parameters and the trainer's own
+    (``self.extra``), and the step count."""
 
     def __init__(self, model: torch.nn.Module, optim_cfg: OptimConfig, device,
                  extra: Dict[str, float] = None):
         self.model = model.to(resolve_device(device)).train()
         self.device = next(self.model.parameters()).device  # cuda:0, not cuda
-        self.extra = {k: torch.nn.Parameter(torch.tensor(v, device=self.device))
-                      for k, v in (extra or {}).items()}
+        self.step_module = _FamilyStep(
+            self.model, {k: torch.nn.Parameter(torch.tensor(v, device=self.device))
+                         for k, v in (extra or {}).items()}, self._loss)
+        self.extra = self.step_module.extra
         self.optimizer = build_optimizer(optim_cfg, self.parameters())
         self.step_count = 0
+        self._ddp = None
 
     def parameters(self) -> List[torch.nn.Parameter]:
         """The model's parameters (each once), then the trainer's own."""
@@ -144,44 +178,63 @@ class _FamilyTrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.step_count = int(state["step"])
 
-    def loss(self, batch, generator=None, uniforms=None, prior_pcl=None):
-        """(loss, {metric: tensor}) of one forward pass in the model's mode."""
+    def _loss(self, batch, uniforms, prior_pcl):
+        """(loss, {metric: tensor}) of one forward pass in the model's mode,
+        on this rank's rows, with the solver's draws ``uniforms``."""
         raise NotImplementedError
 
+    def _draws(self, rows: int, generator) -> Optional[torch.Tensor]:
+        """The solver's draws for this rank's ``rows`` pairs, cut from the
+        global batch's; None where the step runs no solver."""
+        return None
+
+    def loss(self, batch, generator=None, uniforms=None, prior_pcl=None):
+        """(loss, {metric: tensor}) of one forward pass in the model's mode
+        on ``batch``, this rank's rows, without DDP."""
+        return self._forward(self.step_module, batch, generator, uniforms, prior_pcl)
+
+    def _forward(self, module, batch, generator, uniforms, prior_pcl):
+        if uniforms is None:
+            uniforms = self._draws(len(_images(batch)), generator)
+        return module(batch, uniforms, prior_pcl)
+
     def _check_device(self, batch) -> None:
-        dev = dataclasses.fields(batch)[0]
-        where = getattr(batch, dev.name).device
+        where = _images(batch).device
         if where != self.device:
             raise ValueError(f"batch on {where}, model on {self.device}")
 
     def step(self, batch, generator: Optional[torch.Generator] = None,
              uniforms: Optional[torch.Tensor] = None,
              prior_pcl: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """One training step; returns its metrics as floats."""
+        """One training step on ``batch``, this rank's rows of the global
+        batch (``comm.shard_rows``); returns the global batch's metrics as
+        floats. ``uniforms`` are this rank's rows of the solver's draws, or
+        None for the global batch's draws from ``generator``, cut."""
         self._check_device(batch)
         self.model.train()
+        if self._ddp is None:
+            self._ddp = comm.data_parallel(self.step_module)
         self.optimizer.zero_grad()
-        loss, metrics = self.loss(batch, generator, uniforms, prior_pcl)
+        loss, metrics = self._forward(self._ddp, batch, generator, uniforms, prior_pcl)
         loss.backward()
         grad_norm = global_norm([p.grad for p in self.parameters() if p.grad is not None])
         self.optimizer.step()
         self.step_count += 1
-        out = {k: float(v.detach()) for k, v in metrics.items()}
-        out["grad_norm"] = float(grad_norm)
-        return out
+        return comm.mean_scalars({**metrics, "grad_norm": grad_norm})
 
     @torch.no_grad()
     def eval_step(self, batch, generator: Optional[torch.Generator] = None,
                   uniforms: Optional[torch.Tensor] = None,
                   prior_pcl: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """The loss metrics with the model in eval mode; nothing changes."""
+        """The global batch's loss metrics with the model in eval mode;
+        nothing changes. ``batch`` and ``uniforms`` as in ``step``."""
         self._check_device(batch)
         self.model.eval()
         try:
             _, metrics = self.loss(batch, generator, uniforms, prior_pcl)
         finally:
             self.model.train()
-        return {k: float(v) for k, v in metrics.items()}
+        return comm.mean_scalars(metrics)
 
 
 # ---- ViTEss -----------------------------------------------------------------
@@ -199,7 +252,7 @@ class ViTEssTrainer(_FamilyTrainer):
         self.w_tr, self.w_rot = w_tr, w_rot
         super().__init__(ViTEss(cfg), optim_cfg, device)
 
-    def loss(self, batch: ViTEssBatch, generator=None, uniforms=None, prior_pcl=None):
+    def _loss(self, batch: ViTEssBatch, uniforms=None, prior_pcl=None):
         _, _, pred_9d, _ = self.model(batch.images, batch.solver_rt, batch.solver_num_corr)
         gt_t = batch.T_0to1[..., :3, 3]
         gt_r6 = matrix_to_rotation_6d(batch.T_0to1[..., :3, :3])
@@ -232,11 +285,17 @@ class SixDRegTrainer(_FamilyTrainer):
         extra = {"s_r": 0.0, "s_t": 0.0} if lam == 0.0 else None
         super().__init__(MapfreeRegression(cfg), optim_cfg, device, extra)
 
-    def loss(self, batch: MapfreeBatch, generator=None, uniforms=None, prior_pcl=None):
+    def _draws(self, rows: int, generator) -> torch.Tensor:
+        shape = self.solver_cfg.ransac_config(False).sampling()[:2]
+        return comm.shard_rows(torch.rand((rows * comm.process_count(), *shape),
+                                          generator=generator, device=self.device,
+                                          dtype=torch.float32))
+
+    def _loss(self, batch: MapfreeBatch, uniforms=None, prior_pcl=None):
         with torch.no_grad():
             est = estimate_pose(batch.corr[..., 0, :], batch.corr[..., 1, :], batch.K0,
                                 batch.K1, batch.corr_valid, cfg=self.solver_cfg,
-                                prior_pcl=prior_pcl, uniforms=uniforms, generator=generator)
+                                prior_pcl=prior_pcl, uniforms=uniforms)
             counts = torch.stack([est.num_inliers, est.num_tight, est.num_ultra_tight], -1)
             rt = torch.cat([est.R, est.t[..., None]], -1)
         R, t, _, _ = self.model(batch.image0, batch.image1, rt, counts)

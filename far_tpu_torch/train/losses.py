@@ -5,6 +5,14 @@ loss on the dual-softmax confidences (sparse or dense supervision), the
 fine l2 (or inverse-std weighted l2) loss, L1/L2 on the normalized 9D
 pose, and the clamped translation-scale loss. Every reduction is a masked
 mean, so the static-shape padding never counts.
+
+Under a process group the losses are those of the global batch, every
+rank's rows, as the JAX package's step over a mesh computes them: a
+masked mean divides this rank's sum by the count over all ranks, times
+the world size, so that DDP's average of the ranks' gradients (and the
+mean of their values) is the global mean's; the fine loss's inverse-std
+normaliser, the RT loss's clamp and the scale loss's cut-off read global
+values. Plain means over equal shards need nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from far_tpu_torch.models.constants import compute_normalized_6d
+from far_tpu_torch.parallel.comm import all_reduce_sum, mean_over_ranks, process_count
 from far_tpu_torch.utils.config import LossConfig
 
 
@@ -34,8 +43,25 @@ class FarLosses:
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """This rank's share of the global masked mean (see the module note)."""
     m = mask.to(x.dtype)
-    return (x * m).sum() / (m.sum() + eps)
+    return (x * m).sum() / (all_reduce_sum(m.sum().detach()) + eps) * process_count()
+
+
+@torch.no_grad()
+def _global_masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                        eps: float = 1e-8) -> torch.Tensor:
+    """The masked mean over every rank's rows, without gradient."""
+    m = mask.to(x.dtype)
+    num, count = all_reduce_sum(torch.stack([(x * m).sum(), m.sum()]))
+    return num / (count + eps)
+
+
+def _clamp_global(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """This rank's share of a mean over equal shards, clamped as the global
+    mean is: the clamp's bound where the global mean is past it."""
+    g = mean_over_ranks(x)
+    return torch.where((g >= lo) & (g <= hi), x, g.clamp(lo, hi))
 
 
 def coarse_loss(conf: torch.Tensor, conf_gt: torch.Tensor, cfg: LossConfig,
@@ -70,7 +96,7 @@ def fine_loss(expec_f: torch.Tensor, expec_f_gt: torch.Tensor,
     if cfg.fine_type == "l2":
         return _masked_mean(off, correct)
     inv_std = 1.0 / expec_f[..., 2].clamp(min=1e-10)
-    denom = _masked_mean(inv_std, valid)   # over the valid population
+    denom = _global_masked_mean(inv_std, valid)   # over the valid population
     w = torch.where(valid, inv_std / (denom + 1e-8), torch.zeros_like(inv_std))
     return _masked_mean(off * w.detach(), correct)
 
@@ -82,8 +108,8 @@ def rt_loss(pose_9d: torch.Tensor, T_0to1: torch.Tensor,
     gt = compute_normalized_6d(T_0to1[..., :3, :4])
     p = 1 if cfg.use_l1_rt_loss else 2
     diff = (pose_9d - gt).abs() ** p
-    return (diff[..., :3].mean().clamp(1e-8, 1e5),
-            diff[..., 3:].mean().clamp(1e-8, 1e5))
+    return (_clamp_global(diff[..., :3].mean(), 1e-8, 1e5),
+            _clamp_global(diff[..., 3:].mean(), 1e-8, 1e5))
 
 
 def scale_loss(translation_scale: torch.Tensor, T_0to1: torch.Tensor,
@@ -92,7 +118,8 @@ def scale_loss(translation_scale: torch.Tensor, T_0to1: torch.Tensor,
     above ``max_scale_loss``."""
     gt = torch.linalg.norm(T_0to1[..., :3, 3], dim=-1)
     loss = ((translation_scale - gt) ** 2).mean()
-    return torch.where(loss > cfg.max_scale_loss, torch.zeros_like(loss), loss)
+    return torch.where(mean_over_ranks(loss) > cfg.max_scale_loss,
+                       torch.zeros_like(loss), loss)
 
 
 def compute_losses(cfg: LossConfig, conf=None, conf_gt=None, expec_f=None,

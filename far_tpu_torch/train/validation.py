@@ -4,7 +4,9 @@ Counterpart of ``far_tpu/train/validation.py:validate_far``: one pass over
 a validation set in sequential shards, the per-pair pose errors and the
 per-match symmetric epipolar distances of the K-normalised keypoints
 against the ground truth's essential matrix, the gather across processes
-(the identity in one) and the Matterport table. Its ``rot mean err`` is
+(the identity in one; each rank runs its strided shard, padded to as many
+pairs as the others) and the Matterport table, which drops the padding's
+repeats by identifier: the same on every rank. Its ``rot mean err`` is
 the signal a trainer keeps its best checkpoint by. With ``fig_dir`` it
 also saves match figures of the first batch (``utils/plotting.py``),
 which need matplotlib: without it the pass raises ImportError.
@@ -155,9 +157,10 @@ def accumulate_far(acc: Dict[str, list], out, batch, meta, max_matches: int) -> 
 
 
 def gather_pair_metrics(acc: Dict[str, list]) -> Dict[str, list]:
-    """Every process's per-pair lists (the identifiers as fixed-width
-    bytes, so they stay aligned with the arrays), each epipolar row
-    without its NaN padding."""
+    """Every process's per-pair lists in rank order (the identifiers as
+    fixed-width bytes, so they stay aligned with the arrays), each epipolar
+    row without its NaN padding. The sampler's padding repeats stay:
+    ``aggregate_metrics`` drops them by identifier."""
     gathered = all_gather_metrics({
         **{k: np.asarray(v) for k, v in acc.items() if k != "identifiers"},
         "identifiers": encode_strings(acc["identifiers"]),

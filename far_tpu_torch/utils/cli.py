@@ -93,7 +93,10 @@ def add_common_args(p):
     p.add_argument("--image_size", default="480x640",
                    help="HxW (synthetic + model input)")
     p.add_argument("--n_synthetic", type=int, default=32)
-    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--batch_size", type=int, default=4,
+                   help="pairs a batch: training's global batch, which the "
+                        "ranks of a data-parallel run split; evaluation's "
+                        "a process")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    help="config override a.b.c=value (repeatable)")

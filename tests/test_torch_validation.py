@@ -352,8 +352,10 @@ def test_validate_far_matches_jax(jax_validation, monkeypatch):
 
 
 def test_all_gather_refuses_several_processes(monkeypatch):
-    """With torch.distributed at a world size above 1, all_gather_metrics
-    raises: gathering across processes is not ported."""
+    """At a world size above 1 all_gather_metrics gathers over the process
+    group (tests/test_torch_distributed.py runs it on gloo ranks); without
+    a group to gather over it raises rather than return one process's rows
+    as if they were every process's."""
     monkeypatch.setattr(tcomm, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises((RuntimeError, ValueError), match="process group"):
         tcomm.all_gather_metrics({"R_errs": np.zeros(2)})
