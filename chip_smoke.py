@@ -10,19 +10,24 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    all started together);
 3. each kernel K1-K4 at the main path's shapes (B=2 pairs), in float32
    and bfloat16: launched next to its plain PyTorch version on the same
-   inputs and held to a stated tolerance, both timed with CUDA events,
-   with a PyTorch library call timed beside it where one computes the
-   same function; then the bfloat16 tensor-core routes of K1-K4 at
-   ragged shapes, and the CUDA-core routes at the shapes the tensor-core
-   routes are not built for (K1 bf16 C=32 and C=96, K4 bf16 D=Dv=128,
-   K3 f32 C=256 and s=81), each against its plain version, with the
-   route that ran read from the launch counters (inputs from generators
-   of their own);
+   inputs and held to a stated tolerance (float32: 1e-4 max|ref| against
+   the plain version in strict float32, TF32 off), both timed with CUDA
+   events, with a PyTorch library call timed beside it where one
+   computes the same function, and the route that ran read from the
+   launch counters (K1 and K4 in float32 must take their 3xTF32
+   tensor-core routes, ``launches_tf32``); then the tensor-core routes of
+   K1-K4 at ragged shapes (bf16, and K1's and K4's float32 routes), and
+   the CUDA-core routes at the shapes the tensor-core routes are not
+   built for (K1 C=32 in bf16 and f32, C=96 in bf16, K4 D=Dv=128 in bf16
+   and f32, K3 f32 C=256 and s=81), each against its plain version
+   (inputs from generators of their own);
 4. ``far_forward`` at 480x640 and full width with ``FARConfig()``'s
    5-point solver, three requests of B=4 in float32 and three in
    bfloat16, then the same with the 8-point solver, with the kernels'
-   launch counters (all launches, and those of the tensor-core routes)
-   set to 0 just before each run and read just after;
+   launch counters (all launches, those of the bf16 tensor-core routes
+   and those of the float32 3xTF32 routes) set to 0 just before each run
+   and read just after: a float32 request launches K1 16 and K4 2 times
+   on the 3xTF32 routes;
 5. the matcher and the EMM features at a small width with the kernels on
    the card and with the plain versions on the CPU, compared;
 6. the port's solver on 16 synthetic scenes at 0.5 px noise, 5-point and
@@ -155,7 +160,9 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 (B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
-in both dtypes.
+in both dtypes (K1 and K4 in float32 on their 3xTF32 routes). Float32
+bounds are 3xTF32's on the tensor cores (495 / 3 = 165 TFLOP/s), with the
+CUDA cores' 67 TFLOP/s beside them (``bound_cuda_core_ms``).
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -175,9 +182,14 @@ import warnings
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
-# cores, bf16 tensor cores, HBM3 bandwidth.
+# cores, bf16 and TF32 tensor cores, HBM3 bandwidth. A float32-accurate
+# product's least time is on the tensor cores as three TF32 passes
+# (3xTF32, 165 TFLOP/s): the float32 bound_ms. The CUDA cores' 67 TFLOP/s
+# is kept beside it as bound_cuda_core_ms.
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+PEAK_F32_TC = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
 EX2_PER_CLOCK_SM = 16  # exponentials (MUFU.EX2) per clock per SM, sm_90
 
@@ -240,6 +252,34 @@ def bound_ms(flops: float, nbytes: float, peak: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def dtype_bounds(dt, flops: float, nbytes: float) -> dict:
+    """bound_ms / bound_by for a kernel's dtype (float32: 3xTF32 on the
+    tensor cores; bfloat16: its tensor cores), and for float32 also
+    bound_cuda_core_ms, the same work at the CUDA cores' 67 TFLOP/s."""
+    import torch
+
+    f32 = dt == torch.float32
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_TC if f32 else PEAK_BF16)
+    out = dict(bound_ms=b_ms, bound_by=b_by)
+    if f32:
+        out["bound_cuda_core_ms"] = bound_ms(flops, nbytes, PEAK_F32)[0]
+    return out
+
+
+def took_route(wrapper, before) -> str:
+    """The route a wrapper's last launch took, from its counters against
+    ``before`` = (launches_tc, launches_tf32) read before it."""
+    if wrapper.launches_tc > before[0]:
+        return "tensor cores"
+    if getattr(wrapper, "launches_tf32", 0) > before[1]:
+        return "tensor cores, 3xTF32"
+    return "cuda cores"
+
+
+def route_counts(wrapper):
+    return wrapper.launches_tc, getattr(wrapper, "launches_tf32", 0)
+
+
 def layer_params(C: int, g, device):
     import torch
 
@@ -281,38 +321,53 @@ def k2_errors(a, b, outs):
     return err, 1e-6 + 1e-4 * float(prv.abs().max()), int((ri != pri).sum()), lost
 
 
-ROUTES = {  # how each kernel computes in bfloat16
-    "K1_loftr_layer": "cuda, tensor cores (wgmma, cp.async), 3 launches",
-    "K2_dual_softmax_rowcol": "cuda, tensor cores (wgmma, cp.async), 4 launches",
-    "K3_fine_transformer": "cuda, tensor cores (wgmma, cp.async), 1 launch",
-    "K4_bilinear_dual_softmax": "cuda, tensor cores (wgmma, cp.async), 3 launches",
+ROUTES = {  # how each kernel computes at the main path's shapes, by dtype
+    "bf16": {
+        "K1_loftr_layer": "cuda, tensor cores (wgmma, cp.async), 3 launches",
+        "K2_dual_softmax_rowcol": "cuda, tensor cores (wgmma, cp.async), 4 launches",
+        "K3_fine_transformer": "cuda, tensor cores (wgmma, cp.async), 1 launch",
+        "K4_bilinear_dual_softmax": "cuda, tensor cores (wgmma, cp.async), 3 launches",
+    },
+    "f32": {
+        "K1_loftr_layer": "cuda, tensor cores 3xTF32 (wgmma GEMMs, cp.async; k^T v and q KV "
+                          "on the CUDA cores), 10 launches",
+        "K2_dual_softmax_rowcol": "cuda, CUDA cores, 6 launches (on no path: K2 takes bf16)",
+        "K3_fine_transformer": "cuda, CUDA cores, 1 launch",
+        "K4_bilinear_dual_softmax": "cuda, tensor cores 3xTF32 (wgmma, cp.async), 3 launches",
+    },
 }
+# the route each kernel must take in float32 at the shapes phase 3 and
+# phase 16 (a) hold it at (K1, K4: the 3xTF32 route, read from launches_tf32)
+F32_ROUTE = {"K1_loftr_layer": "tensor cores, 3xTF32", "K2_dual_softmax_rowcol": "cuda cores",
+             "K3_fine_transformer": "cuda cores",
+             "K4_bilinear_dual_softmax": "tensor cores, 3xTF32"}
 
 
 def shape_entry(name, dt, shape, wrapper, call, plain, check, flops, nbytes, library=None):
     """A kernel at one shape against its plain version on the same inputs:
-    the route that ran (read from ``launches_tc``), the error against its
+    the route that ran (read from ``launches_tc`` and ``launches_tf32``;
+    in float32 it must be ``F32_ROUTE``'s), the error against its
     tolerance (``check(outs)``), CUDA-event ms of the kernel, its plain
     version and the library call (where given), and the bound. Returns
     (entry, agrees)."""
     import torch
 
-    tc0 = wrapper.launches_tc
+    before = route_counts(wrapper)
     outs = call()
     torch.cuda.synchronize()
-    route = "tensor cores" if wrapper.launches_tc > tc0 else "cuda cores"
+    route = took_route(wrapper, before)
     err, tol = check(outs)
     ms, plain_ms = cuda_ms(call, 10), cuda_ms(plain, 3)
     lib_ms = None if library is None else cuda_ms(library, 3)
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+    bounds = dtype_bounds(dt, flops, nbytes)
     tag = "f32" if dt == torch.float32 else "bf16"
-    ok = err <= tol
+    ok = err <= tol and (tag == "bf16" or route == F32_ROUTE[name])
     print(f"kernel {name} {tag} {shape}: route {route}, max_abs_err={err:.3e} "
-          f"(tol {tol:.3e}) {'ok' if ok else 'DISAGREES'} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) x_bound={ms / b_ms:.1f} "
-          f"library_ms={lib_ms}", flush=True)
+          f"(tol {tol:.3e}) {'ok' if ok else 'FAILED'} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bounds['bound_ms']:.4f} ({bounds['bound_by']}) "
+          f"x_bound={ms / bounds['bound_ms']:.1f} library_ms={lib_ms}", flush=True)
     return dict(shape=shape, dtype=tag, route=route, max_abs_err=err, tol=tol, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms), ok
+                plain_ms=plain_ms, **bounds, library_ms=lib_ms), ok
 
 
 def k4_tol(dt, ref):
@@ -355,32 +410,33 @@ def check_kernels(dev):
         function's least (2 per element: E = 2^(s - cmax) feeds the column
         sums, and P = E^2 2^cmax[m] 2^-alpha[n] needs only per-row and
         per-column factors beside one row-sum exponential) and the route's
-        own count (bf16 3: 1 statistics pass, 2 main pass; float32 4: 2
-        statistics, 2 tile pass). Neither is a hard floor, since an
+        own count (3 on both tensor-core routes: 1 statistics pass, 2 main
+        pass). Neither is a hard floor, since an
         exponential can also run on the FMA units as a polynomial, so
         neither enters bound_ms."""
-        return 2 * elements, (3 if dt == torch.bfloat16 else 4) * elements
+        return 2 * elements, 3 * elements
 
     def record(name, dt, err, tol, ms, plain_ms, flops, nbytes, lib_ms=None,
-               extra="", exps=None):
-        peak = PEAK_F32 if dt == torch.float32 else PEAK_BF16
-        b_ms, b_by = bound_ms(flops, nbytes, peak)
+               extra="", exps=None, route=None):
+        """``route``: the route the checked launch took (``took_route``);
+        in float32 it must be ``F32_ROUTE``'s."""
+        bounds = dtype_bounds(dt, flops, nbytes)
         tag = "f32" if dt == torch.float32 else "bf16"
-        ok = err <= tol
-        e = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        ok = err <= tol and (tag == "bf16" or route == F32_ROUTE[name])
+        e = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, **bounds,
+                 library_ms=lib_ms, route=ROUTES[tag][name], took=route)
         if exps:
             e["exp_bound_ms"], e["exp_route_ms"] = (n / exp_rate() * 1e3 for n in exps)
             extra += (f" exp_bound_ms={e['exp_bound_ms']:.4f} "
                       f"exp_route_ms={e['exp_route_ms']:.4f}")
-        print(f"kernel {name} {tag}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-              f"{'ok' if ok else 'DISAGREES'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms} {extra}",
-              flush=True)
+        cc = (f" bound_cuda_core_ms={bounds['bound_cuda_core_ms']:.4f}"
+              if "bound_cuda_core_ms" in bounds else "")
+        print(f"kernel {name} {tag}: route {route}, max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if ok else 'FAILED'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bounds['bound_ms']:.4f} ({bounds['bound_by']}){cc} "
+              f"library_ms={lib_ms} {extra}", flush=True)
         if not ok:
             failures.append(f"{name} {tag}")
-        if tag == "bf16":
-            e["route"] = ROUTES[name]
         entries.setdefault(name, {})[tag] = e
 
     # ---- K1: one coarse LoFTR layer (cross: x attends to src) ----------
@@ -393,8 +449,10 @@ def check_kernels(dev):
         x, s = x32.to(dt), s32.to(dt)
         pk = pack_params(p, dt)  # cast once, outside the timed launches
         ref = loftr_layer_plain(x.float(), s.float(), p, H_COARSE)
+        before = route_counts(loftr_layer)
         out = loftr_layer(x, s, pk, H_COARSE)
         torch.cuda.synchronize()
+        route = took_route(loftr_layer, before)
         err = max_err(out, ref)
         # f32: summation order only; bf16: the kernel rounds k, v, KV, q,
         # msg, m, y and out to bf16 (2^-8 relative each), the reference not.
@@ -403,7 +461,7 @@ def check_kernels(dev):
         plain_ms = cuda_ms(lambda: loftr_layer_plain(x, s, p, H_COARSE), 5)
         e = x.element_size()
         nbytes = 3 * B * L * C * e + 10 * C * C * e + 4 * C * 4
-        record("K1_loftr_layer", dt, err, tol, ms, plain_ms, k1_flops, nbytes)
+        record("K1_loftr_layer", dt, err, tol, ms, plain_ms, k1_flops, nbytes, route=route)
 
     # ---- K2: dual-softmax row/col reductions ---------------------------
     f0 = torch.randn(B, L, C, generator=g)
@@ -413,7 +471,9 @@ def check_kernels(dev):
     for dt in (torch.bfloat16, torch.float32):
         a = (f0.to(dt) * scale.to(dt)).to(dev).contiguous()
         b = (f1.to(dt) * scale.to(dt)).to(dev).contiguous()
+        before = route_counts(dual_softmax_rowcol)
         err, tol, n_diff, lost = k2_errors(a, b, dual_softmax_rowcol(a, b, 10.0))
+        route = took_route(dual_softmax_rowcol, before)
         ms = cuda_ms(lambda: dual_softmax_rowcol(a, b, 10.0), 10)
         plain_ms = cuda_ms(lambda: dual_softmax_rowcol_plain(a, b, 10.0), 5)
 
@@ -426,7 +486,7 @@ def check_kernels(dev):
         nbytes = 2 * B * L * C * a.element_size() + B * L * (4 + 8 + 4)
         record("K2_dual_softmax_rowcol", dt, err, tol, ms, plain_ms,
                2 * B * L * L * C, nbytes, lib_ms,
-               extra=f"row_idx_differs={n_diff} mutual_lost={lost}")
+               extra=f"row_idx_differs={n_diff} mutual_lost={lost}", route=route)
 
     # ---- K3: fine transformer over 5x5 windows --------------------------
     n = B * K_MATCH
@@ -440,8 +500,10 @@ def check_kernels(dev):
         a, b = w0_32.to(dt), w1_32.to(dt)
         r0, r1 = fine_transformer_plain(a.float(), b.float(), fp, names, H_FINE)
         pk = pack_fine_params(fp, dt)  # cast once, outside the timed launches
+        before = route_counts(fine_transformer)
         o0, o1 = fine_transformer(a, b, fp, names, H_FINE, pack=pk)
         torch.cuda.synchronize()
+        route = took_route(fine_transformer, before)
         err = max(max_err(o0, r0), max_err(o1, r1))
         tol = (1e-4 if dt == torch.float32 else 6e-2) * float(
             max(r0.abs().max(), r1.abs().max()))
@@ -449,7 +511,8 @@ def check_kernels(dev):
         plain_ms = cuda_ms(lambda: fine_transformer_plain(a, b, fp, names, H_FINE), 5)
         e = a.element_size()
         nbytes = 4 * n * WW * C_FINE * e + 2 * 10 * C_FINE ** 2 * e
-        record("K3_fine_transformer", dt, err, tol, ms, plain_ms, k3_flops, nbytes)
+        record("K3_fine_transformer", dt, err, tol, ms, plain_ms, k3_flops, nbytes,
+               route=route)
 
     # ---- K4: dual-softmax bilinear attention ----------------------------
     Dv = D_EMM + 6
@@ -460,37 +523,54 @@ def check_kernels(dev):
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
         ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
+        before = route_counts(bilinear_dual_softmax)
         out = bilinear_dual_softmax(q, k, v, 0.125)
         torch.cuda.synchronize()
+        route = took_route(bilinear_dual_softmax, before)
         err = max_err(out, ref)
         ms = cuda_ms(lambda: bilinear_dual_softmax(q, k, v, 0.125), 10)
         plain_ms = cuda_ms(lambda: bilinear_dual_softmax_plain(q, k, v, 0.125), 3)
         e = q.element_size()
         nbytes = B * H_EMM * L * (2 * D_EMM + Dv) * e + B * H_EMM * Dv * Dv * 4
         record("K4_bilinear_dual_softmax", dt, err, k4_tol(dt, ref), ms, plain_ms,
-               k4_flops, nbytes, exps=k4_exps(dt, B * H_EMM * L * L))
+               k4_flops, nbytes, exps=k4_exps(dt, B * H_EMM * L * L), route=route)
 
-    # ---- the bf16 tensor-core routes at ragged shapes --------------------
-    # (a generator of their own, so that the inputs above do not change)
+    # ---- the tensor-core routes at ragged shapes -------------------------
+    # (bf16, and K1's and K4's float32 3xTF32 routes, the route read from
+    # the counters; a generator of their own, so that the inputs above do
+    # not change)
     gr = torch.Generator().manual_seed(1)
+
+    def on_route(wrapper, dt, call):
+        before = route_counts(wrapper)
+        out = call()
+        torch.cuda.synchronize()
+        want = "tensor cores" if dt == torch.bfloat16 else "tensor cores, 3xTF32"
+        return out, took_route(wrapper, before) == want
+
     for Br, Lr, Sr in ((1, L, L), (B, 1000, 1200)):
-        x = torch.randn(Br, Lr, C, generator=gr).to(dev, torch.bfloat16)
-        s = torch.randn(Br, Sr, C, generator=gr).to(dev, torch.bfloat16)
+        x32 = torch.randn(Br, Lr, C, generator=gr).to(dev)
+        s32 = torch.randn(Br, Sr, C, generator=gr).to(dev)
         pr = layer_params(C, gr, dev)
-        ref = loftr_layer_plain(x.float(), s.float(), pr, H_COARSE)
-        out = loftr_layer(x, s, pack_params(pr, torch.bfloat16), H_COARSE)
-        torch.cuda.synchronize()
-        ragged(f"K1_loftr_layer bf16 B={Br} L={Lr} S={Sr}", max_err(out, ref),
-               6e-2 * float(ref.abs().max()))
-    for Nr in (1000,):
-        q, k = (torch.randn(1, H_EMM, Nr, D_EMM, generator=gr).to(dev, torch.bfloat16)
-                for _ in range(2))
-        v = torch.randn(1, H_EMM, Nr, Dv, generator=gr).to(dev, torch.bfloat16)
-        ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
-        out = bilinear_dual_softmax(q, k, v, 0.125)
-        torch.cuda.synchronize()
-        ragged(f"K4_bilinear_dual_softmax bf16 B=1 N={Nr}", max_err(out, ref),
-               k4_tol(torch.bfloat16, ref))
+        for dt in (torch.bfloat16, torch.float32):
+            x, s = x32.to(dt), s32.to(dt)
+            ref = loftr_layer_plain(x.float(), s.float(), pr, H_COARSE)
+            out, routed = on_route(loftr_layer, dt,
+                                   lambda: loftr_layer(x, s, pack_params(pr, dt), H_COARSE))
+            rel = 6e-2 if dt == torch.bfloat16 else 1e-4
+            ragged(f"K1_loftr_layer {dt} B={Br} L={Lr} S={Sr} (route ok: {routed})",
+                   max_err(out, ref) if routed else math.inf, rel * float(ref.abs().max()))
+    for Nr, Dr, Dvr in ((1000, D_EMM, Dv), (37, 16, 13), (130, D_EMM, 72)):
+        q32, k32 = (torch.randn(1, H_EMM, Nr, Dr, generator=gr).to(dev) for _ in range(2))
+        v32 = torch.randn(1, H_EMM, Nr, Dvr, generator=gr).to(dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dr ** -0.5)
+            out, routed = on_route(bilinear_dual_softmax, dt,
+                                   lambda: bilinear_dual_softmax(q, k, v, Dr ** -0.5))
+            ragged(f"K4_bilinear_dual_softmax {dt} B=1 N={Nr} D={Dr} Dv={Dvr} "
+                   f"(route ok: {routed})", max_err(out, ref) if routed else math.inf,
+                   k4_tol(dt, ref))
     for nr in (7, 2 * K_MATCH + 3):
         a, b = (torch.randn(nr, WW, C_FINE, generator=gr).to(dev, torch.bfloat16)
                 for _ in range(2))
@@ -512,53 +592,56 @@ def check_kernels(dev):
 
     # ---- the CUDA-core routes at shapes the tensor-core routes lack ------
     # (a generator of its own). The route that ran is read from the
-    # counters: launches + 1 and launches_tc unchanged.
+    # counters: launches + 1, launches_tc and launches_tf32 unchanged.
     gp = torch.Generator().manual_seed(2)
 
     def cuda_core_route(name, wrapper, dt, shape, call, plain, tol_rel, flops, nbytes):
         refs = plain()
-        n0, tc0 = wrapper.launches, wrapper.launches_tc
+        n0, before = wrapper.launches, route_counts(wrapper)
         outs = call()
         torch.cuda.synchronize()
-        took = "cuda cores" if (wrapper.launches - n0, wrapper.launches_tc - tc0) == (1, 0) \
-            else "tensor cores"
+        took, once = took_route(wrapper, before), wrapper.launches == n0 + 1
         err = max(max_err(o, r) for o, r in zip(outs, refs))
         tol = tol_rel * max(float(r.abs().max()) for r in refs)
         ms, plain_ms = cuda_ms(call, 5), cuda_ms(plain, 2)
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+        bounds = dtype_bounds(dt, flops, nbytes)
         tag = "f32" if dt == torch.float32 else "bf16"
-        ok = err <= tol and took == "cuda cores"
+        ok = err <= tol and took == "cuda cores" and once
         print(f"kernel {name} {tag} {shape}: route {took}, max_abs_err={err:.3e} "
               f"(tol {tol:.3e}) {'ok' if ok else 'FAILED'} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"plain_ms={plain_ms:.4f} bound_ms={bounds['bound_ms']:.4f} "
+              f"({bounds['bound_by']})", flush=True)
         if not ok:
             failures.append(f"{name} {tag} {shape}")
         entries.setdefault(name, {}).setdefault("cuda_core_shapes", []).append(dict(
             shape=shape, dtype=tag, route=took, max_abs_err=err, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+            plain_ms=plain_ms, **bounds))
 
-    for Cr, Hr in ((32, 4), (96, 4)):  # the guard's coarse stack; head width 24
-        x = torch.randn(B, L, Cr, generator=gp).to(dev, torch.bfloat16)
-        s = torch.randn(B, L, Cr, generator=gp).to(dev, torch.bfloat16)
+    # the guard's coarse stack (bf16 and f32); a head width of 24
+    for Cr, Hr, dt in ((32, 4, torch.bfloat16), (96, 4, torch.bfloat16),
+                       (32, 4, torch.float32)):
+        x = torch.randn(B, L, Cr, generator=gp).to(dev, dt)
+        s = torch.randn(B, L, Cr, generator=gp).to(dev, dt)
         pr = layer_params(Cr, gp, dev)
-        pk = pack_params(pr, torch.bfloat16)
+        pk = pack_params(pr, dt)
         d = Cr // Hr
         cuda_core_route(
-            "K1_loftr_layer", loftr_layer, torch.bfloat16, f"B={B} L=S={L} C={Cr} nhead={Hr}",
+            "K1_loftr_layer", loftr_layer, dt, f"B={B} L=S={L} C={Cr} nhead={Hr}",
             lambda: (loftr_layer(x, s, pk, Hr),),
-            lambda: (loftr_layer_plain(x.float(), s.float(), pr, Hr),), 6e-2,
+            lambda: (loftr_layer_plain(x.float(), s.float(), pr, Hr),),
+            6e-2 if dt == torch.bfloat16 else 1e-4,
             B * (20 * L * Cr * Cr + 4 * L * Cr * d + 2 * L * Cr),
-            3 * B * L * Cr * 2 + 10 * Cr * Cr * 2 + 4 * Cr * 4)
+            3 * B * L * Cr * x.element_size() + 10 * Cr * Cr * x.element_size() + 4 * Cr * 4)
     Dr = 128
-    q, k, v = (torch.randn(B, H_EMM, L, Dr, generator=gp).to(dev, torch.bfloat16)
-               for _ in range(3))
-    cuda_core_route(
-        "K4_bilinear_dual_softmax", bilinear_dual_softmax, torch.bfloat16,
-        f"B={B} H={H_EMM} N={L} D=Dv={Dr}",
-        lambda: (bilinear_dual_softmax(q, k, v, Dr ** -0.5),),
-        lambda: (bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dr ** -0.5),),
-        1e-2, B * H_EMM * (4 * L * L * Dr + 2 * L * Dr * Dr),
-        B * H_EMM * L * 3 * Dr * 2 + B * H_EMM * Dr * Dr * 4)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(B, H_EMM, L, Dr, generator=gp).to(dev, dt) for _ in range(3))
+        cuda_core_route(
+            "K4_bilinear_dual_softmax", bilinear_dual_softmax, dt,
+            f"B={B} H={H_EMM} N={L} D=Dv={Dr}",
+            lambda: (bilinear_dual_softmax(q, k, v, Dr ** -0.5),),
+            lambda: (bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), Dr ** -0.5),),
+            1e-2 if dt == torch.bfloat16 else 1e-4, B * H_EMM * (4 * L * L * Dr + 2 * L * Dr * Dr),
+            B * H_EMM * L * 3 * Dr * q.element_size() + B * H_EMM * Dr * Dr * 4)
     for sr, Cr in ((WW, 256), (81, C_FINE)):
         a, b = (torch.randn(n, sr, Cr, generator=gp).to(dev) for _ in range(2))
         pr = [layer_params(Cr, gp, dev) for _ in range(2)]
@@ -651,6 +734,8 @@ def reset_counters():
     for f in counters().values():
         f.launches = 0
         f.launches_tc = 0
+        if hasattr(f, "launches_tf32"):
+            f.launches_tf32 = 0
 
 
 # kernels with a tensor-core route (counted by launches_tc), and the dtypes
@@ -659,6 +744,9 @@ TC_ROUTES = {"K1_loftr_layer": ("bfloat16",),
              "K2_dual_softmax_rowcol": ("float32", "bfloat16"),
              "K3_fine_transformer": ("bfloat16",),
              "K4_bilinear_dual_softmax": ("bfloat16",)}
+# kernels with a float32 tensor-core route (3xTF32, counted by
+# launches_tf32) and the dtypes of the requests that go through it
+TF32_ROUTES = {"K1_loftr_layer": ("float32",), "K4_bilinear_dual_softmax": ("float32",)}
 
 
 # phase 4's runs: (dtype, minimal solver); FARConfig()'s solver is 5pt
@@ -668,7 +756,7 @@ MAIN_RUNS = (("float32", "5pt"), ("bfloat16", "5pt"), ("float32", "8pt"),
 
 def run_main_path(dev, card: str):
     """Phase 4: far_forward at 480x640, full width; returns the launches
-    of each kernel and those of the tensor-core routes."""
+    of each kernel and those of the bf16 and float32 tensor-core routes."""
     import torch
 
     from far_tpu_torch.pipeline import build_inference_fn, init_model
@@ -678,6 +766,7 @@ def run_main_path(dev, card: str):
     fns = counters()
     total = {k: 0 for k in fns}
     total_tc = {k: 0 for k in TC_ROUTES}
+    total_tf32 = {k: 0 for k in TF32_ROUTES}
     for dtype, solver in MAIN_RUNS:
         cfg = FARConfig(dtype=dtype) if solver == FARConfig().solver.minimal_solver \
             else FARConfig(solver=SolverOptions(minimal_solver=solver), dtype=dtype)
@@ -702,6 +791,7 @@ def run_main_path(dev, card: str):
             outs.append(out)
         counts = {k: f.launches for k, f in fns.items()}
         counts_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
+        counts_tf32 = {k: fns[k].launches_tf32 for k in TF32_ROUTES}
         for k, want in per_req.items():
             if counts[k] != want * N_REQUESTS:
                 fail(f"{dtype} {solver}: {k} launched {counts[k]} times, expected "
@@ -713,6 +803,12 @@ def run_main_path(dev, card: str):
                 fail(f"{dtype} {solver}: {k} tensor-core route launched {counts_tc[k]} "
                      f"times, expected {want}")
             total_tc[k] += counts_tc[k]
+        for k, dtypes in TF32_ROUTES.items():
+            want = per_req[k] * N_REQUESTS if dtype in dtypes else 0
+            if counts_tf32[k] != want:
+                fail(f"{dtype} {solver}: {k} float32 tensor-core route launched "
+                     f"{counts_tf32[k]} times, expected {want}")
+            total_tf32[k] += counts_tf32[k]
         for out in outs:
             for name in ("R", "t", "regressed_9d", "gating", "num_inliers", "E"):
                 val = getattr(out, name)
@@ -725,12 +821,12 @@ def run_main_path(dev, card: str):
         print(f"far_forward {dtype} {solver} B={B_REQUEST} 480x640: ms/request median "
               f"{ms:.2f} (runs {[round(t, 2) for t in times]}), "
               f"pairs/s {B_REQUEST * 1e3 / ms:.2f}, launches {counts}, "
-              f"tensor-core route launches {counts_tc}, "
+              f"tensor-core route launches {counts_tc}, 3xTF32 route launches {counts_tf32}, "
               f"valid matches {outs[-1].matches.valid.sum(-1).tolist()}, "
               f"inliers {outs[-1].num_inliers.tolist()} on {card}", flush=True)
         del model, fn, outs
         torch.cuda.empty_cache()
-    return total, total_tc
+    return total, total_tc, total_tf32
 
 
 def small_agreement(dev):
@@ -783,7 +879,8 @@ def small_agreement(dev):
           flush=True)
     if float(same.float().mean()) < 0.9:
         fail("kernel path selects other matches than the plain path")
-    # f32 on both sides, TF32 off: summation order only
+    # f32 on both sides, TF32 off in cuBLAS and cuDNN: summation order, and
+    # K4's 3xTF32 route (~1e-6 relative)
     bad = {k: v for k, v in rel.items() if v > 1e-3}
     if bad or expec_err > 5e-2:
         fail(f"kernel path disagrees with the plain path: {bad}, "
@@ -887,10 +984,18 @@ def minimal_problems(dev, n: int = 64) -> float:
     return share
 
 
+# deg: the network guard's float32 median on the card with K1 and K4 in
+# float32 on the CUDA cores (PERF.md section 2). The 3xTF32 routes keep
+# float32 accuracy, so the median must not move by more than the table's
+# rounding.
+GUARD_F32_MEDIAN = 8.5490
+
+
 def network_guard(dev) -> dict:
     """Phase 7: the trained tiny checkpoint through far_forward on the
     card, float32 and bfloat16; each median must stay under the JAX
-    package's gate max(3 x the trained median, 5 deg) (bench.py)."""
+    package's gate max(3 x the trained median, 5 deg) (bench.py), and
+    the float32 one within 0.01 deg of GUARD_F32_MEDIAN."""
     import torch
 
     from far_tpu_torch.tools.guard import gate_deg, guard_eval, load_guard
@@ -906,6 +1011,9 @@ def network_guard(dev) -> dict:
               f"{meta['eval_rot_err_med_deg']} deg, gate {gate:.2f} deg)", flush=True)
         if not med < gate:
             fail(f"network guard {dtype}: median {med} deg >= gate {gate} deg")
+        if dtype == "float32" and abs(med - GUARD_F32_MEDIAN) > 0.01:
+            fail(f"network guard float32: median {med:.4f} deg, not within 0.01 deg of "
+                 f"{GUARD_F32_MEDIAN}")
         out[dtype] = med
     return out
 
@@ -945,16 +1053,18 @@ def train_functions(dev):
 
     def check(name, dt, fn, wrapper, plain, inputs, launches, tc, extra_plain=None):
         cots = None
-        before = {k: (f.launches, getattr(f, "launches_tc", 0)) for k, f in fns.items()}
+        before = {k: (f.launches, *route_counts(f)) for k, f in fns.items()}
         outs_w = wrapper(*inputs)
         outs_w = outs_w if isinstance(outs_w, tuple) else (outs_w,)
         cots = [torch.randn(o.shape, generator=g).to(dev, o.dtype) for o in outs_w]
         outs_f, g_f = grads(fn, inputs, cots)
         torch.cuda.synchronize()
-        grew = {k: (f.launches - before[k][0], getattr(f, "launches_tc", 0) - before[k][1])
+        grew = {k: tuple(a - b for a, b in zip((f.launches, *route_counts(f)), before[k]))
                 for k, f in fns.items()}
-        want = {k: (0, 0) for k in fns}
-        want[launches] = (2, 2 if tc else 0)   # the wrapper's launch + the Function's
+        want = {k: (0, 0, 0) for k in fns}
+        # the wrapper's launch + the Function's, on the dtype's tensor-core route
+        tf32 = not tc and launches in TF32_ROUTES
+        want[launches] = (2, 2 if tc else 0, 2 if tf32 else 0)
         _, g_p = grads(plain, inputs, cots)
         same = all(torch.equal(a, b) for a, b in zip(outs_f, outs_w))
         err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
@@ -1140,7 +1250,8 @@ def train_full(dev, card: str):
     bfloat16, AdamW at lr 5e-5 with no warm-up and no schedule. Fails unless every metric and gradient is
     finite, the parameters moved, step 10's loss is below step 1's, and
     every step launched K1 16 times, K4 twice, K2 and K3 never (the
-    tensor-core routes in bf16: K1 16, K4 2). Returns the launches a step."""
+    tensor-core routes in bf16, and the 3xTF32 routes in f32: K1 16, K4
+    2). Returns the launches a step."""
     import torch
 
     from far_tpu_torch.data.synthetic import SyntheticPairDataset, collate
@@ -1168,10 +1279,12 @@ def train_full(dev, card: str):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             metrics.append(m)
-            got = {k: (f.launches, f.launches_tc) for k, f in fns.items()}
+            got = {k: (f.launches, f.launches_tc, getattr(f, "launches_tf32", 0))
+                   for k, f in fns.items()}
             tc = int(dtype == "bfloat16")
-            want = {"K1_loftr_layer": (16, 16 * tc), "K2_dual_softmax_rowcol": (0, 0),
-                    "K3_fine_transformer": (0, 0), "K4_bilinear_dual_softmax": (2, 2 * tc)}
+            want = {"K1_loftr_layer": (16, 16 * tc, 16 * (1 - tc)),
+                    "K2_dual_softmax_rowcol": (0, 0, 0), "K3_fine_transformer": (0, 0, 0),
+                    "K4_bilinear_dual_softmax": (2, 2 * tc, 2 * (1 - tc))}
             if got != want:
                 fail(f"train {dtype} step {step}: launches {got}, expected {want}")
             finite = all(math.isfinite(v) for v in m.values()) and all(
@@ -1626,7 +1739,7 @@ def timed_requests(name: str, dtype: str, fn, want: dict, check, card: str,
     """One warm-up request, then N_REQUESTS, each with the launch counters
     set to 0 just before it and read just after; fails unless every
     request launches ``want`` (and the tensor-core routes theirs, per
-    TC_ROUTES). Returns the requests' host-clock ms."""
+    TC_ROUTES and TF32_ROUTES). Returns the requests' host-clock ms."""
     import torch
 
     fns = counters()
@@ -1643,16 +1756,19 @@ def timed_requests(name: str, dtype: str, fn, want: dict, check, card: str,
             got = {k: f.launches for k, f in fns.items()}
             got_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
             want_tc = {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES}
-            if got != want or got_tc != want_tc:
-                fail(f"{name} {dtype}: launches {got} (tensor cores {got_tc}), expected "
-                     f"{want} ({want_tc}) a request")
+            got_tf32 = {k: fns[k].launches_tf32 for k in TF32_ROUTES}
+            want_tf32 = {k: want[k] if dtype in TF32_ROUTES[k] else 0 for k in TF32_ROUTES}
+            if got != want or got_tc != want_tc or got_tf32 != want_tf32:
+                fail(f"{name} {dtype}: launches {got} (tensor cores {got_tc}, 3xTF32 "
+                     f"{got_tf32}), expected {want} ({want_tc}, {want_tf32}) a request")
             for k in got:
                 totals[k] += got[k]
             check(out)
     ms = statistics.median(times)
     print(f"{name} {dtype} B={B_REQUEST}: ms/request median {ms:.2f} (runs "
           f"{[round(t, 2) for t in times]}), pairs/s {B_REQUEST * 1e3 / ms:.2f}, launches "
-          f"a request {got}, tensor-core route {got_tc} on {card}", flush=True)
+          f"a request {got}, tensor-core route {got_tc}, 3xTF32 route {got_tf32} on {card}",
+          flush=True)
     return times
 
 
@@ -2486,9 +2602,11 @@ def option_requests(dev, card: str) -> dict:
             got_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
             want = {k: n * N_REQUESTS for k, n in per_req.items()}
             want_tc = {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES}
-            if got != want or got_tc != want_tc:
-                fail(f"option {option} {dtype}: launches {got}, tensor-core routes {got_tc}; "
-                     f"expected {want}, {want_tc}")
+            got_tf32 = {k: fns[k].launches_tf32 for k in TF32_ROUTES}
+            want_tf32 = {k: want[k] if dtype in TF32_ROUTES[k] else 0 for k in TF32_ROUTES}
+            if got != want or got_tc != want_tc or got_tf32 != want_tf32:
+                fail(f"option {option} {dtype}: launches {got}, tensor-core routes {got_tc}, "
+                     f"3xTF32 {got_tf32}; expected {want}, {want_tc}, {want_tf32}")
             for out in outs:
                 for name in ("R", "t", "regressed_9d", "gating", "E"):
                     if not bool(torch.isfinite(getattr(out, name)).all()):
@@ -2500,7 +2618,7 @@ def option_requests(dev, card: str) -> dict:
                   f"{cfg.coarse_hw[0]}x{cfg.coarse_hw[1]}): ms/request median {ms:.2f} (runs "
                   f"{[round(t, 2) for t in times]}), pairs/s {B_REQUEST * 1e3 / ms:.2f}, "
                   f"peak {peak:.3f} GiB, launches {got}, tensor-core route launches {got_tc}, "
-                  f"valid matches {outs[-1].matches.valid.sum(-1).tolist()} on {card}",
+                  f"3xTF32 {got_tf32}, valid matches {outs[-1].matches.valid.sum(-1).tolist()} on {card}",
                   flush=True)
             launches.setdefault(option, {})[dtype] = got
             del model, fn, outs
@@ -3730,7 +3848,7 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     entries = check_kernels(dev)
-    launches, launches_tc = run_main_path(dev, card)
+    launches, launches_tc, launches_tf32 = run_main_path(dev, card)
     small_agreement(dev)
     for minimal_solver in ("5pt", "8pt"):
         solver_guard(dev, minimal_solver)
@@ -3795,9 +3913,13 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-            "dtype": main, other: entries[name][other]})
+            "dtype": main, "dtype_route": e["route"], other: entries[name][other]})
+        if "bound_cuda_core_ms" in e:
+            kernels[-1]["bound_cuda_core_ms"] = e["bound_cuda_core_ms"]
         if name in launches_tc:
             kernels[-1]["launches_tc"] = launches_tc[name]
+        if name in launches_tf32:
+            kernels[-1]["launches_tf32"] = launches_tf32[name]
         # launches a training step (phase 8 (c)); backward recomputes the
         # plain version, so it launches none
         kernels[-1]["launches_train_step"] = train_launches[name]

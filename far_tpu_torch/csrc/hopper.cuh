@@ -23,6 +23,23 @@
 //   register while the tensor cores still read it.
 // - acc_row_stats: LayerNorm statistics of the rows a thread holds in an
 //   accumulator (K1's and K3's row passes).
+//
+// TF32 pieces (the float32 routes of K1 and K4, 3xTF32):
+// - A float32 tile uses the same swizzled layout with 32 columns an atom
+//   (load_tile<float>, swz4); one k8 step of TF32 wgmma inside an atom is
+//   again 32 bytes. wgmma reads TF32 operands K-major only (the transpose
+//   bits exist for 16-bit types alone), so every B tile is stored K-major.
+// - tf32_rna / tf32_split: cvt.rna.tf32.f32 (nearest, ties away from zero)
+//   of x into big and of x - big into small; split_tile does it in place
+//   for a staged tile (big) into a twin buffer (small); a product a b is
+//   then small_a big_b + big_a small_b + big_a big_b (ops/tf32.py models it).
+// - wgmma_tf32_ss / wgmma_tf32_rs: m64nNk8, f32 += tf32 * tf32 (N = 64, 72,
+//   128; rs 64 and 72).
+// - frag_tf32: the A fragment of k8 step kb from an accumulator, split.
+//   TF32's A fragment holds columns t%4 and t%4 + 4 of a k8 step, the
+//   accumulator columns 2(t%4) and 2(t%4) + 1, so the fragment takes them
+//   as they lie and the K order of the step becomes 0 2 4 6 1 3 5 7: the
+//   B operand must hold its K rows in that order (KPERM).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,16 +126,23 @@ __device__ __forceinline__ int swz(int R, int r, int c) {
   return (c >> 6) * R * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
-// cp.async of the (rows x 64*atoms) block at g (row-major, ld elements)
-// into the swizzled tile at s. Rows >= vrows and columns >= vcols (a
-// multiple of 8) are filled with zeros. Threads tid = 0..nthreads-1 call it.
-__device__ __forceinline__ void load_tile(void* s, const __nv_bfloat16* g, int ld, int rows,
-                                          int atoms, int vrows, int vcols, int tid,
-                                          int nthreads) {
+// Byte offset of float32 element (r, c) in a swizzled tile of R rows.
+__device__ __forceinline__ int swz4(int R, int r, int c) {
+  return (c >> 5) * R * 128 + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// cp.async of the (rows x atoms*128/sizeof(T)) block at g (row-major, ld
+// elements) into the swizzled tile at s. Rows >= vrows and columns >=
+// vcols (a multiple of 16 bytes' elements) are filled with zeros. Threads
+// tid = 0..nthreads-1 call it.
+template <typename T>
+__device__ __forceinline__ void load_tile(void* s, const T* g, int ld, int rows, int atoms,
+                                          int vrows, int vcols, int tid, int nthreads) {
+  constexpr int EPC = 16 / sizeof(T);  // elements a 16-byte chunk
   const int chunks = rows * atoms * 8;
   for (int i = tid; i < chunks; i += nthreads) {
     const int ch = i & 7, ra = i >> 3;
-    const int r = ra % rows, a = ra / rows, c = a * 64 + ch * 8;
+    const int r = ra % rows, a = ra / rows, c = (a * 8 + ch) * EPC;
     const bool ok = r < vrows && c < vcols;
     char* dst = (char*)s + a * rows * 128 + r * 128 + ((ch ^ (r & 7)) << 4);
     cp_async16(dst, ok ? (const void*)(g + (size_t)r * ld + c) : (const void*)g, ok ? 16 : 0);
@@ -147,6 +171,51 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// ---- TF32 splits ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Splits `bytes` (a multiple of 16) of float32 at big in place: big keeps
+// tf32(x), small (the same offsets) gets tf32(x - big). The layout does
+// not matter, so a swizzled tile splits as it lies.
+__device__ __forceinline__ void split_tile(char* big, char* small, int bytes, int tid,
+                                           int nthreads) {
+  for (int i = tid * 16; i < bytes; i += nthreads * 16) {
+    float4 v = *(const float4*)(big + i);
+    uint4 b, s;
+    tf32_split(v.x, b.x, s.x);
+    tf32_split(v.y, b.y, s.y);
+    tf32_split(v.z, b.z, s.z);
+    tf32_split(v.w, b.w, s.w);
+    *(uint4*)(big + i) = b;
+    *(uint4*)(small + i) = s;
+  }
+}
+
+// Position of K index k (0..7) of a k8 step in the order frag_tf32 gives
+// (0 2 4 6 1 3 5 7): even k to k / 2, odd k to 4 + k / 2.
+__device__ __forceinline__ int kperm_pos(int k) { return (k & 1) * 4 + (k >> 1); }
+
+// The split A fragment of k8 step kb of an accumulator whose columns are
+// the K index (n8 block kb), in the K order of kperm_pos.
+template <int N>
+__device__ __forceinline__ void frag_tf32(const float (&d)[N], int kb, uint32_t (&big)[4],
+                                          uint32_t (&small)[4]) {
+  tf32_split(d[4 * kb + 0], big[0], small[0]);  // row g, column 2(t%4)
+  tf32_split(d[4 * kb + 2], big[1], small[1]);  // row g + 8
+  tf32_split(d[4 * kb + 1], big[2], small[2]);  // row g, column 2(t%4) + 1
+  tf32_split(d[4 * kb + 3], big[3], small[3]);  // row g + 8
 }
 
 // ---- wgmma.mma_async m64nNk16, f32 += bf16 * bf16 ------------------------
@@ -273,6 +342,94 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
+
+// ---- wgmma.mma_async m64nNk8, f32 += tf32 * tf32 (both operands K-major) ----
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[36], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35 "
+      "}, "
+      "%36, %37, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35 "
+      "}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 
 // LayerNorm statistics of the two rows a thread holds in a warpgroup
 // accumulator (pieces x N/2 values each); a row lives in one quad.

@@ -11,8 +11,8 @@
 // against ~7 MB of tokens in and out, far above the card's ridge point
 // (6.6 us per pair at 989 TFLOP/s bf16, 97 us at 67 TFLOP/s f32).
 //
-// CUDA-core route (far_loftr_layer; float32, and bfloat16 shapes outside
-// FAR_K1_TC_SHAPES, such as C = 32 or a head width of 24): the TPU kernel
+// CUDA-core route (far_loftr_layer; shapes outside the tensor-core routes'
+// sets in either dtype, such as C = 32 or a head width of 24): the TPU kernel
 // keeps one batch element in VMEM; an SM's 227 KB cannot, so the layer is
 // a chain of 11 launches on the CUDA cores: tiled products (64x64 tiles
 // over all B*L rows, epilogues elu+1 / 1/S / relu fused), a per-head
@@ -49,6 +49,30 @@
 // Rounding to bf16 where the TPU kernel casts: k, v (:68-69), KV (:72),
 // q (:75), msg (:80), m (:83), y (:85), out (:88); sum(k), z and the
 // LayerNorms stay f32 as there.
+//
+// float32 route (far_loftr_layer_tf32), 3xTF32 on the tensor cores, 10
+// launches: the CUDA-core route's chain with its five dense products
+// (q; k; v; m = LN1(msg Wm^T); y = relu(x W0x^T + m W0m^T); out = x +
+// LN2(y W1^T)) as 3xTF32 wgmma GEMMs, each product three TF32 products of
+// split operands (hopper.cuh; ops/tf32.py models it), elu + 1, 1/S, relu
+// and LayerNorm (+ residual, the block spans the row) in their
+// epilogues, and the per-head k^T v and q KV (~2.5 % of the operations)
+// on the CUDA cores in float32. Bound on this card: operations (~13 GFLOP
+// at B=2, 4800 tokens: ~0.08 ms as three TF32 passes at 495 TFLOP/s). The
+// bfloat16 route's fused row pass does not carry over: in float32 with
+// big and small copies, a 64-row block's x tile, msg/m and two split
+// weight stages need 256 KB of shared memory (227 KB a block) before x or
+// msg is split, and q split into A fragments would take 256 registers a
+// thread. So the GEMMs tile
+// 128 x 128 (or 128 x C for LayerNorm) over all B*L rows and pass their
+// intermediates through device memory (~0.2 GB at B=2). The six weights
+// are split once a call (split_weights_kernel), so no block splits a
+// weight; each 32-column K stage of A arrives by cp.async and is split in
+// place in shared memory, beside the split W tiles. What holds it back:
+// a stage's split, 12 wgmma and wait run in series (a third stage moved
+// nothing measurable on the card), both 3xTF32
+// operands come from shared memory, the intermediates' round trips, and
+// the CUDA-core kv and message kernels (~20 % of the route's time).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -56,7 +80,7 @@ using namespace far;
 
 namespace {
 
-enum Epi { EPI_NONE = 0, EPI_ELU1 = 1, EPI_DIV = 2, EPI_RELU = 3 };
+enum Epi { EPI_NONE = 0, EPI_ELU1 = 1, EPI_DIV = 2, EPI_RELU = 3, EPI_LN = 4 };
 
 // C[M, N] = epi(A1 W1^T [+ A2 W2^T]); W are torch Linear weights (N, K).
 template <typename T, typename OT, int EPI>
@@ -769,4 +793,264 @@ extern "C" int far_loftr_layer_tc(const void* x, const void* src, const void* wq
   FAR_K1_TC_SHAPES(FAR_K1_TC_RUN)
 #undef FAR_K1_TC_RUN
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// float32 route on the tensor cores, 3xTF32 (see the note at the top).
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace far::hopper;
+
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int BM = 128;       // rows of a block (64 a warpgroup)
+constexpr int KC = 32;        // K columns a stage: one atom
+
+template <int NP>  // the block's output columns in pieces of 128
+struct Tile {
+  static constexpr int BN = 128 * NP;
+  static constexpr int AT = BM * KC * 4;           // A: 16 KB
+  static constexpr int WT = BN * KC * 4;           // W: 16 KB a piece
+  static constexpr int STAGE = 2 * AT + 2 * WT;    // big and small of both
+  static constexpr int SMEM = 2 * STAGE + 1024;
+};
+
+// The weights split once a call: big and small of 6 float32 matrices (n4
+// float4s each, end4 the running sums) into two buffers of the same
+// layout, the matrices one after another.
+struct Weights {
+  const float* src[6];
+  int end4[6];
+};
+
+__global__ void split_weights_kernel(Weights w, float* __restrict__ big, float* __restrict__ small) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w.end4[5]) return;
+  int m = 0;
+  while (i >= w.end4[m]) ++m;
+  const float4 v = ((const float4*)w.src[m])[i - (m > 0 ? w.end4[m - 1] : 0)];
+  uint4 b, sm;
+  tf32_split(v.x, b.x, sm.x);
+  tf32_split(v.y, b.y, sm.y);
+  tf32_split(v.z, b.z, sm.z);
+  tf32_split(v.w, b.w, sm.w);
+  ((uint4*)big)[i] = b;
+  ((uint4*)small)[i] = sm;
+}
+
+// out (M, N) = epi(A1 W1^T + A2 W2^T), each product 3xTF32 on the tensor
+// cores. A row-major (M x K, lda), W a torch Linear weight (N x K, ldw)
+// given as its big and small TF32 parts (W1, W1s), both K-major as TF32
+// wgmma wants them; A2 may be null. K1 and K2 are multiples of KC, N of
+// the block's BN. The two stages hold big and small of an A and a W
+// tile: A arrives by cp.async and is split in place, W arrives split. EPI_LN: the block spans the whole row (N == BN); out = LN(acc) *
+// ln[0] + ln[1] (+ res), the statistics from the accumulators (a row
+// lives in one quad). Grid (N / BN, ceil(M / BM)).
+template <int NP, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_tf32_kernel(const float* __restrict__ A1, int lda1, const float* __restrict__ W1,
+                 const float* __restrict__ W1s, int ldw1, int K1, const float* __restrict__ A2,
+                 int lda2, const float* __restrict__ W2, const float* __restrict__ W2s, int ldw2,
+                 int K2, int M, int N, float div, const float* __restrict__ ln,
+                 const float* __restrict__ res, float* __restrict__ out) {
+  using T = Tile<NP>;
+  extern __shared__ char smem_raw[];
+  char* sm = align1024(smem_raw);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid & 31;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane & 3);
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * T::BN;
+  const int n1 = K1 / KC, nk = n1 + (A2 != nullptr ? K2 / KC : 0);
+  auto prefetch = [&](int t) {
+    char* st = sm + (t & 1) * T::STAGE;
+    const bool first = t < n1;
+    const float* a = first ? A1 : A2;
+    const float* w = first ? W1 : W2;
+    const float* ws = first ? W1s : W2s;
+    const int lda = first ? lda1 : lda2, ldw = first ? ldw1 : ldw2;
+    const int kc = (first ? t : t - n1) * KC;
+    const size_t wo = (size_t)col0 * ldw + kc;
+    load_tile(st, a + (size_t)row0 * lda + kc, lda, BM, 1, M - row0, KC, tid, THREADS);
+    load_tile(st + 2 * T::AT, w + wo, ldw, T::BN, 1, T::BN, KC, tid, THREADS);
+    load_tile(st + 2 * T::AT + T::WT, ws + wo, ldw, T::BN, 1, T::BN, KC, tid, THREADS);
+  };
+  float acc[NP][64];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[p][e] = 0.f;
+  prefetch(0);
+  cp_async_commit();
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk) prefetch(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    char* st = sm + (t & 1) * T::STAGE;
+    split_tile(st, st + T::AT, T::AT, tid, THREADS);
+    fence_async_smem();
+    __syncthreads();
+    const char* ab = st + wg * 64 * 128;
+    const char* as = ab + T::AT;
+    const char* wb = st + 2 * T::AT;
+    const char* ws = wb + T::WT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int wo = p * 128 * 128 + kk * 32;
+        wgmma_tf32_ss(acc[p], desc(as + kk * 32), desc(wb + wo), 1);
+        wgmma_tf32_ss(acc[p], desc(ab + kk * 32), desc(ws + wo), 1);
+        wgmma_tf32_ss(acc[p], desc(ab + kk * 32), desc(wb + wo), 1);
+      }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) keep(acc[p]);
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  float mu[2] = {0.f, 0.f}, rstd[2] = {1.f, 1.f};
+  if (EPI == EPI_LN) acc_row_stats(acc, mu, rstd, T::BN);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 64 * wg + r0 + 8 * h;
+    if (row >= M) continue;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = col0 + p * 128 + 8 * j + c0;
+        float a[2] = {acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (EPI == EPI_ELU1) a[e] = elu1(a[e]);
+          if (EPI == EPI_DIV) a[e] = a[e] / div;
+          if (EPI == EPI_RELU) a[e] = fmaxf(a[e], 0.f);
+          if (EPI == EPI_LN) {
+            a[e] = (a[e] - mu[h]) * rstd[h] * ln[col + e] + ln[N + col + e];
+            if (res != nullptr) a[e] += res[(size_t)row * N + col + e];
+          }
+        }
+        *(float2*)(out + (size_t)row * N + col) = make_float2(a[0], a[1]);
+      }
+  }
+}
+
+// A weight by its big and small parts, at the same offset of the split
+// buffers.
+struct Split {
+  const float* big;
+  const float* small;
+  Split at(size_t off) const { return {big + off, small + off}; }
+};
+
+template <int NP, int EPI>
+int gemm(const float* A1, int lda1, Split W1, int ldw1, int K1, const float* A2, int lda2,
+         Split W2, int ldw2, int K2, int M, int N, float div, const float* ln, const float* res,
+         float* out, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_tf32_kernel<NP, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile<NP>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(N / Tile<NP>::BN, (M + BM - 1) / BM);
+  gemm_tf32_kernel<NP, EPI><<<grid, THREADS, Tile<NP>::SMEM, st>>>(
+      A1, lda1, W1.big, W1.small, ldw1, K1, A2, lda2, W2.big, W2.small, ldw2, K2, M, N, div, ln,
+      res, out);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the float32 route's scratch: the CUDA-core route's layout
+// (float32), then the big and small parts of the 10 C^2 weights.
+size_t scratch_bytes(int B, int L, int S, int C, int H, size_t* split_off) {
+  const size_t off = layout(nullptr, sizeof(float), B, L, S, C, H).bytes;
+  if (split_off != nullptr) *split_off = off;
+  return off + 2 * sizeof(float) * 10 * (size_t)C * C;
+}
+
+// The layer as a chain: five 3xTF32 products (q; k; v; m with LN1; y,
+// whose x and m halves accumulate together; out with LN2 and the
+// residual), and the per-head k^T v and q KV on the CUDA cores in float32
+// (the CUDA-core route's kernels). NPL = C / 128 pieces a LayerNorm row.
+template <int NPL>
+int run(const float* x, const float* src, const float* wq, const float* wk, const float* wv,
+        const float* wm, const float* w0, const float* w1, const float* ln1, const float* ln2,
+        float* out, char* scratch, int B, int L, int S, int C, int H, cudaStream_t st) {
+  const int d = C / H, nel = d * d + d;
+  Layout l = layout(scratch, sizeof(float), B, L, S, C, H);
+  float *q = (float*)l.q, *k = (float*)l.k, *v = (float*)l.v, *msg = (float*)l.msg,
+        *m = (float*)l.m, *y = (float*)l.y;
+  const int ML = B * L, MS = B * S;
+  // split the weights once: wq, wk, wv, wm (C^2 each), w0 (4 C^2), w1 (2 C^2)
+  size_t split_off;
+  scratch_bytes(B, L, S, C, H, &split_off);
+  const size_t cc = (size_t)C * C;
+  float* wbig = (float*)(scratch + split_off);
+  float* wsml = wbig + 10 * cc;
+  const int c4 = (int)(cc / 4);
+  const Weights ws{{wq, wk, wv, wm, w0, w1}, {c4, 2 * c4, 3 * c4, 4 * c4, 8 * c4, 10 * c4}};
+  split_weights_kernel<<<(10 * c4 + 255) / 256, 256, 0, st>>>(ws, wbig, wsml);
+  const Split W{wbig, wsml}, none{nullptr, nullptr};
+  int err = gemm<1, EPI_ELU1>(x, C, W.at(0), C, C, nullptr, 0, none, 0, 0, ML, C, 1.f, nullptr,
+                              nullptr, q, st);
+  if (!err)
+    err = gemm<1, EPI_ELU1>(src, C, W.at(cc), C, C, nullptr, 0, none, 0, 0, MS, C, 1.f, nullptr,
+                            nullptr, k, st);
+  if (!err)
+    err = gemm<1, EPI_DIV>(src, C, W.at(2 * cc), C, C, nullptr, 0, none, 0, 0, MS, C, (float)S,
+                           nullptr, nullptr, v, st);
+  if (err) return err;
+  const int nsplit = (S + KV_ROWS - 1) / KV_ROWS;
+  kv_partial_kernel<float><<<dim3(B * H, nsplit), NT, sizeof(float) * 2 * KV_SUB * d, st>>>(
+      k, v, S, C, H, l.part);
+  kv_reduce_kernel<<<(B * H * nel + 255) / 256, 256, 0, st>>>(l.part, B * H, nsplit, nel, l.kv);
+  const size_t msg_smem = sizeof(float) * ((size_t)H * nel + MSG_ROWS * C);
+  cudaError_t cerr = cudaFuncSetAttribute(msg_kernel<float>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)msg_smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  msg_kernel<float><<<dim3((L + MSG_ROWS - 1) / MSG_ROWS, B), NT, msg_smem, st>>>(
+      q, l.kv, L, S, C, H, msg);
+  err = gemm<NPL, EPI_LN>(msg, C, W.at(3 * cc), C, C, nullptr, 0, none, 0, 0, ML, C, 1.f, ln1,
+                          nullptr, m, st);
+  // mlp.0 weight is (2C, 2C): its first C input columns take x, the rest m
+  if (!err)
+    err = gemm<1, EPI_RELU>(x, C, W.at(4 * cc), 2 * C, C, m, C, W.at(4 * cc + C), 2 * C, C, ML,
+                            2 * C, 1.f, nullptr, nullptr, y, st);
+  if (!err)
+    err = gemm<NPL, EPI_LN>(y, 2 * C, W.at(8 * cc), 2 * C, 2 * C, nullptr, 0, none, 0, 0, ML, C,
+                            1.f, ln2, x, out, st);
+  return err;
+}
+
+}  // namespace tf32
+
+// 1 when far_loftr_layer_tf32 takes (C, H): C of 128 or 256 (whole
+// 128-column pieces, a LayerNorm row in one block) and a head's k^T v
+// within the CUDA-core kernels' reach (d^2 + d <= 2048), else 0.
+extern "C" size_t far_loftr_layer_tf32_supports(int C, int H) {
+  if ((C != 128 && C != 256) || H < 1 || C % H != 0) return 0;
+  const int d = C / H;
+  return d * d + d <= KV_PER_THREAD * NT;
+}
+
+extern "C" size_t far_loftr_layer_tf32_scratch(int B, int L, int S, int C, int H) {
+  return tf32::scratch_bytes(B, L, S, C, H, nullptr);
+}
+
+// float32 route, 3xTF32: the arguments of far_loftr_layer in float32. A
+// shape far_loftr_layer_tf32_supports refuses returns cudaErrorInvalidValue.
+extern "C" int far_loftr_layer_tf32(const void* x, const void* src, const void* wq,
+                                    const void* wk, const void* wv, const void* wm, const void* w0,
+                                    const void* w1, const void* ln1, const void* ln2, void* out,
+                                    void* scratch, int B, int L, int S, int C, int H,
+                                    void* stream) {
+  if (!far_loftr_layer_tf32_supports(C, H)) return (int)cudaErrorInvalidValue;
+  using Run = int (*)(const float*, const float*, const float*, const float*, const float*,
+                      const float*, const float*, const float*, const float*, const float*,
+                      float*, char*, int, int, int, int, int, cudaStream_t);
+  const Run run = C == 256 ? tf32::run<2> : tf32::run<1>;
+  return run((const float*)x, (const float*)src, (const float*)wq, (const float*)wk,
+             (const float*)wv, (const float*)wm, (const float*)w0, (const float*)w1,
+             (const float*)ln1, (const float*)ln2, (float*)out, (char*)scratch, B, L, S, C, H,
+             (cudaStream_t)stream);
 }

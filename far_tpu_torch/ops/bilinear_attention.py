@@ -4,13 +4,22 @@ Replaces ``far_tpu/ops/bilinear_attention.py:bilinear_dual_softmax``
 (its ``pl.pallas_call`` at :171). Per (batch, head):
 F = v^T (softmax_rows(S) * softmax_cols(S)) v with S = scale q k^T, a
 (Dv, Dv) float32 matrix; the (N, N) attention is never stored. The CUDA
-source is ``far_tpu_torch/csrc/bilinear_attention.cu``. Two routes:
+source is ``far_tpu_torch/csrc/bilinear_attention.cu``. Three routes:
 
 - CUDA cores: a row/column statistics pass over 64x64 tiles of S, then
-  G = v^T A accumulated in shared memory per 64 columns. It takes
-  float32, and the bfloat16 shapes the tensor-core route is not built
-  for (D > 64, Dv > 72 or scale <= 0, chosen by shape before any launch);
-  in bfloat16 it rounds P and H = G / csum to bf16 as the TPU kernel does.
+  G = v^T A accumulated in shared memory per 64 columns. It takes the
+  shapes the tensor-core routes are not built for (D > 64, Dv > 72 or
+  scale <= 0, chosen by shape before any launch), in either dtype; in
+  bfloat16 it rounds P and H = G / csum to bf16 as the TPU kernel does.
+- float32, on the tensor cores as 3xTF32 (``ops/tf32.py`` models the
+  arithmetic): the bfloat16 route's three launches, with every product
+  (S = q k^T, G^T += P^T v, F = H v) as three TF32 wgmma products of
+  split operands, so it keeps float32 accuracy. Tiles are split in
+  shared memory as they arrive, P and H in registers. The tensor cores
+  bound it (3 passes at 495 TFLOP/s), not the exponential unit. It takes
+  D <= 64, Dv <= 72 and scale > 0 (``far_bilinear_tf32_supports``), with
+  q, k and v padded as below and v^T's columns in the TF32 fragments' K
+  order (``kperm_columns``); ``launches_tf32`` counts it.
 - bfloat16, on the tensor cores (wgmma, cp.async), three launches: a
   row-statistics pass, a main pass that keeps the running column max
   and sum per key column with the TPU kernel's rescale and feeds
@@ -144,6 +153,16 @@ def pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
     return F.pad(t, (0, width - t.shape[-1]))
 
 
+def kperm_columns(t: torch.Tensor) -> torch.Tensor:
+    """t (..., n) with n a multiple of 8, each group of 8 columns in the
+    order 0 2 4 6 1 3 5 7 (even k moves to k / 2, odd k to 4 + k / 2). The
+    float32 route feeds P from its accumulators as TF32 A fragments,
+    whose K order within a k8 step is that one (``frag_tf32`` and
+    ``kperm_pos`` in ``csrc/hopper.cuh``), so v^T's columns come in it."""
+    *lead, n = t.shape
+    return t.reshape(*lead, n // 8, 4, 2).transpose(-1, -2).reshape(*lead, n)
+
+
 def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> torch.Tensor:
     """F[b, h] = v^T (softmax_r(S) * softmax_c(S)) v, S = scale q k^T.
@@ -153,7 +172,10 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
         (B, H, Dv, Dv) float32.
 
-    On CUDA, inputs that require grad raise in grad mode
+    CPU tensors take the plain version; CUDA tensors launch the
+    tensor-core route of their dtype (bfloat16: ``launches_tc``; float32,
+    3xTF32: ``launches_tf32``) for the shapes it is built for, else the
+    CUDA-core route. On CUDA, inputs that require grad raise in grad mode
     (``bilinear_dual_softmax_auto`` is the differentiable form).
     """
     if _build.on_cpu(q, k, v):
@@ -171,26 +193,34 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require(q.is_contiguous() and k.is_contiguous()
                    and v.is_contiguous(), "q, k, v must be contiguous")
     out = torch.empty((B, H, Dv, Dv), dtype=torch.float32, device=q.device)
-    tc = False
+    # both tensor-core routes take q, k 64 wide and v 72 wide (padded)
+    width = _build.bind_size("bilinear_attention", "far_bilinear_tc_width", 1)
+    d_tc, dv_tc = width(0), width(1)
     if code == 1:
-        width = _build.bind_size("bilinear_attention", "far_bilinear_tc_width", 1)
-        d_tc, dv_tc = width(0), width(1)
-        tc = D <= d_tc and Dv <= dv_tc and scale > 0
-    if tc:
+        route = "tc" if D <= d_tc and Dv <= dv_tc and scale > 0 else "cuda_cores"
+    else:
+        supports = _build.bind_size("bilinear_attention", "far_bilinear_tf32_supports", 2)
+        route = "tf32" if supports(D, Dv) == 1 and scale > 0 else "cuda_cores"
+    if route != "cuda_cores":
         if D < d_tc:
             q, k = pad_columns(q, d_tc), pad_columns(k, d_tc)
         # v^T (B, H, dv_tc, ldn), zero past Dv and past N (ldn: N to a
-        # multiple of 8, for 16-byte rows)
-        vt = F.pad(pad_columns(v, dv_tc), (0, 0, 0, -N % 8)).transpose(-1, -2).contiguous()
-        size = _build.bind_size("bilinear_attention", "far_bilinear_tc_scratch", 2)
-        fn = _build.bind("bilinear_attention", "far_bilinear_dual_softmax_tc",
-                         5, 3, 1)
+        # multiple of 8, for 16-byte rows); float32 in the K order of the
+        # TF32 fragments
+        vt = F.pad(pad_columns(v, dv_tc), (0, 0, 0, -N % 8)).transpose(-1, -2)
+        vt = (kperm_columns(vt) if route == "tf32" else vt).contiguous()
+        size = _build.bind_size("bilinear_attention", f"far_bilinear_{route}_scratch", 2)
+        name = "far_bilinear_dual_softmax_" + route
+        fn = _build.bind("bilinear_attention", name, 5, 3, 1)
         scratch = _build.scratch(size(B * H, N), q)
         err = fn(q.data_ptr(), k.data_ptr(), vt.data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), B * H, N, Dv, float(scale),
                  _build.stream_of(q))
-        _build.check(err, "bilinear_dual_softmax (bf16)")
-        bilinear_dual_softmax.launches_tc += 1
+        _build.check(err, name)
+        if route == "tc":
+            bilinear_dual_softmax.launches_tc += 1
+        else:
+            bilinear_dual_softmax.launches_tf32 += 1
     else:
         size = _build.bind_size("bilinear_attention", "far_bilinear_scratch", 3)
         fn = _build.bind("bilinear_attention", "far_bilinear_dual_softmax",
@@ -204,5 +234,6 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-bilinear_dual_softmax.launches = 0     # launches of either route
-bilinear_dual_softmax.launches_tc = 0  # launches of the tensor-core route (bfloat16)
+bilinear_dual_softmax.launches = 0       # launches of any route
+bilinear_dual_softmax.launches_tc = 0    # launches of the bfloat16 tensor-core route
+bilinear_dual_softmax.launches_tf32 = 0  # launches of the float32 tensor-core route (3xTF32)

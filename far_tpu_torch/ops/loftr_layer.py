@@ -3,14 +3,24 @@
 Replaces ``far_tpu/ops/loftr_layer.py:fused_loftr_layer`` (its
 ``pl.pallas_call`` at :147). The CUDA source is
 ``far_tpu_torch/csrc/loftr_layer.cu``. The layer is bound by operations
-(~6.5 GFLOP per pair at L=S=4800, C=256). Two routes:
+(~6.5 GFLOP per pair at L=S=4800, C=256). Three routes:
 
 - CUDA cores, 11 launches (tiled products, a k^T v reduction, a message
-  kernel, LayerNorms), intermediates in device memory: float32, and the
-  bfloat16 shapes the tensor-core route is not built for (C = 32 or 96,
-  a head width of 24, ...), chosen by that shape check before any
+  kernel, LayerNorms), intermediates in device memory: the shapes the
+  tensor-core routes are not built for (C = 32 or 96, a head width of
+  24, ...), in either dtype, chosen by that shape check before any
   launch. In bfloat16 every product accumulates in float32 and q, k, v,
   KV, msg, m, y and out round to bf16 where the TPU kernel casts them.
+- float32 on the tensor cores, 10 launches: the five dense products as
+  3xTF32 wgmma GEMMs (``ops/tf32.py`` models the arithmetic: each
+  operand split into two TF32 parts, three products, float32 accuracy)
+  with elu + 1, 1/S, relu, and LayerNorm (+ residual) in their
+  epilogues, the weights split once a call by a launch of their own;
+  the per-head k^T v and q KV (~2.5 % of the operations) on the CUDA
+  cores in float32, as above. Intermediates go through device
+  memory: in float32 a fused row pass's split operands would not fit a
+  block's shared memory or registers. It takes C in {128, 256}
+  (``far_loftr_layer_tf32_supports``); ``launches_tf32`` counts it.
 - bfloat16 on the tensor cores, 3 launches (wgmma, cp.async): a k^T v
   pass over 64-row chunks of src, a fixed-order reduction, and a row
   pass per 128 rows that keeps the x tile, msg and m in shared memory,
@@ -103,9 +113,10 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
                 nhead: int) -> torch.Tensor:
     """One LoFTR encoder layer: ``x`` (B, L, C) attends to ``source``
     (B, S, C). CPU tensors take the plain version; CUDA tensors launch
-    the tensor-core route for the bfloat16 shapes it is built for, else
-    the CUDA-core route. On CUDA, inputs that require grad raise in grad
-    mode (``loftr_layer_auto`` is the differentiable form)."""
+    the tensor-core route of their dtype (bfloat16: ``launches_tc``;
+    float32, 3xTF32: ``launches_tf32``) for the shapes it is built for,
+    else the CUDA-core route. On CUDA, inputs that require grad raise in
+    grad mode (``loftr_layer_auto`` is the differentiable form)."""
     if _build.on_cpu(x, source):
         return loftr_layer_plain(x, source, params, nhead)
     _build.refuse_grad("loftr_layer", (x, source, *params.values()))
@@ -119,18 +130,24 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
     _build.require(C % nhead == 0, f"C={C} not divisible by nhead={nhead}")
     _build.require(x.is_contiguous() and source.is_contiguous(),
                    "x and source must be contiguous")
-    tc = code == 1 and _build.bind_size(
-        "loftr_layer", "far_loftr_layer_tc_supports", 2)(C, nhead) == 1
+    # the tensor-core route of the dtype where it is built for (C, nhead)
+    route = "tc" if code == 1 else "tf32"
+    if _build.bind_size("loftr_layer", f"far_loftr_layer_{route}_supports", 2)(C, nhead) != 1:
+        route = "cuda_cores"
     w = pack_params(params, x.dtype)  # no copies when already packed
     for k, shape in (("wq", (C, C)), ("wk", (C, C)), ("wv", (C, C)),
                      ("wm", (C, C)), ("w0", (2 * C, 2 * C)),
                      ("w1", (C, 2 * C)), ("ln1", (2, C)), ("ln2", (2, C))):
         _build.require(tuple(w[k].shape) == shape,
                        f"{k} has shape {tuple(w[k].shape)}, not {shape}")
-    if tc:
+    if route == "tc":
         name, tail = "far_loftr_layer_tc", ()
         size = _build.bind_size("loftr_layer", "far_loftr_layer_tc_scratch", 4)
         nbytes = size(B, S, C, nhead)
+    elif route == "tf32":
+        name, tail = "far_loftr_layer_tf32", ()
+        size = _build.bind_size("loftr_layer", "far_loftr_layer_tf32_scratch", 5)
+        nbytes = size(B, L, S, C, nhead)
     else:
         name, tail = "far_loftr_layer", (code,)
         size = _build.bind_size("loftr_layer", "far_loftr_layer_scratch", 6)
@@ -144,12 +161,14 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
              B, L, S, C, nhead, *tail, _build.stream_of(x))
     _build.check(err, name)
     loftr_layer.launches += 1
-    loftr_layer.launches_tc += int(tc)
+    loftr_layer.launches_tc += int(route == "tc")
+    loftr_layer.launches_tf32 += int(route == "tf32")
     return out
 
 
-loftr_layer.launches = 0     # launches of either route
-loftr_layer.launches_tc = 0  # launches of the tensor-core route (bfloat16)
+loftr_layer.launches = 0       # launches of any route
+loftr_layer.launches_tc = 0    # launches of the bfloat16 tensor-core route
+loftr_layer.launches_tf32 = 0  # launches of the float32 tensor-core route (3xTF32)
 
 PARAM_KEYS = WEIGHTS + ("ln1", "ln2")
 

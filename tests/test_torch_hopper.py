@@ -1,4 +1,5 @@
-"""The bfloat16 tensor-core routes of K1-K4 (far_tpu_torch/csrc).
+"""The tensor-core routes of K1-K4 (far_tpu_torch/csrc): bfloat16, and
+K1's and K4's float32 (3xTF32) routes.
 
 On the CPU: what surrounds the kernels - the weight packs that K1's and
 K3's wrappers take (they must equal the weights cast to the dtype, and a
@@ -7,7 +8,7 @@ layer's call must see a changed weight), K4's zero padding of q, k and v
 written out in plain torch: K2's log-domain reduction and K3's packing of
 windows into 128-row tiles. On a card (marked ``cuda``; each test skips
 without one): every route against its plain version at ragged shapes and
-at every shape it is built for.
+at every shape it is built for, and shapes outside each route's set.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_hopper.py
@@ -482,6 +483,76 @@ def test_dual_softmax_bf16_route_on_card(card, B, L, S, C):
     cm_at = torch.gather(cm, 1, ri)
     mutual = rv >= cm_at
     assert torch.equal(rv[mutual].view(torch.int32), cm_at[mutual].view(torch.int32))
+
+
+K1_TF32_SHAPES = [(C, C // dh) for C in (128, 256) for dh in (8, 16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,S,C,H", [(1, 4800, 4800, 256, 8), (2, 1000, 1200, 256, 8),
+                                       (2, 6120, 6120, 256, 8), (1, 1, 1, 256, 8)]
+                         + [(2, 200, 150, C, H) for C, H in K1_TF32_SHAPES])
+def test_loftr_layer_f32_tf32_route_on_card(card, B, L, S, C, H):
+    """float32 on the 3xTF32 route (launches_tf32 + 1): each product keeps
+    float32 accuracy, so the tolerance is phase 3's float32 1e-4 max|ref|
+    against the plain version in strict float32 (TF32 off)."""
+    g = torch.Generator().manual_seed(B * L + S + C + H)
+    x = torch.randn(B, L, C, generator=g).to(card)
+    src = torch.randn(B, S, C, generator=g).to(card)
+    p = _params(C, g, card)
+    ref = loftr_layer_plain(x, src, p, H)
+    before = loftr_layer.launches_tf32
+    out = loftr_layer(x, src, pack_params(p, torch.float32), H)
+    torch.cuda.synchronize()
+    assert loftr_layer.launches_tf32 == before + 1
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,N,D,Dv", [(2, 4, 4800, 64, 70), (1, 4, 1000, 64, 70),
+                                        (4, 3, 576, 64, 70), (1, 2, 37, 16, 13),
+                                        (1, 1, 130, 64, 72), (2, 4, 203, 8, 14)])
+def test_bilinear_f32_tf32_route_on_card(card, B, H, N, D, Dv):
+    """float32 on the 3xTF32 route (launches_tf32 + 1), 1e-4 max|ref|
+    against the plain version in strict float32, deterministic run to run."""
+    g = torch.Generator().manual_seed(N + D + Dv)
+    q, k = (torch.randn(B, H, N, D, generator=g).to(card) for _ in range(2))
+    v = torch.randn(B, H, N, Dv, generator=g).to(card)
+    ref = bilinear_dual_softmax_plain(q, k, v, D ** -0.5)
+    before = bilinear_dual_softmax.launches_tf32
+    out = bilinear_dual_softmax(q, k, v, D ** -0.5)
+    again = bilinear_dual_softmax(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert bilinear_dual_softmax.launches_tf32 == before + 2
+    assert torch.equal(out, again)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_f32_outside_the_tf32_sets_takes_cuda_cores(card):
+    """float32 shapes the 3xTF32 routes are not built for (K1 C = 32, the
+    guard's coarse stack; K4 D = 128) run the CUDA-core kernels:
+    launches + 1, launches_tf32 and launches_tc unchanged."""
+    g = torch.Generator().manual_seed(5)
+    x, src = (torch.randn(2, 300, 32, generator=g).to(card) for _ in range(2))
+    p = _params(32, g, card)
+    counts = (loftr_layer.launches, loftr_layer.launches_tc, loftr_layer.launches_tf32)
+    out = loftr_layer(x, src, pack_params(p, torch.float32), 4)
+    torch.cuda.synchronize()
+    assert (loftr_layer.launches, loftr_layer.launches_tc, loftr_layer.launches_tf32) == (
+        counts[0] + 1, counts[1], counts[2])
+    ref = loftr_layer_plain(x, src, p, 4)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    q, k, v = (torch.randn(1, 2, 257, 128, generator=g).to(card) for _ in range(3))
+    f = bilinear_dual_softmax
+    counts = (f.launches, f.launches_tc, f.launches_tf32)
+    out = f(q, k, v, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_tc, f.launches_tf32) == (counts[0] + 1, counts[1], counts[2])
+    ref = bilinear_dual_softmax_plain(q, k, v, 128 ** -0.5)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 K3_TC_SHAPES = [(C, C // dh) for C in (64, 128) for dh in (16, 32, 64)]
