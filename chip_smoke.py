@@ -14,9 +14,9 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    the plain version in strict float32, TF32 off), both timed with CUDA
    events, with a PyTorch library call timed beside it where one
    computes the same function, and the route that ran read from the
-   launch counters (K1 and K4 in float32 must take their 3xTF32
+   launch counters (K1, K3 and K4 in float32 must take their 3xTF32
    tensor-core routes, ``launches_tf32``); then the tensor-core routes of
-   K1-K4 at ragged shapes (bf16, and K1's and K4's float32 routes), and
+   K1-K4 at ragged shapes (bf16, and K1's, K3's and K4's float32 routes), and
    the CUDA-core routes at the shapes the tensor-core routes are not
    built for (K1 C=32 in bf16 and f32, C=96 in bf16, K4 D=Dv=128 in bf16
    and f32, K3 f32 C=256 and s=81), each against its plain version
@@ -26,8 +26,8 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    bfloat16, then the same with the 8-point solver, with the kernels'
    launch counters (all launches, those of the bf16 tensor-core routes
    and those of the float32 3xTF32 routes) set to 0 just before each run
-   and read just after: a float32 request launches K1 16 and K4 2 times
-   on the 3xTF32 routes;
+   and read just after: a float32 request launches K1 16, K3 once and K4
+   2 times on the 3xTF32 routes;
 5. the matcher and the EMM features at a small width with the kernels on
    the card and with the plain versions on the CPU, compared;
 6. the port's solver on 16 synthetic scenes at 0.5 px noise, 5-point and
@@ -332,14 +332,15 @@ ROUTES = {  # how each kernel computes at the main path's shapes, by dtype
         "K1_loftr_layer": "cuda, tensor cores 3xTF32 (wgmma GEMMs, cp.async; k^T v and q KV "
                           "on the CUDA cores), 10 launches",
         "K2_dual_softmax_rowcol": "cuda, CUDA cores, 6 launches (on no path: K2 takes bf16)",
-        "K3_fine_transformer": "cuda, CUDA cores, 1 launch",
+        "K3_fine_transformer": "cuda, tensor cores 3xTF32 (wgmma, weight tiles by "
+                               "cp.async.bulk; window attention on the CUDA cores), 2 launches",
         "K4_bilinear_dual_softmax": "cuda, tensor cores 3xTF32 (wgmma, cp.async), 3 launches",
     },
 }
 # the route each kernel must take in float32 at the shapes phase 3 and
-# phase 16 (a) hold it at (K1, K4: the 3xTF32 route, read from launches_tf32)
+# phase 16 (a) hold it at (K1, K3, K4: the 3xTF32 route, read from launches_tf32)
 F32_ROUTE = {"K1_loftr_layer": "tensor cores, 3xTF32", "K2_dual_softmax_rowcol": "cuda cores",
-             "K3_fine_transformer": "cuda cores",
+             "K3_fine_transformer": "tensor cores, 3xTF32",
              "K4_bilinear_dual_softmax": "tensor cores, 3xTF32"}
 
 
@@ -536,7 +537,7 @@ def check_kernels(dev):
                k4_flops, nbytes, exps=k4_exps(dt, B * H_EMM * L * L), route=route)
 
     # ---- the tensor-core routes at ragged shapes -------------------------
-    # (bf16, and K1's and K4's float32 3xTF32 routes, the route read from
+    # (bf16, and K1's, K3's and K4's float32 3xTF32 routes, the route read from
     # the counters; a generator of their own, so that the inputs above do
     # not change)
     gr = torch.Generator().manual_seed(1)
@@ -572,14 +573,17 @@ def check_kernels(dev):
                    f"(route ok: {routed})", max_err(out, ref) if routed else math.inf,
                    k4_tol(dt, ref))
     for nr in (7, 2 * K_MATCH + 3):
-        a, b = (torch.randn(nr, WW, C_FINE, generator=gr).to(dev, torch.bfloat16)
-                for _ in range(2))
+        a32, b32 = (torch.randn(nr, WW, C_FINE, generator=gr).to(dev) for _ in range(2))
         pr = [layer_params(C_FINE, gr, dev) for _ in range(2)]
-        r0, r1 = fine_transformer_plain(a.float(), b.float(), pr, names, H_FINE)
-        o0, o1 = fine_transformer(a, b, pr, names, H_FINE)
-        torch.cuda.synchronize()
-        ragged(f"K3_fine_transformer bf16 n={nr}", max(max_err(o0, r0), max_err(o1, r1)),
-               6e-2 * float(max(r0.abs().max(), r1.abs().max())))
+        for dt in (torch.bfloat16, torch.float32):
+            a, b = a32.to(dt), b32.to(dt)
+            r0, r1 = fine_transformer_plain(a.float(), b.float(), pr, names, H_FINE)
+            (o0, o1), routed = on_route(fine_transformer, dt,
+                                        lambda: fine_transformer(a, b, pr, names, H_FINE))
+            rel = 6e-2 if dt == torch.bfloat16 else 1e-4
+            ragged(f"K3_fine_transformer {dt} n={nr} (route ok: {routed})",
+                   max(max_err(o0, r0), max_err(o1, r1)) if routed else math.inf,
+                   rel * float(max(r0.abs().max(), r1.abs().max())))
     for Br, Lr, Sr, Cr in ((1, 1000, 1200, C), (B, 192, 192, 32)):
         f0 = torch.randn(Br, Lr, Cr, generator=gr)
         f1 = torch.randn(Br, Sr, Cr, generator=gr)
@@ -746,7 +750,8 @@ TC_ROUTES = {"K1_loftr_layer": ("bfloat16",),
              "K4_bilinear_dual_softmax": ("bfloat16",)}
 # kernels with a float32 tensor-core route (3xTF32, counted by
 # launches_tf32) and the dtypes of the requests that go through it
-TF32_ROUTES = {"K1_loftr_layer": ("float32",), "K4_bilinear_dual_softmax": ("float32",)}
+TF32_ROUTES = {"K1_loftr_layer": ("float32",), "K3_fine_transformer": ("float32",),
+               "K4_bilinear_dual_softmax": ("float32",)}
 
 
 # phase 4's runs: (dtype, minimal solver); FARConfig()'s solver is 5pt
@@ -987,7 +992,7 @@ def minimal_problems(dev, n: int = 64) -> float:
 # deg: the network guard's float32 median on the card with K1 and K4 in
 # float32 on the CUDA cores (PERF.md section 2). The 3xTF32 routes keep
 # float32 accuracy, so the median must not move by more than the table's
-# rounding.
+# rounding (the guard's fine stack, C = 16, keeps K3 on the CUDA cores).
 GUARD_F32_MEDIAN = 8.5490
 
 

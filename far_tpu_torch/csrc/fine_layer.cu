@@ -10,8 +10,8 @@
 // Bound: operations. At B=4, K=1024 windows, s=25, C=128 the stack is
 // ~35 GFLOP per pair on ~26 MB of tokens in and out.
 //
-// CUDA-core route (far_fine_transformer; float32, and bf16 shapes outside
-// FAR_K3_TC_SHAPES): one block owns wpb windows (R = wpb*s rows), holds
+// CUDA-core route (far_fine_transformer; float32 shapes the 3xTF32 route
+// refuses, and bf16 shapes outside FAR_K3_TC_SHAPES): one block owns wpb windows (R = wpb*s rows), holds
 // both images' tokens and the layer's intermediates in shared memory as
 // f32, 4 (5 R C + wpb H (d^2 + d)) bytes (about 145 KB at C=128, s=25,
 // wpb=2), and streams the weights from L2 through the same 64x64 tile
@@ -63,6 +63,51 @@
 // window k-sums to bf16, :128; this route takes den from the f32 S).
 // Built for C in {64, 128} and a head width of 16, 32 or 64, s <= 64:
 // at C = 192 or 256 the five tiles exceed an SM's shared memory.
+//
+// float32 route (far_fine_transformer_tf32), 3xTF32 on the tensor cores,
+// one launch beside a small one that lays the weights out: every product
+// of the projections and the MLP is three TF32 wgmma products of split
+// operands, small.big + big.small + big.big (hopper.cuh; ops/tf32.py
+// models it), so it keeps float32 accuracy. The bf16 route's layout does
+// not fit in float32 (X0, X1, k, v^T and msg at 128 rows would take 320 KB
+// of the 227 KB a block may have), so a block is one warpgroup on a
+// 64-row tile: 64 // s whole windows (2 at s = 25) and zero rows after
+// them, which form windows of their own. Shared memory at the main shape
+// (C = 128, head width 16): X0 and X1 in float32 (64 KB), k then q then m
+// and v then msg (64 KB), the windows' per-head KV and sum(k) (17 KB), two
+// 32 KB weight stages: 210 KB, one block an SM.
+//  - Weights: prep_weights_kernel writes, once a call, each application's
+//    40 weight tiles (128 x 32 or 64 x 64) in the order the kernel takes
+//    them, already split into big and small and laid out as wgmma reads
+//    them in shared memory (K-major, 128-byte swizzle), mlp.2's K order
+//    permuted for the register fragments of y. One thread moves a tile
+//    with one cp.async.bulk whose bytes land on a stage's mbarrier, a tile
+//    ahead of its products.
+//  - A operands (x, src, msg, m; 64 rows, K = C) are read from shared
+//    memory as TF32 register fragments and split as they are read; a warp
+//    reads only the 16 rows its lanes write, so only the window passes need
+//    block barriers (a write-back that a projection reads with none between
+//    ends in a __syncwarp), and each k8 step's three products are a commit
+//    group of their own, so the next step's fragments are read while they
+//    run.
+//    y = relu(x W0x^T + m W0m^T) is made 64 columns at a time and each
+//    chunk, split in registers (frag_tf32), goes straight into the
+//    accumulator of y W1^T. The LayerNorms run in the accumulators (a
+//    row lives in one quad).
+//  - Window attention (~2.4 % of the operations) on the CUDA cores in
+//    float32, as K1's float32 route: per (window, head) KV = k_h^T v_h and
+//    sum(k_h), then msg = q_h KV_h s / (q_h . sum(k_h) + 1e-6), with v
+//    scaled by 1/s as the TPU kernel does (:100, :130); zero rows past the
+//    block's windows get msg = 0.
+//  - Cross layers stay sequential: f1's application reads the updated f0.
+// What holds it back (cycle counts on an H100, PERF.md): the one warpgroup
+// runs each tile's fragment splits, 12 wgmma and wait in series (about half
+// a block's time), and the window passes and epilogues run with one warp a
+// scheduler and no tensor-core work beside them (about a third). Waiting
+// for weight tiles is a few per cent; streaming them unsplit and splitting
+// each tile in shared memory halves the bytes but was slower.
+// Built for C = 128, head widths 16 and 32, 22 <= s <= 64 (at most 2
+// windows a block: a third window's KV would not fit).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -612,4 +657,440 @@ extern "C" int far_fine_transformer_tc(const void* f0, const void* f1, const voi
   FAR_K3_TC_SHAPES(FAR_K3_TC_RUN)
 #undef FAR_K3_TC_RUN
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// float32 route on the tensor cores, 3xTF32 (see the note at the top).
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace far::hopper;
+
+constexpr int THREADS = 128;        // one warpgroup
+constexpr int ROWS = 64;            // rows of a block's tile: whole windows + zero rows
+constexpr int WPB = 2;              // most windows a block (s >= 22)
+constexpr int C = 128;              // the width the route is built for
+constexpr int XS = ROWS * C * 4;    // one 64-row float32 tile, 32 KB
+constexpr int TILE = 128 * 32 * 4;  // one weight tile (128 x 32 or 64 x 64), 16 KB
+constexpr int TPA = 40;             // weight tiles of one layer application
+constexpr int SMEM_MAX = 232448;    // shared memory a block may take on an H100 (227 KB)
+
+constexpr int NR = 2;               // weight stages
+constexpr int STAGE = 2 * TILE;     // a stage: a tile's big part, then its small part
+
+// floats of one window's per-head KV (d x d) and sum(k) (d), with 4 floats
+// of pad so that neighbouring windows start on other banks
+template <int DH>
+constexpr int KVW = (C / DH) * (DH * DH + DH) + 4;
+
+// alignment, stages, X0, X1, k/q/m, v/msg, KV, mbarriers
+template <int DH>
+constexpr int SMEM = 1024 + NR * STAGE + 4 * XS + WPB * KVW<DH> * 4 + 64;
+static_assert(SMEM<16> <= SMEM_MAX && SMEM<32> <= SMEM_MAX, "shared memory");
+
+__device__ __forceinline__ float ld4(const char* t, int r, int c) {
+  return *(const float*)(t + swz4(ROWS, r, c));
+}
+
+// The split A fragment of the k8 step whose column is k = 8 kb + t % 4, read
+// from a 64-row float32 tile: rows r and r + 8, columns k and k + 4.
+__device__ __forceinline__ void a_frag(const char* t, int r, int k, uint32_t (&b)[4],
+                                       uint32_t (&s)[4]) {
+  tf32_split(ld4(t, r, k), b[0], s[0]);
+  tf32_split(ld4(t, r + 8, k), b[1], s[1]);
+  tf32_split(ld4(t, r, k + 4), b[2], s[2]);
+  tf32_split(ld4(t, r + 8, k + 4), b[3], s[3]);
+}
+
+// acc += a w^T over one k8 step as three TF32 products: small.big,
+// big.small, big.big (wb, ws: the step's B descriptors' tiles).
+template <int N>
+__device__ __forceinline__ void mma3(float (&acc)[N], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const char* wb, const char* ws) {
+  wgmma_tf32_rs(acc, as, desc(wb), 1);
+  wgmma_tf32_rs(acc, ab, desc(ws), 1);
+  wgmma_tf32_rs(acc, ab, desc(wb), 1);
+}
+
+// The stack's weights as the kernel streams them, written once a call: per
+// layer the 40 tiles of an application in their order, each laid out as
+// load_tile would leave it in shared memory (K-major, 128-byte swizzle, 32
+// columns an atom), so that one bulk copy moves a tile. Tile u: Wk, Wv, Wq,
+// Wm in 32-column slabs (u < 16, 128 x 32); then per 64-column chunk c of y,
+// mlp.0's rows 64c.. over its x columns and its m columns (64 x 64, two
+// tiles each) and mlp.2's columns 64c.. (128 x 32, two tiles), mlp.2's
+// columns in the K order of frag_tf32 (position p of each group of 8 holds
+// column 0 2 4 6 1 3 5 7 [p]). Tile t at 2 t TILE bytes: its big part,
+// then its small part. One thread a float of w.
+__global__ void prep_weights_kernel(const float* __restrict__ w, int n_layers,
+                                    float* __restrict__ out) {
+  constexpr int TF = TILE / 4;  // floats of a tile
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_layers * TPA * TF) return;
+  const int li = i / (TPA * TF), u = (i / TF) % TPA, e = i % TF;
+  int mat, row0 = 0, col0, ld = C, rows = 128;
+  bool kperm = false;
+  if (u < 16) {
+    const int m = u / 4;
+    mat = m == 0 ? 1 : m == 1 ? 2 : m == 2 ? 0 : 3;
+    col0 = 32 * (u % 4);
+  } else {
+    const int c = (u - 16) / 6, part = (u - 16) % 6;
+    ld = 2 * C;
+    if (part < 4) {
+      mat = 4, row0 = 64 * c, col0 = 64 * part, rows = 64;
+    } else {
+      mat = 8, col0 = 64 * c + 32 * (part - 4), kperm = true;
+    }
+  }
+  const int byte = 4 * e, a = byte / (rows * 128), r = (byte / 128) % rows;
+  int col = col0 + 32 * a + 4 * (((byte / 16) & 7) ^ (r & 7)) + (e & 3);
+  if (kperm) {
+    const int p = col & 7;
+    col += (p < 4 ? 2 * p : 2 * p - 7) - p;
+  }
+  const float x = w[(size_t)li * 10 * C * C + (size_t)mat * C * C + (size_t)(row0 + r) * ld + col];
+  const size_t t = (size_t)li * TPA + u;
+  uint32_t b, sm;
+  tf32_split(x, b, sm);
+  out[2 * t * TF + e] = __uint_as_float(b);
+  out[(2 * t + 1) * TF + e] = __uint_as_float(sm);
+}
+
+// Grid ceil(n / (ROWS / s)). tiles: prep_weights_kernel's output; ln: per
+// layer [ln1; ln2] (4, C).
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+fine_tf32_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                 const float* __restrict__ tiles, const float* __restrict__ ln,
+                 float* __restrict__ out0, float* __restrict__ out1, int n, int s,
+                 int n_layers, int cross_mask) {
+  constexpr int H = C / DH, NEL = DH * DH + DH;
+  extern __shared__ char smem_raw[];
+  char* sm = align1024(smem_raw);
+  char* stg = sm;                                         // NR weight stages
+  char* xs[2] = {stg + NR * STAGE, stg + NR * STAGE + XS};  // both images' windows
+  char* ab = xs[1] + XS;                                  // k, then q, then m
+  char* vb = ab + XS;                                     // v, then msg
+  float* kv = (float*)(vb + XS);                          // per window and head: KV, sum(k)
+  uint64_t* full = (uint64_t*)(kv + WPB * KVW<DH>);       // a stage's tile has landed
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane & 3), k0 = lane & 3;
+  const int wpb = ROWS / s, w0i = blockIdx.x * wpb;
+  const int vrows = min(wpb, n - w0i) * s;
+  const size_t base = (size_t)w0i * s * C;
+  const int total = 2 * n_layers * TPA;
+  const float inv_s = 1.f / (float)s;  // v's scale, as far_tpu/ops/fine_layer.py:100
+
+  // tile tt of the stream into its stage, by one thread
+  auto load = [&](int tt) {
+    const int sl = tt % NR;
+    const size_t ti = (size_t)(tt / TPA / 2) * TPA + tt % TPA;
+    mbar_expect_tx(full + sl, STAGE);
+    bulk_load(stg + sl * STAGE, tiles + ti * (STAGE / 4), STAGE, full + sl);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < NR; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int tt = 0; tt < min(NR, total); ++tt) load(tt);
+  load_tile(xs[0], f0 + base, C, ROWS, C / 32, vrows, C, tid, THREADS);
+  load_tile(xs[1], f1 + base, C, ROWS, C / 32, vrows, C, tid, THREADS);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  int t = 0;
+  // The next tile's stage, its big and small parts ready for wgmma. The
+  // previous tile's stage, whose products are done (release's barrier),
+  // takes the tile NR on. No block barrier here: the stage landed (the
+  // mbarrier), and each warp's A fragments are the 16 rows its own lanes
+  // wrote. Those rows cross lanes, so every epilogue store that a
+  // projection reads with no block barrier between (LN2's, read by the next
+  // application) ends in a __syncwarp; the window passes, which cross
+  // warps, have block barriers of their own.
+  auto acquire = [&]() -> const char* {
+    const int sl = t % NR;
+    mbar_wait(full + sl, (t / NR) & 1);
+    if (tid == 0 && t >= 1 && t - 1 + NR < total) load(t - 1 + NR);
+    return stg + sl * STAGE;
+  };
+  auto release = [&]() {
+    __syncthreads();
+    ++t;
+  };
+  auto store = [&](char* tile, int j, int h, float a0, float a1) {
+    *(float2*)(tile + swz4(ROWS, r0 + 8 * h, 8 * j + c0)) = make_float2(a0, a1);
+  };
+  float accp[1][C / 2];
+  float(&acc)[C / 2] = accp[0];
+// acc = A W^T over the four 32-column slabs of W, A a 64-row float32 tile
+// split into TF32 fragments as it is read; each k8 step's products are a
+// commit group of their own, so the next step's fragments are read and
+// split while the tensor cores run
+#define FAR_K3_TF32_PROJECT(A)                                                   \
+  _Pragma("unroll") for (int e_ = 0; e_ < C / 2; ++e_) acc[e_] = 0.f;            \
+  for (int k_ = 0; k_ < C / 32; ++k_) {                                          \
+    const char* st_ = acquire();                                                 \
+    uint32_t fb_[4][4], fs_[4][4];                                               \
+    _Pragma("unroll") for (int kk = 0; kk < 4; ++kk) {                           \
+      a_frag((A), r0, 32 * k_ + 8 * kk + k0, fb_[kk], fs_[kk]);                  \
+      wg_fence();                                                                \
+      mma3(acc, fb_[kk], fs_[kk], st_ + kk * 32, st_ + TILE + kk * 32);          \
+      wg_commit();                                                               \
+    }                                                                            \
+    wg_wait<0>();                                                                \
+    keep(acc);                                                                   \
+    keep(fb_);                                                                   \
+    keep(fs_);                                                                   \
+    release();                                                                   \
+  }
+
+  for (int app = 0; app < 2 * n_layers; ++app) {
+    const int li = app >> 1, img = app & 1;
+    char* xt = xs[img];
+    const char* yt = (cross_mask >> li) & 1 ? xs[img ^ 1] : xt;
+    const float* lnl = ln + (size_t)li * 4 * C;
+
+    // k = elu(src Wk^T) + 1, v = src Wv^T (1 / s)
+    FAR_K3_TF32_PROJECT(yt)
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store(ab, j, h, elu1(acc[4 * j + 2 * h]), elu1(acc[4 * j + 2 * h + 1]));
+    FAR_K3_TF32_PROJECT(yt)
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store(vb, j, h, acc[4 * j + 2 * h] * inv_s, acc[4 * j + 2 * h + 1] * inv_s);
+    __syncthreads();
+
+    // per window and head, on the CUDA cores: KV = k^T v and sum(k); a
+    // thread owns row i of one (window, head)
+    for (int e = tid; e < wpb * H * DH; e += THREADS) {
+      const int i = e % DH, hd = (e / DH) % H, w = e / (DH * H);
+      float a[DH];
+#pragma unroll
+      for (int j = 0; j < DH; ++j) a[j] = 0.f;
+      float ks = 0.f;
+      for (int r = w * s; r < (w + 1) * s; ++r) {
+        const float kr = ld4(ab, r, hd * DH + i);
+        ks += kr;
+#pragma unroll
+        for (int j = 0; j < DH; j += 4) {
+          const float4 v4 = *(const float4*)(vb + swz4(ROWS, r, hd * DH + j));
+          a[j] = fmaf(kr, v4.x, a[j]);
+          a[j + 1] = fmaf(kr, v4.y, a[j + 1]);
+          a[j + 2] = fmaf(kr, v4.z, a[j + 2]);
+          a[j + 3] = fmaf(kr, v4.w, a[j + 3]);
+        }
+      }
+      float* o = kv + w * KVW<DH> + hd * NEL;
+#pragma unroll
+      for (int j = 0; j < DH; j += 4)
+        *(float4*)(o + i * DH + j) = make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]);
+      o[DH * DH + i] = ks;
+    }
+
+    // q = elu(x Wq^T) + 1 over k (every thread is past the KV loop once the
+    // projection's first barrier has passed)
+    FAR_K3_TF32_PROJECT(xt)
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store(ab, j, h, elu1(acc[4 * j + 2 * h]), elu1(acc[4 * j + 2 * h + 1]));
+    __syncthreads();
+
+    // msg = q_h KV_h * s / (q_h . sum(k_h) + 1e-6) over v; a thread owns one
+    // (row, head); zero rows past the block's windows get msg = 0
+    for (int e = tid; e < ROWS * H; e += THREADS) {
+      const int r = e % ROWS, hd = e / ROWS, w = r / s;
+      float q[DH], m[DH];
+#pragma unroll
+      for (int j = 0; j < DH; j += 4) {
+        const float4 q4 = *(const float4*)(ab + swz4(ROWS, r, hd * DH + j));
+        q[j] = q4.x, q[j + 1] = q4.y, q[j + 2] = q4.z, q[j + 3] = q4.w;
+      }
+#pragma unroll
+      for (int j = 0; j < DH; ++j) m[j] = 0.f;
+      if (w < wpb) {
+        const float* o = kv + w * KVW<DH> + hd * NEL;
+        float den = 0.f;
+#pragma unroll
+        for (int i = 0; i < DH; ++i) den = fmaf(q[i], o[DH * DH + i], den);
+#pragma unroll
+        for (int i = 0; i < DH; ++i)
+#pragma unroll
+          for (int j = 0; j < DH; j += 4) {
+            const float4 k4 = *(const float4*)(o + i * DH + j);
+            m[j] = fmaf(q[i], k4.x, m[j]);
+            m[j + 1] = fmaf(q[i], k4.y, m[j + 1]);
+            m[j + 2] = fmaf(q[i], k4.z, m[j + 2]);
+            m[j + 3] = fmaf(q[i], k4.w, m[j + 3]);
+          }
+        const float z = 1.f / (den + 1e-6f);
+#pragma unroll
+        for (int j = 0; j < DH; ++j) m[j] = m[j] * z * (float)s;
+      }
+#pragma unroll
+      for (int j = 0; j < DH; j += 4)
+        *(float4*)(vb + swz4(ROWS, r, hd * DH + j)) = make_float4(m[j], m[j + 1], m[j + 2], m[j + 3]);
+    }
+    __syncthreads();
+
+    // m = LN1(msg Wm^T) over q, the LayerNorm in the accumulators
+    FAR_K3_TF32_PROJECT(vb)
+    {
+      float mu[2], rstd[2];
+      acc_row_stats(accp, mu, rstd, C);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 8 * j + c0;
+          store(ab, j, h,
+                (acc[4 * j + 2 * h] - mu[h]) * rstd[h] * __ldg(lnl + col) + __ldg(lnl + C + col),
+                (acc[4 * j + 2 * h + 1] - mu[h]) * rstd[h] * __ldg(lnl + col + 1) +
+                    __ldg(lnl + C + col + 1));
+        }
+    }
+
+    // out_pre = relu(x W0x^T + m W0m^T) W1^T, 64 columns of y at a time, each
+    // chunk split into A fragments in registers and fed straight into the
+    // W1^T accumulator (mlp.2's K order permuted to match, prep_weights_kernel)
+#pragma unroll
+    for (int e = 0; e < C / 2; ++e) acc[e] = 0.f;
+    for (int c = 0; c < 2 * C / 64; ++c) {
+      float ya[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) ya[e] = 0.f;
+      for (int part = 0; part < 4; ++part) {
+        const char* st = acquire();
+        const char* a = part < 2 ? xt : ab;
+        uint32_t fb[8][4], fs[8][4];
+        keep(acc);
+#pragma unroll
+        for (int kb = 0; kb < 8; ++kb) {
+          const int bo = (kb >> 2) * 64 * 128 + (kb & 3) * 32;
+          a_frag(a, r0, 64 * (part & 1) + 8 * kb + k0, fb[kb], fs[kb]);
+          wg_fence();
+          mma3(ya, fb[kb], fs[kb], st + bo, st + TILE + bo);
+          wg_commit();
+        }
+        wg_wait<0>();
+        keep(ya);
+        keep(fb);
+        keep(fs);
+        release();
+      }
+      uint32_t yb[8][4], ys[8][4];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) ya[e] = fmaxf(ya[e], 0.f);
+#pragma unroll
+      for (int kb = 0; kb < 8; ++kb) frag_tf32(ya, kb, yb[kb], ys[kb]);
+      for (int half = 0; half < 2; ++half) {
+        const char* st = acquire();
+        keep(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma3(acc, yb[4 * half + kk], ys[4 * half + kk], st + kk * 32, st + TILE + kk * 32);
+        wg_commit();
+        wg_wait<0>();
+        keep(acc);
+        keep(yb);
+        keep(ys);
+        release();
+      }
+    }
+
+    // x = x + LN2(out_pre), in place (every read of x is past the last barrier)
+    {
+      float mu[2], rstd[2];
+      acc_row_stats(accp, mu, rstd, C);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          const int col = 8 * j + c0;
+          float2* px = (float2*)(xt + swz4(ROWS, row, col));
+          const float2 xv = *px;
+          *px = make_float2(
+              xv.x + ((acc[4 * j + 2 * h] - mu[h]) * rstd[h] * __ldg(lnl + 2 * C + col) +
+                      __ldg(lnl + 3 * C + col)),
+              xv.y + ((acc[4 * j + 2 * h + 1] - mu[h]) * rstd[h] * __ldg(lnl + 2 * C + col + 1) +
+                      __ldg(lnl + 3 * C + col + 1)));
+        }
+      }
+      // the next application's first projection reads these rows with no
+      // block barrier between (acquire)
+      __syncwarp();
+    }
+  }
+
+#undef FAR_K3_TF32_PROJECT
+  __syncthreads();
+  for (int i = tid; i < vrows * (C / 4); i += THREADS) {
+    const int r = i / (C / 4), col = (i % (C / 4)) * 4;
+    *(float4*)(out0 + base + (size_t)r * C + col) = *(const float4*)(xs[0] + swz4(ROWS, r, col));
+    *(float4*)(out1 + base + (size_t)r * C + col) = *(const float4*)(xs[1] + swz4(ROWS, r, col));
+  }
+}
+
+// Bytes of the weight tiles prep_weights_kernel writes.
+size_t scratch_bytes(int n_layers) { return (size_t)n_layers * TPA * STAGE; }
+
+template <int DH>
+int run(const float* f0, const float* f1, const float* w, const float* ln, float* out0,
+        float* out1, float* scratch, int n, int s, int n_layers, int cross_mask,
+        cudaStream_t st) {
+  const int wpb = ROWS / s, total = n_layers * TPA * (TILE / 4);
+  prep_weights_kernel<<<(total + 255) / 256, 256, 0, st>>>(w, n_layers, scratch);
+  constexpr int smem = SMEM<DH>;
+  cudaError_t err = cudaFuncSetAttribute(fine_tf32_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fine_tf32_kernel<DH><<<(n + wpb - 1) / wpb, THREADS, smem, st>>>(
+      f0, f1, scratch, ln, out0, out1, n, s, n_layers, cross_mask);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32
+
+// 1 when far_fine_transformer_tf32 takes (C, H, s): C = 128, a head width
+// of 16 or 32, and windows of 22 <= s <= 64 tokens (2 or 1 whole windows a
+// 64-row block: more would not leave their KV room in shared memory), else
+// 0; the wrapper asks first.
+extern "C" size_t far_fine_transformer_tf32_supports(int C, int H, int s) {
+  const int DH = H > 0 && C % H == 0 ? C / H : 0;
+  return C == tf32::C && (DH == 16 || DH == 32) && s >= 1 && s <= tf32::ROWS &&
+         tf32::ROWS / s <= tf32::WPB;
+}
+// Bytes of the float32 route's scratch: the weights' big and small parts.
+extern "C" size_t far_fine_transformer_tf32_scratch(int n_layers) {
+  return tf32::scratch_bytes(n_layers);
+}
+
+// float32 route, 3xTF32: the arguments of far_fine_transformer in float32,
+// scratch of far_fine_transformer_tf32_scratch bytes (the weights split once
+// a call). A shape far_fine_transformer_tf32_supports refuses returns
+// cudaErrorInvalidValue.
+extern "C" int far_fine_transformer_tf32(const void* f0, const void* f1, const void* w,
+                                         const void* ln, void* out0, void* out1, void* scratch,
+                                         int n, int s, int C, int H, int n_layers, int cross_mask,
+                                         void* stream) {
+  if (!far_fine_transformer_tf32_supports(C, H, s) || n < 1 || n_layers < 1 || n_layers > 30)
+    return (int)cudaErrorInvalidValue;
+  using Run = int (*)(const float*, const float*, const float*, const float*, float*, float*,
+                      float*, int, int, int, int, cudaStream_t);
+  const Run run = C / H == 16 ? tf32::run<16> : tf32::run<32>;
+  return run((const float*)f0, (const float*)f1, (const float*)w, (const float*)ln,
+             (float*)out0, (float*)out1, (float*)scratch, n, s, n_layers, cross_mask,
+             (cudaStream_t)stream);
 }

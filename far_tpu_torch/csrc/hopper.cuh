@@ -9,7 +9,9 @@
 //   Atoms start on 1024-byte boundaries. A descriptor points at a row that
 //   is a multiple of 8; one k16 step inside an atom adds 32 bytes.
 // - load_tile: cp.async (16 B a thread, zero fill past the valid rows and
-//   columns) of such a tile from a row-major global matrix.
+//   columns) of such a tile from a row-major global matrix; bulk_load: one
+//   thread's cp.async.bulk of a contiguous block (a tile laid out in this
+//   layout beforehand), its completion on an mbarrier (mbar_*).
 // - wgmma_ss / wgmma_rs: wgmma.mma_async m64nNk16, bf16 in, f32
 //   accumulators, A from shared memory (ss) or registers (rs); overloaded
 //   on the accumulator's length (N = 64, 72, 128; rs also 16, 32). Register layout of the
@@ -24,7 +26,7 @@
 // - acc_row_stats: LayerNorm statistics of the rows a thread holds in an
 //   accumulator (K1's and K3's row passes).
 //
-// TF32 pieces (the float32 routes of K1 and K4, 3xTF32):
+// TF32 pieces (the float32 routes of K1, K3 and K4, 3xTF32):
 // - A float32 tile uses the same swizzled layout with 32 columns an atom
 //   (load_tile<float>, swz4); one k8 step of TF32 wgmma inside an atom is
 //   again 32 bytes. wgmma reads TF32 operands K-major only (the transpose
@@ -34,7 +36,7 @@
 //   for a staged tile (big) into a twin buffer (small); a product a b is
 //   then small_a big_b + big_a small_b + big_a big_b (ops/tf32.py models it).
 // - wgmma_tf32_ss / wgmma_tf32_rs: m64nNk8, f32 += tf32 * tf32 (N = 64, 72,
-//   128; rs 64 and 72).
+//   128 for both).
 // - frag_tf32: the A fragment of k8 step kb from an accumulator, split.
 //   TF32's A fragment holds columns t%4 and t%4 + 4 of a k8 step, the
 //   accumulator columns 2(t%4) and 2(t%4) + 1, so the fragment takes them
@@ -84,6 +86,47 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // before the barrier that publishes them.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarriers and the bulk-copy engine ------------------------------------
+// A contiguous global -> shared copy by one thread (cp.async.bulk, 16-byte
+// aligned, a multiple of 16 bytes) signals its bytes to an mbarrier: the
+// issuing thread arms the barrier with the bytes it expects (mbar_expect_tx,
+// one arrival), and every reader waits for the phase to complete
+// (mbar_wait with the parity of the barrier's use, 0 for the first).
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// After mbar_init, before any thread uses the barriers (then a __syncthreads).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Barrier over the 128 threads of warpgroup `wg` (ids 1.. leave 0 to
@@ -427,6 +470,27 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[36], const uint32_t (&a
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

@@ -5,12 +5,9 @@ Replaces ``far_tpu/ops/fine_layer.py:_fused`` (its ``pl.pallas_call`` at
 sequential, so f1 attends to the updated f0) runs with linear attention
 confined to each s-token window. The kernel is bound by operations
 (~35 GFLOP per pair at K=1024 windows, C=128). The CUDA source is
-``far_tpu_torch/csrc/fine_layer.cu``; one launch in either route:
+``far_tpu_torch/csrc/fine_layer.cu``; one launch a call in each route
+(the float32 tensor-core route adds a small one that prepares the weights):
 
-- float32, and bfloat16 shapes outside the tensor-core set: the CUDA
-  cores, a block keeping 2 windows in shared memory as f32 through all
-  four applications, or 1 where 2 do not fit (C >= 192 at s = 25, C =
-  128 at s = 81; the kernel asks the card's per-block limit).
 - bfloat16 with C in {64, 128}, a head width of 16, 32 or 64 and s <= 64
   (``FAR_K3_TC_SHAPES``, asked through
   ``far_fine_transformer_tc_supports`` before any launch): the tensor
@@ -21,6 +18,29 @@ confined to each s-token window. The kernel is bound by operations
   bf16 where the TPU kernel casts them; the denominators and LayerNorms
   stay float32. What holds it back: each weight tile's and each head's
   products run in series within a block.
+- float32 at C = 128 with a head width of 16 or 32 and 64 // s whole
+  windows a block (s = 25 on every path; ``far_fine_transformer_tf32_
+  supports``): the tensor cores, 3xTF32 (every product three TF32 wgmma
+  products of big / small splits, ``ops/tf32.py`` models them). A block
+  of one warpgroup keeps 64 rows (2 windows at s = 25 and 14 zero rows)
+  of both images in shared memory as float32 through all four
+  applications. A small launch splits the weights into big and small once
+  a call and lays each 128 x 32 tile out as shared memory holds it; one
+  thread moves a tile with ``cp.async.bulk`` onto an mbarrier, two stages
+  deep. A operands are split into TF32 fragments in registers as they are
+  read; the window attention (k^T v, sum(k), q KV, ~2.4 % of the
+  operations) runs on the CUDA cores in float32, the LayerNorms in the
+  accumulators. ~210 KB of shared memory at the main shape, one block an
+  SM. What holds it back (PERF.md): the one warpgroup runs each weight
+  tile's chain (fragment splits, 12 wgmma, wait, barrier) in series, about
+  half a block's time, and the CUDA-core window passes and epilogues,
+  about a third, run with no tensor-core work beside them; waiting for
+  weight tiles is about 5 %.
+- other float32 shapes (C = 256, s = 81, head widths outside {16, 32}),
+  and bfloat16 shapes outside the tensor-core set: the CUDA cores, a
+  block keeping 2 windows in shared memory as f32 through all four
+  applications, or 1 where 2 do not fit (C >= 192 at s = 25, C = 128 at
+  s = 81; the kernel asks the card's per-block limit).
 
 Each layer's weights are a dict in the layout of ``ops/loftr_layer.py``;
 ``pack_fine_params`` casts and concatenates them once for the kernel.
@@ -121,28 +141,37 @@ def fine_transformer(f0: torch.Tensor, f1: torch.Tensor,
                    and ln.numel() == 4 * C * len(params),
                    "layer weights do not fit C")
     cross = sum(1 << i for i, nm in enumerate(layer_names) if nm == "cross")
-    # bf16 shapes the tensor-core route is built for take it; other bf16
-    # shapes (and float32) take the CUDA-core route
-    tc = code == 1 and _build.bind_size(
-        "fine_layer", "far_fine_transformer_tc_supports", 3)(C, nhead, s) == 1
+    # the tensor-core route of the dtype where it is built for (C, nhead, s)
+    route = "tc" if code == 1 else "tf32"
+    if _build.bind_size("fine_layer", f"far_fine_transformer_{route}_supports",
+                        3)(C, nhead, s) != 1:
+        route = "cuda_cores"
     out0 = torch.empty_like(f0)
     out1 = torch.empty_like(f1)
-    args = [f0.data_ptr(), f1.data_ptr(), w.data_ptr(), ln.data_ptr(),
-            out0.data_ptr(), out1.data_ptr(), n, s, C, nhead, len(params), cross]
-    if tc:
+    ptrs = [f0.data_ptr(), f1.data_ptr(), w.data_ptr(), ln.data_ptr(),
+            out0.data_ptr(), out1.data_ptr()]
+    ints = [n, s, C, nhead, len(params), cross]
+    if route == "tc":
         fn = _build.bind("fine_layer", "far_fine_transformer_tc", 6, 6)
-        err = fn(*args, _build.stream_of(f0))
+        err = fn(*ptrs, *ints, _build.stream_of(f0))
+    elif route == "tf32":
+        size = _build.bind_size("fine_layer", "far_fine_transformer_tf32_scratch", 1)
+        scratch = _build.scratch(size(len(params)), f0)
+        fn = _build.bind("fine_layer", "far_fine_transformer_tf32", 7, 6)
+        err = fn(*ptrs, scratch.data_ptr(), *ints, _build.stream_of(f0))
     else:
         fn = _build.bind("fine_layer", "far_fine_transformer", 6, 7)
-        err = fn(*args, code, _build.stream_of(f0))
-    _build.check(err, "fine_transformer" + (" (bf16)" if tc else ""))
+        err = fn(*ptrs, *ints, code, _build.stream_of(f0))
+    _build.check(err, f"fine_transformer ({route})")
     fine_transformer.launches += 1
-    fine_transformer.launches_tc += int(tc)
+    fine_transformer.launches_tc += int(route == "tc")
+    fine_transformer.launches_tf32 += int(route == "tf32")
     return out0, out1
 
 
-fine_transformer.launches = 0     # launches of either route
-fine_transformer.launches_tc = 0  # launches of the bfloat16 tensor-core route
+fine_transformer.launches = 0       # launches of any route
+fine_transformer.launches_tc = 0    # launches of the bfloat16 tensor-core route
+fine_transformer.launches_tf32 = 0  # launches of the float32 tensor-core route (3xTF32)
 
 
 def _layer_dicts(weights: Sequence[torch.Tensor]):

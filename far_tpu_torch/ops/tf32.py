@@ -1,7 +1,8 @@
 """The float32 tensor-core routes' arithmetic (3xTF32), in plain torch.
 
-The float32 routes of K1 and K4 (``far_loftr_layer_tf32`` and
-``far_bilinear_dual_softmax_tf32`` in ``far_tpu_torch/csrc``) run each
+The float32 routes of K1, K3 and K4 (``far_loftr_layer_tf32``,
+``far_fine_transformer_tf32`` and ``far_bilinear_dual_softmax_tf32`` in
+``far_tpu_torch/csrc``) run each
 product on the tensor cores as three TF32 products: every operand x is
 split into big = tf32(x) and small = tf32(x - big), and a b becomes
 small_a big_b + big_a small_b + big_a big_b, accumulated in float32. The

@@ -1,5 +1,5 @@
 """The tensor-core routes of K1-K4 (far_tpu_torch/csrc): bfloat16, and
-K1's and K4's float32 (3xTF32) routes.
+K1's, K3's and K4's float32 (3xTF32) routes.
 
 On the CPU: what surrounds the kernels - the weight packs that K1's and
 K3's wrappers take (they must equal the weights cast to the dtype, and a
@@ -602,12 +602,66 @@ def test_fine_transformer_bf16_outside_the_set_takes_cuda_cores(card, n, s, C, H
     assert float(max((o0.float() - r0).abs().max(), (o1.float() - r1).abs().max())) <= tol
 
 
+K3_TF32_SHAPES = [(16, s) for s in (22, 25, 49, 64)] + [(32, s) for s in (22, 25, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,C,H", [(2048, 25, 128, 8), (2051, 25, 128, 8), (7, 25, 128, 8),
+                                     (1, 25, 128, 8)]
+                         + [(23, s, 128, 128 // dh) for dh, s in K3_TF32_SHAPES])
+def test_fine_transformer_f32_tf32_route_on_card(card, n, s, C, H):
+    """float32 on the 3xTF32 route (launches_tf32 + 1) at the main shape
+    (B=2: 2048 windows of 25 tokens, C=128, 8 heads), ragged window counts
+    and every head width and window count a block it is built for: 1e-4
+    max|ref| against the plain version in strict float32, the same bits
+    run to run."""
+    g = torch.Generator().manual_seed(n + s + H)
+    x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
+    p = [_params(C, g, card) for _ in range(2)]
+    names = ("self", "cross")
+    r0, r1 = fine_transformer_plain(x0, x1, p, names, H)
+    before = (fine_transformer.launches_tc, fine_transformer.launches_tf32)
+    o0, o1 = fine_transformer(x0, x1, p, names, H, pack=pack_fine_params(p, torch.float32))
+    a0, a1 = fine_transformer(x0, x1, p, names, H)
+    torch.cuda.synchronize()
+    assert (fine_transformer.launches_tc, fine_transformer.launches_tf32) == (
+        before[0], before[1] + 2)
+    assert torch.equal(o0, a0) and torch.equal(o1, a1)
+    tol = 1e-4 * float(max(r0.abs().max(), r1.abs().max()))
+    assert float(max((o0 - r0).abs().max(), (o1 - r1).abs().max())) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,C,H", [(5, 25, 256, 8), (3, 81, 128, 8), (5, 25, 128, 16),
+                                     (4, 25, 128, 2), (9, 25, 32, 4), (6, 9, 128, 8),
+                                     (5, 21, 128, 8), (5, 21, 128, 4)])
+def test_fine_transformer_f32_outside_the_tf32_set_takes_cuda_cores(card, n, s, C, H):
+    """float32 shapes the 3xTF32 route is not built for (C = 256 or 32, s =
+    81, a head width of 8 or 64, s <= 21: more than 2 windows a block,
+    which would not leave their KV room in shared memory) run the CUDA-core
+    kernel: launches + 1, launches_tc and launches_tf32 unchanged, 1e-4
+    max|ref|."""
+    g = torch.Generator().manual_seed(n * s + C + H)
+    x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
+    p = [_params(C, g, card) for _ in range(2)]
+    names = ("self", "cross")
+    r0, r1 = fine_transformer_plain(x0, x1, p, names, H)
+    f = fine_transformer
+    counts = (f.launches, f.launches_tc, f.launches_tf32)
+    o0, o1 = f(x0, x1, p, names, H)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_tc, f.launches_tf32) == (counts[0] + 1, counts[1], counts[2])
+    tol = 1e-4 * float(max(r0.abs().max(), r1.abs().max()))
+    assert float(max((o0 - r0).abs().max(), (o1 - r1).abs().max())) <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,C,H", [(7, 25, 128, 8), (5, 25, 256, 8), (4, 25, 192, 8),
                                      (3, 81, 128, 8)])
 def test_fine_transformer_f32_every_window_size(card, n, s, C, H):
-    """float32 on the CUDA cores, 2 windows a block at the main shape and 1
-    where 2 do not fit: tolerance 1e-4 max|ref| (summation order only)."""
+    """float32 at every block width: 2 windows a block at the main shape
+    (the 3xTF32 route), 1 where 2 do not fit in the CUDA-core kernel
+    (C >= 192 at s = 25, s = 81): tolerance 1e-4 max|ref|."""
     g = torch.Generator().manual_seed(n * s + C)
     x0, x1 = (torch.randn(n, s, C, generator=g).to(card) for _ in range(2))
     p = [_params(C, g, card) for _ in range(2)]

@@ -1,9 +1,10 @@
 """The float32 tensor-core routes' arithmetic (3xTF32) against the JAX package.
 
-K1's and K4's float32 routes (``far_loftr_layer_tf32``,
-``far_bilinear_dual_softmax_tf32``) compute each product on the tensor
-cores as three TF32 products (``far_tpu_torch/ops/tf32.py``). A CUDA
-kernel cannot run here, so these tests hold the routes' arithmetic,
+K1's, K3's and K4's float32 routes (``far_loftr_layer_tf32``,
+``far_fine_transformer_tf32``, ``far_bilinear_dual_softmax_tf32``) compute
+each product on the tensor cores as three TF32 products
+(``far_tpu_torch/ops/tf32.py``). A CUDA kernel cannot run here, so these
+tests hold the routes' arithmetic,
 written out in plain torch with every tensor-core product through
 ``matmul_3xtf32``, against the JAX package's float32 references on the
 CPU at the main path's widths, to the 1e-4 max|ref| that ``chip_smoke.py``
@@ -19,10 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from far_tpu.ops.bilinear_attention import bilinear_dual_softmax_reference
+from far_tpu.ops.fine_layer import fine_transformer_reference
 from far_tpu.ops.loftr_layer import fused_loftr_layer_reference
 from far_tpu_torch.ops.bilinear_attention import kperm_columns
 from far_tpu_torch.ops.loftr_layer import layer_norm
 from far_tpu_torch.ops.tf32 import matmul_3xtf32, round_tf32, split_tf32
+from tests.test_torch_kernels import to_port
 
 torch.set_num_threads(2)
 TOL_REL = 1e-4  # chip_smoke.py phase 3's float32 tolerance, of max|ref|
@@ -259,3 +262,110 @@ def test_k1_3xtf32_matches_the_jax_reference(seed, L, S):
           f"of 1e-4 max|ref|")
     assert err3 <= tol
     assert err1 > tol
+
+
+# ---- K3 in float32 ---------------------------------------------------------------
+
+ROWS_K3 = 64  # rows of a block's tile in far_fine_transformer_tf32
+
+
+def k3_layer(x, src, p, nhead, s, mm):
+    """One application of far_fine_transformer_tf32 on a (T, R, C) stack of
+    tiles, each R rows of whole s-token windows (a trailing partial window
+    of zero rows in each tile): the dense products through ``mm``, elu + 1,
+    1/s and relu on their accumulators; per window and head k^T v, sum(k)
+    and q KV in float32 (the CUDA cores); rows past the tile's last whole
+    window get msg = 0; the LayerNorms in float32. ``p`` in the port's
+    layout (torch Linear weights)."""
+    T, R, C = x.shape
+    d, wpb = C // nhead, R // s
+    q = F.elu(mm(x, p["wq"].t())) + 1.0
+    k = F.elu(mm(src, p["wk"].t())) + 1.0
+    v = mm(src, p["wv"].t()) * (1.0 / s)
+    win = lambda t: t[:, :wpb * s].reshape(T, wpb, s, nhead, d)
+    kw, vw, qw = win(k), win(v), win(q)
+    kv = torch.einsum("twshd,twshe->twhde", kw, vw)
+    z = 1.0 / (torch.einsum("twshd,twhd->twsh", qw, kw.sum(dim=2)) + 1e-6)
+    msg = torch.zeros_like(x)
+    msg[:, :wpb * s] = (torch.einsum("twshd,twhde->twshe", qw, kv) * z[..., None]
+                        * s).reshape(T, wpb * s, C)
+    m = layer_norm(mm(msg, p["wm"].t()), p["ln1"][0], p["ln1"][1])
+    w0 = p["w0"]
+    y = torch.relu(mm(x, w0[:, :C].t()) + mm(m, w0[:, C:].t()))
+    return x + layer_norm(mm(y, p["w1"].t()), p["ln2"][0], p["ln2"][1])
+
+
+def k3_route(f0, f1, params, names, nhead, mm, rows=ROWS_K3):
+    """far_fine_transformer_tf32's arithmetic on (n, s, C) windows: rows //
+    s whole windows a tile of ``rows`` rows, zero rows after them, all four
+    applications on the tiles (cross layers sequential), the windows cut
+    back out. ``rows = s`` packs one window a tile and no zero row."""
+    n, s, C = f0.shape
+    wpb = rows // s
+    nt = -(-n // wpb)
+
+    def pack(f):
+        t = torch.zeros(nt * wpb, s, C)
+        t[:n] = f
+        return torch.cat([t.reshape(nt, wpb * s, C), torch.zeros(nt, rows - wpb * s, C)], 1)
+
+    x0, x1 = pack(f0), pack(f1)
+    for name, p in zip(names, params):
+        if name == "self":
+            x0 = k3_layer(x0, x0, p, nhead, s, mm)
+            x1 = k3_layer(x1, x1, p, nhead, s, mm)
+        else:
+            x0 = k3_layer(x0, x1, p, nhead, s, mm)
+            x1 = k3_layer(x1, x0, p, nhead, s, mm)
+
+    def unpack(x):
+        return x[:, :wpb * s].reshape(nt * wpb, s, C)[:n]
+
+    return unpack(x0), unpack(x1)
+
+
+@pytest.mark.parametrize("seed,n", [(0, 7), (1, 12)])
+def test_k3_3xtf32_matches_the_jax_reference(seed, n):
+    """The main path's fine stack (s = 25, C = 128, 8 heads of 16, self then
+    cross) on n windows in 64-row tiles (odd n: the last tile holds one
+    window and 39 zero rows): 3xTF32 within 1e-4 max|ref| of the JAX float32
+    reference; one TF32 pass per dense product outside it."""
+    rng = np.random.default_rng(seed)
+    s, C, H = 25, 128, 8
+    f0, f1 = (rng.standard_normal((n, s, C)).astype(np.float32) for _ in range(2))
+    jp = [_jax_params(rng, C) for _ in range(2)]
+    names = ("self", "cross")
+    r0, r1 = fine_transformer_reference(jnp.asarray(f0), jnp.asarray(f1),
+                                        [{k: jnp.asarray(v) for k, v in p.items()} for p in jp],
+                                        names, H)
+    ref = np.concatenate([np.asarray(r0), np.asarray(r1)])
+    tp = [to_port(p) for p in jp]
+    t0, t1 = torch.from_numpy(f0), torch.from_numpy(f1)
+    tol = TOL_REL * float(np.abs(ref).max())
+
+    def err(mm):
+        o0, o1 = k3_route(t0, t1, tp, names, H, mm)
+        return float(np.abs(torch.cat([o0, o1]).numpy() - ref).max())
+
+    err3, err1 = err(matmul_3xtf32), err(matmul_tf32)
+    print(f"K3 n={n}: 3xTF32 {err3 / tol:.3f}, one pass {err1 / tol:.3f} of 1e-4 max|ref|")
+    assert err3 <= tol
+    assert err1 > tol
+
+
+@pytest.mark.parametrize("s,H", [(25, 8), (20, 8), (49, 8), (22, 4)])
+def test_k3_tiles_confine_each_window(s, H):
+    """The 64-row tiles (64 // s whole windows, the rest zero rows) give the
+    windows what one window a tile, with no zero row, gives: the window
+    reductions and the zero rows never reach another window's rows."""
+    rng = np.random.default_rng(s + H)
+    n, C = 5, 128
+    f0, f1 = (torch.from_numpy(rng.standard_normal((n, s, C)).astype(np.float32))
+              for _ in range(2))
+    tp = [to_port(_jax_params(rng, C)) for _ in range(2)]
+    names = ("self", "cross")
+    mm = lambda a, b: a @ b
+    tiled = k3_route(f0, f1, tp, names, H, mm)
+    alone = k3_route(f0, f1, tp, names, H, mm, rows=s)
+    for a, b in zip(tiled, alone):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
