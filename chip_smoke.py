@@ -21,13 +21,17 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    built for (K1 C=32 in bf16 and f32, C=96 in bf16, K4 D=Dv=128 in bf16
    and f32, K3 f32 C=256 and s=81), each against its plain version
    (inputs from generators of their own);
-4. ``far_forward`` at 480x640 and full width with ``FARConfig()``'s
-   5-point solver, three requests of B=4 in float32 and three in
-   bfloat16, then the same with the 8-point solver, with the kernels'
-   launch counters (all launches, those of the bf16 tensor-core routes
-   and those of the float32 3xTF32 routes) set to 0 just before each run
-   and read just after: a float32 request launches K1 16, K3 once and K4
-   2 times on the 3xTF32 routes;
+4. the compiled request (``build_inference_fn``) at 480x640 and full
+   width with ``FARConfig()``'s 5-point solver, B=4, in float32 and in
+   bfloat16, then the same with the 8-point solver, the kernels' launch
+   counters (all launches, those of the bf16 tensor-core routes and those
+   of the float32 3xTF32 routes) set to 0 just before each run and read
+   after it. The first call runs the eager request (the warm-up, which the
+   wrappers count where they launch) and captures it; then three replays
+   under a profiler trace, whose device kernels give each route's
+   launches (a replay runs no wrapper and leaves the counters as they
+   were), then three timed replays. A float32 request launches K1 16, K3
+   once and K4 2 times on the 3xTF32 routes;
 5. the matcher and the EMM features at a small width with the kernels on
    the card and with the plain versions on the CPU, compared;
 6. the port's solver on 16 synthetic scenes at 0.5 px noise, 5-point and
@@ -48,11 +52,12 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    network guard's weights on its 16 pairs, float32 and bfloat16, the
    table's median rotation error equal to phase 7's to 0.01 deg and under
    its gate; (b) ``FARConfig()`` in bfloat16 at 480x640 and full width, 16
-   pairs at B=4: 16 pairs in the table, every entry finite, K1/K2/K3/K4
-   launched 16/1/1/2 times a batch, and the pass's pairs/s;
+   pairs at B=4 through one compiled request: 16 pairs in the table,
+   every entry finite, the pass's pairs/s, and the pass again under a
+   profiler trace, K1/K2/K3/K4 launched 16/1/1/2 times a batch;
 10. Sinkhorn matching and backbone remat at 480x640 and full width: (a) a
-   Sinkhorn request at B=4 in float32 and bfloat16 (K2 0 launches, K1/K3/
-   K4 16/1/2); (b) one Sinkhorn training step at B=2 in bfloat16, with a
+   Sinkhorn request at B=4 in float32 and bfloat16 (from a profiler trace:
+   K2 0 launches, K1/K3/K4 16/1/2); (b) one Sinkhorn training step at B=2 in bfloat16, with a
    finite nonzero gradient of the dustbin score; (c) one bfloat16 step at
    B=2 under remat False, "full" and "selective" from the same weights
    and draws: gradients and BatchNorm statistics against the step without
@@ -93,8 +98,8 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    essential, essential-metric and PnP solvers on the card, held to
    tests/test_metric_solvers.py's gates;
 15. the entry points: each CLI's ``main(argv)`` in-process with
-   ``--device cuda``, the counters set to 0 before each call and read
-   after it: (a) ``evaluate`` on 16 synthetic pairs, ``FARConfig()`` in
+   ``--device cuda``, each call's launches read from a profiler trace of
+   it (eager launches and compiled requests' replays alike): (a) ``evaluate`` on 16 synthetic pairs, ``FARConfig()`` in
    bf16 at B=4 (K1/K2/K3/K4 64/4/4/8, the tensor-core routes the same; a
    finite table, the five files, the loop's pairs/s beside phase 9
    (b)'s); (b) ``evaluate --model vitess`` (K4 4); (c) ``evaluate
@@ -112,24 +117,24 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    against their plain versions, then ``far_forward`` under
    ``BackboneConfig(resolution=(16, 4), block_dims=(128, 128, 256,
    256))``, (b) under GroupNorm (``block_dims=(128, 192, 256)``) and (c)
-   with full attention in the coarse and fine stacks, each three
-   requests of B=4 at 480x640 in f32 and bf16 with the counters set to 0
-   before and read after (16/1/1/2 a request, full attention 0/1/0/2),
+   with full attention in the coarse and fine stacks, each three timed
+   requests of B=4 at 480x640 in f32 and bf16 and three under a profiler
+   trace (16/1/1/2 a request, full attention 0/1/0/2),
    the peak memory; GroupNorm on a bf16 map, card against CPU; (d)
    SuperPoint + SuperGlue at their defaults on B=4 pairs, ms a pair, the
    first pair against the CPU; (e) SimpleTransformer on a FARConfig()
    request's matches and first-round pose, card against CPU; (f)
    ``precompute --matcher superglue`` and ``--matcher sift`` on 4 pairs
    (no FAR kernel).
-17. the last single-process modules: (a) three bf16 ``far_forward``
-   requests (``FARConfig()``, B=4, 480x640) inside
-   ``utils.prof.InferenceProfiler.profile``: 3 regions, launches 16/1/1/2
-   a request, the first's R, t and gate equal to unprofiled requests' from
-   the same generator state within their own spread, profiled and
-   unprofiled ms; (b) one request under ``utils.prof.TraceProfiler``: the
-   Chrome trace's device kernels named by each kernel's ``__global__``
-   functions, the counters times the tensor-core route's launches a call
-   (K1 3, K2 4, K3 1, K4 3); (c) visloc: one query and 5 reference views,
+17. the last single-process modules: (a) three compiled bf16 requests
+   (``FARConfig()``, B=4, 480x640) inside
+   ``utils.prof.InferenceProfiler.profile``: 3 regions, the first's R, t
+   and gate equal to unprofiled requests' from the same generator state
+   within their own spread, profiled and unprofiled ms; (b) one replay
+   under ``utils.prof.TraceProfiler``: the Chrome trace's device kernels
+   named by each route's ``__global__`` functions (``ROUTE_SYMBOLS``),
+   16/1/1/2 calls on the tensor-core routes and 6 of the small-matrix
+   kernels; (c) visloc: one query and 5 reference views,
    the pairs solved by the 5-point RANSAC on the card, then
    ``eval.localize``'s pipelines with and without RANSAC on the host,
    position error < 0.5; (d) ``validate_far(fig_dir=...)`` with the guard's
@@ -157,6 +162,32 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    (16/1/1/2 a batch a rank); (e) ``python -m torch.distributed.run
    --nproc_per_node 1`` of ``cli.train`` (FARConfig() bf16, 3 steps at
    B=2) and ``cli.evaluate --ckpt_dir``, the checkpoint restored bit-equal.
+19. the compiled request (``pipeline.build_inference_fn``: the request
+   captured in a CUDA graph once per signature and replayed): for
+   FARConfig() in f32 and bf16 with the 5pt and 8pt solvers at 480x640,
+   B=4, (a) a replay (and the first call's warm-up output) against the
+   eager ``far_forward`` on the same batch and generator state, every
+   FarOutput field bit for bit (a field that differs is printed with the
+   op behind it and held to the difference of two eager requests); (b)
+   the replays under ``torch.cuda.set_sync_debug_mode("error")``; (c) two
+   batches in turn, each equal to its own eager request, the first output
+   unchanged by the second call; (e) the first call's warm-up counted
+   16/1/1/2 on phase 4's routes and 6 small_linalg launches by the
+   wrappers, and two replays more the same a request in a profiler trace,
+   the counters unchanged by them; (f) the eager and compiled ms a request
+   (median of 3), the graph pool's memory beside the eager request's
+   ``max_memory_allocated``; then (d) in f32 and in bf16: B=2 captures a
+   second graph into the first one's pool, and after an in-place
+   ``load_state_dict`` of other weights a replay equals the eager request
+   on them; (g) the polish's eigensolver and 3x3 SVD kernels
+   (``ops/small_linalg``) against ``torch.linalg`` at the polish's shapes,
+   at ragged batches and on nearly rank-1 F.
+Phase 4 drives the compiled request (its first call captures), so its
+times are the graph's; each far_forward request there also launches the
+small-matrix kernels 6 times (an eigh and two svd3 a solver round). The
+kernels line's ``launches`` of phase 4 are the first calls' counted
+launches plus the replays' traced ones, each also given alone
+(``launches_counted``, ``launches_traced``).
 Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 (B=2) and K4 at ViTEss's CrossBlock shapes (B=4 and, as a training step
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
@@ -735,11 +766,18 @@ def counters():
 
 
 def reset_counters():
-    for f in counters().values():
-        f.launches = 0
-        f.launches_tc = 0
-        if hasattr(f, "launches_tf32"):
-            f.launches_tf32 = 0
+    """Every launch counter of every kernel wrapper (K1-K4 and small_linalg) to 0."""
+    from far_tpu_torch.ops import launch_counts
+
+    for fn, name in launch_counts():
+        setattr(fn, name, 0)
+
+
+def small_linalg_launches() -> int:
+    """Launches of the polish's eigensolver and 3x3 SVD kernels."""
+    from far_tpu_torch.ops.small_linalg import eigh_small, svd3
+
+    return eigh_small.launches + svd3.launches
 
 
 # kernels with a tensor-core route (counted by launches_tc), and the dtypes
@@ -754,14 +792,137 @@ TF32_ROUTES = {"K1_loftr_layer": ("float32",), "K3_fine_transformer": ("float32"
                "K4_bilinear_dual_softmax": ("float32",)}
 
 
+# launches of the small-matrix kernels a solver round: the polish's 9x9
+# eigensolve and its two 3x3 SVDs (rank-2 and essential projections)
+SMALL_LINALG_PER_ROUND = 3
+
 # phase 4's runs: (dtype, minimal solver); FARConfig()'s solver is 5pt
 MAIN_RUNS = (("float32", "5pt"), ("bfloat16", "5pt"), ("float32", "8pt"),
              ("bfloat16", "8pt"))
 
 
+# ---- launches read from a profiler trace ----------------------------------------
+# A compiled request's replays run its kernels without their wrappers, so
+# the wrappers' counters see its warm-up (an eager request) and not its
+# replays. Where replays run, the launches are read from the device
+# kernels of a torch.profiler trace instead. Each route's __global__
+# functions (csrc/*.cu; namespace tc::, tf32::, or anon:: for an
+# anonymous one) with the launches of each in one wrapper call, the
+# route's own first: no other route launches it.
+ROUTE_SYMBOLS = {
+    ("K1_loftr_layer", "tc"): {"tc::row_pass_kernel": 1, "tc::kv_pass_kernel": 1,
+                               "tc::kv_reduce_tc_kernel": 1},
+    ("K1_loftr_layer", "tf32"): {"tf32::split_weights_kernel": 1, "tf32::gemm_tf32_kernel": 6,
+                                 "anon::kv_partial_kernel": 1, "anon::kv_reduce_kernel": 1,
+                                 "anon::msg_kernel": 1},
+    ("K1_loftr_layer", "cuda"): {"anon::ln_kernel": 2, "anon::gemm_kernel": 6,
+                                 "anon::kv_partial_kernel": 1, "anon::kv_reduce_kernel": 1,
+                                 "anon::msg_kernel": 1},
+    ("K2_dual_softmax_rowcol", "tc"): {"tc::combine_conf_kernel": 1, "tc::pass_kernel": 2,
+                                       "tc::combine_stats_kernel": 1},
+    ("K2_dual_softmax_rowcol", "cuda"): {"anon::row_combine_kernel": 1,
+                                         "anon::conf_tile_kernel": 1,
+                                         "anon::col_combine_kernel": 1},
+    ("K3_fine_transformer", "tc"): {"tc::fine_tc_kernel": 1},
+    ("K3_fine_transformer", "tf32"): {"tf32::fine_tf32_kernel": 1,
+                                      "tf32::prep_weights_kernel": 1},
+    ("K3_fine_transformer", "cuda"): {"anon::fine_kernel": 1},
+    ("K4_bilinear_dual_softmax", "tc"): {"tc::main_kernel": 1, "tc::row_stats_kernel": 1,
+                                         "tc::sum_partials_tc_kernel": 1},
+    ("K4_bilinear_dual_softmax", "tf32"): {"tf32::main_tf32_kernel": 1,
+                                           "tf32::row_stats_tf32_kernel": 1,
+                                           "tc::sum_partials_tc_kernel": 1},
+    ("K4_bilinear_dual_softmax", "cuda"): {"anon::bilinear_tile_kernel": 1,
+                                           "anon::sum_partials_kernel": 1},
+    ("small_linalg", "eigh"): {"anon::eigh_kernel": 1},
+    ("small_linalg", "svd3"): {"anon::svd3_kernel": 1},
+}
+
+
+def kernel_symbol(name: str) -> str:
+    """A device kernel's demangled name as ROUTE_SYMBOLS keys it: its
+    innermost namespace (anon for an anonymous one) and its name, without
+    return type, template arguments or parameters."""
+    import re
+
+    head = re.split(r"[<(]", name.replace("(anonymous namespace)", "anon"), maxsplit=1)[0]
+    words = head.split()
+    return "::".join(words[-1].split("::")[-2:]) if words else name
+
+
+def trace_kernels(call):
+    """(call()'s result, the names of the device kernels it ran) from a
+    torch.profiler trace (``utils.prof.TraceProfiler``) of the call: CUDA
+    graph replays' kernels included."""
+    import tempfile
+
+    from far_tpu_torch.utils.prof import TraceProfiler
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = TraceProfiler(tmp)
+        with tp.trace():
+            out = call()
+        events = json.loads(Path(tp.path).read_text())["traceEvents"]
+    return out, [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
+
+
+def traced_launches(call, what: str):
+    """call() under a profiler trace -> (its result, launches by kernel,
+    launches of the bf16 tensor-core routes (TC_ROUTES' kernels), of the
+    3xTF32 routes (TF32_ROUTES'), small_linalg launches): wrapper calls
+    counted in the trace's device kernels, eager and replayed alike. Fails
+    where a route's functions do not come in the numbers its calls
+    launch."""
+    from collections import Counter
+
+    out, names = trace_kernels(call)
+    seen = Counter(kernel_symbol(n) for n in names)
+    calls = {}
+    for route, syms in ROUTE_SYMBOLS.items():
+        own, per = next(iter(syms.items()))
+        calls[route] = seen[own] // per
+    expected = Counter()
+    for route, syms in ROUTE_SYMBOLS.items():
+        for sym, per in syms.items():
+            expected[sym] += calls[route] * per
+    odd = {sym: (seen[sym], n) for sym, n in expected.items() if seen[sym] != n}
+    if odd:
+        fail(f"{what}: kernel events {odd} (in the trace, from the routes' calls {calls})")
+    got = {k: 0 for k in counters()}
+    got_tc = {k: 0 for k in TC_ROUTES}
+    got_tf32 = {k: 0 for k in TF32_ROUTES}
+    small = 0
+    for (kernel, route), n in calls.items():
+        if kernel == "small_linalg":
+            small += n
+            continue
+        got[kernel] += n
+        if route == "tc":
+            got_tc[kernel] += n
+        elif route == "tf32":
+            got_tf32[kernel] += n
+    return out, got, got_tc, got_tf32, small
+
+
+def route_launches(per_req: dict, dtype: str, n: int):
+    """What n requests of ``dtype`` launch: (by kernel, on the bf16
+    tensor-core routes, on the 3xTF32 routes), per_req a request's."""
+    want = {k: v * n for k, v in per_req.items() if k != "small_linalg"}
+    return (want, {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES},
+            {k: want[k] if dtype in TF32_ROUTES[k] else 0 for k in TF32_ROUTES})
+
+
 def run_main_path(dev, card: str):
-    """Phase 4: far_forward at 480x640, full width; returns the launches
-    of each kernel and those of the bf16 and float32 tensor-core routes."""
+    """Phase 4: the compiled request (build_inference_fn) at 480x640, full
+    width, for each of MAIN_RUNS, every counter set to 0 just before its
+    first call and read after the run. The first call is the eager
+    warm-up, which the wrappers count where they launch (one request),
+    then the capture, which launches nothing; N_REQUESTS replays under a
+    profiler trace, whose device kernels give their launches by route
+    (small_linalg's too), each a request's and leaving the counters as the
+    warm-up left them; then N_REQUESTS timed replays. Returns the
+    launches of each kernel (counted + traced), those of the bf16 and the
+    float32 tensor-core routes, and {kernel: {"counted": n, "traced": n}}."""
     import torch
 
     from far_tpu_torch.pipeline import build_inference_fn, init_model
@@ -770,50 +931,65 @@ def run_main_path(dev, card: str):
 
     fns = counters()
     total = {k: 0 for k in fns}
+    total["small_linalg"] = 0
     total_tc = {k: 0 for k in TC_ROUTES}
     total_tf32 = {k: 0 for k in TF32_ROUTES}
+    split = {k: {"counted": 0, "traced": 0} for k in total}
+
+    def counted():
+        got = {k: f.launches for k, f in fns.items()}
+        got["small_linalg"] = small_linalg_launches()
+        return (got, {k: fns[k].launches_tc for k in TC_ROUTES},
+                {k: fns[k].launches_tf32 for k in TF32_ROUTES})
+
     for dtype, solver in MAIN_RUNS:
         cfg = FARConfig(dtype=dtype) if solver == FARConfig().solver.minimal_solver \
             else FARConfig(solver=SolverOptions(minimal_solver=solver), dtype=dtype)
+        tag = f"{dtype} {solver}"
         per_req = {"K1_loftr_layer": 2 * len(cfg.coarse.layer_names)
                    + 4 * cfg.regress.num_loftr_layers,
                    "K2_dual_softmax_rowcol": 1, "K3_fine_transformer": 1,
-                   "K4_bilinear_dual_softmax": 2}
+                   "K4_bilinear_dual_softmax": 2,
+                   "small_linalg": SMALL_LINALG_PER_ROUND * cfg.solver.fine_pred_steps}
         model = init_model(cfg, seed=0, device=dev)
         fn = build_inference_fn(model)
         batch = synthetic_batch(B_REQUEST, *cfg.image_size, dev)
         gen = torch.Generator(device=dev).manual_seed(0)
-        fn(batch, generator=gen)  # warm-up: cuDNN plans, allocator
-        torch.cuda.synchronize()
         reset_counters()
+        outs = [fn(batch, generator=gen)]  # the eager warm-up, then the capture
+        torch.cuda.synchronize()
+        warm = counted()
+        want = route_launches(per_req, dtype, 1)
+        if warm != ({**want[0], "small_linalg": per_req["small_linalg"]}, *want[1:]):
+            fail(f"{tag}: the first call (warm-up) counted {warm}, expected one request's "
+                 f"{per_req} on the routes {want[1:]}")
+        replays, traced, traced_tc, traced_tf32, traced_small = traced_launches(
+            lambda: [fn(batch, generator=gen) for _ in range(N_REQUESTS)],
+            f"{tag} replays")
+        outs += replays
+        want = route_launches(per_req, dtype, N_REQUESTS)
+        if (traced, traced_tc, traced_tf32, traced_small) != (
+                *want, per_req["small_linalg"] * N_REQUESTS):
+            fail(f"{tag}: {N_REQUESTS} replays launched {traced} (tensor cores {traced_tc}, "
+                 f"3xTF32 {traced_tf32}, small_linalg {traced_small}) in the trace, expected "
+                 f"{want} and small_linalg {per_req['small_linalg'] * N_REQUESTS}")
         times = []
-        outs = []
         for _ in range(N_REQUESTS):
             t0 = time.perf_counter()
-            out = fn(batch, generator=gen)
+            outs.append(fn(batch, generator=gen))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            outs.append(out)
-        counts = {k: f.launches for k, f in fns.items()}
-        counts_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
-        counts_tf32 = {k: fns[k].launches_tf32 for k in TF32_ROUTES}
-        for k, want in per_req.items():
-            if counts[k] != want * N_REQUESTS:
-                fail(f"{dtype} {solver}: {k} launched {counts[k]} times, expected "
-                     f"{want * N_REQUESTS} ({want} per request)")
-            total[k] += counts[k]
-        for k, dtypes in TC_ROUTES.items():
-            want = per_req[k] * N_REQUESTS if dtype in dtypes else 0
-            if counts_tc[k] != want:
-                fail(f"{dtype} {solver}: {k} tensor-core route launched {counts_tc[k]} "
-                     f"times, expected {want}")
-            total_tc[k] += counts_tc[k]
-        for k, dtypes in TF32_ROUTES.items():
-            want = per_req[k] * N_REQUESTS if dtype in dtypes else 0
-            if counts_tf32[k] != want:
-                fail(f"{dtype} {solver}: {k} float32 tensor-core route launched "
-                     f"{counts_tf32[k]} times, expected {want}")
-            total_tf32[k] += counts_tf32[k]
+        if counted() != warm:
+            fail(f"{tag}: the replays changed the counters from {warm} to {counted()}")
+        traced["small_linalg"] = traced_small
+        for k in total:
+            split[k]["counted"] += warm[0][k]
+            split[k]["traced"] += traced[k]
+            total[k] += warm[0][k] + traced[k]
+        for k in total_tc:
+            total_tc[k] += warm[1][k] + traced_tc[k]
+        for k in total_tf32:
+            total_tf32[k] += warm[2][k] + traced_tf32[k]
         for out in outs:
             for name in ("R", "t", "regressed_9d", "gating", "num_inliers", "E"):
                 val = getattr(out, name)
@@ -823,15 +999,17 @@ def run_main_path(dev, card: str):
                     tuple(out.matches.mkpts1_f.shape) != (B_REQUEST, cfg.match.max_matches, 2):
                 fail(f"{dtype}: unexpected output shapes")
         ms = statistics.median(times)
-        print(f"far_forward {dtype} {solver} B={B_REQUEST} 480x640: ms/request median "
-              f"{ms:.2f} (runs {[round(t, 2) for t in times]}), "
-              f"pairs/s {B_REQUEST * 1e3 / ms:.2f}, launches {counts}, "
-              f"tensor-core route launches {counts_tc}, 3xTF32 route launches {counts_tf32}, "
-              f"valid matches {outs[-1].matches.valid.sum(-1).tolist()}, "
+        print(f"far_forward {tag} B={B_REQUEST} 480x640, compiled (build_inference_fn: "
+              f"{len(fn.graphs)} CUDA graph): ms/request median {ms:.2f} (runs "
+              f"{[round(t, 2) for t in times]}), pairs/s {B_REQUEST * 1e3 / ms:.2f}; launches "
+              f"of the first call (eager warm-up, counted at the launch site) {warm[0]}, "
+              f"tensor-core routes {warm[1]}, 3xTF32 routes {warm[2]}; of {N_REQUESTS} "
+              f"replays (profiler trace) {traced}, tensor-core routes {traced_tc}, 3xTF32 "
+              f"routes {traced_tf32}; valid matches {outs[-1].matches.valid.sum(-1).tolist()}, "
               f"inliers {outs[-1].num_inliers.tolist()} on {card}", flush=True)
-        del model, fn, outs
+        del model, fn, outs, replays
         torch.cuda.empty_cache()
-    return total, total_tc, total_tf32
+    return total, total_tc, total_tf32, split
 
 
 def small_agreement(dev):
@@ -1327,14 +1505,16 @@ def validation(dev, card: str, guard_medians: dict):
     and bfloat16, the sampler's generator seeded as phase 7's: the table's
     'rot median err' within 0.01 deg of phase 7's median and under the
     gate. (b) FARConfig() in bfloat16, init_model(seed=0), 16 synthetic
-    pairs at 480x640 and B=4: dset size 16, every entry of the table
-    finite, K1/K2/K3/K4 launched 16/1/1/2 times a batch; the pass's pairs/s
-    on the host clock, data made on the host included, which it returns with
-    (a)'s medians by dtype."""
+    pairs at 480x640 and B=4, through one build_inference_fn that a
+    warm-up pass on a batch of its own captured: dset size 16, every entry
+    of the table finite; the pass's pairs/s on the host clock, data made
+    on the host included, which it returns with (a)'s medians by dtype;
+    then the pass again under a profiler trace, K1/K2/K3/K4 launched
+    16/1/1/2 times a batch in its device kernels."""
     import torch
 
     from far_tpu_torch.data.synthetic import SyntheticPairDataset
-    from far_tpu_torch.pipeline import init_model
+    from far_tpu_torch.pipeline import build_inference_fn, init_model
     from far_tpu_torch.tools.guard import gate_deg, load_guard
     from far_tpu_torch.train.validation import validate_far
     from far_tpu_torch.utils.config import FARConfig
@@ -1357,29 +1537,33 @@ def validation(dev, card: str, guard_medians: dict):
 
     cfg = FARConfig(dtype="bfloat16")
     model = init_model(cfg, seed=0, device=dev)
+    fn = build_inference_fn(model)
     gen = torch.Generator(device=dev).manual_seed(0)
-    # warm-up on one batch of its own (cuDNN plans, the allocator)
+    # warm-up on one batch of its own (the capture, cuDNN plans, the allocator)
     validate_far(model, SyntheticPairDataset(n=B_REQUEST, hw=cfg.image_size, seed=1),
-                 B_REQUEST, generator=gen)
+                 B_REQUEST, generator=gen, fn=fn)
     ds = SyntheticPairDataset(n=16, hw=cfg.image_size, seed=0)
     torch.cuda.synchronize()
-    reset_counters()
     t0 = time.perf_counter()
-    table = validate_far(model, ds, B_REQUEST, generator=gen)
+    table = validate_far(model, ds, B_REQUEST, generator=gen, fn=fn)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    got = {k: f.launches for k, f in counters().items()}
+    traced_table, got, *_ = traced_launches(
+        lambda: validate_far(model, ds, B_REQUEST, generator=gen, fn=fn), "validation")
     n_batches = 16 // B_REQUEST
     want = {"K1_loftr_layer": 16 * n_batches, "K2_dual_softmax_rowcol": n_batches,
             "K3_fine_transformer": n_batches, "K4_bilinear_dual_softmax": 2 * n_batches}
     print(f"validation FARConfig() bfloat16 480x640, 16 pairs at B={B_REQUEST}: "
           f"{json.dumps(table)}; {16 / sec:.2f} pairs/s ({sec * 1e3:.1f} ms, host clock, "
-          f"synthetic data made on the host included), launches {got} on {card}", flush=True)
+          f"synthetic data made on the host included, {len(fn.graphs)} CUDA graph "
+          f"replayed); launches of the pass again, from a profiler trace, {got} on {card}",
+          flush=True)
     if got != want:
         fail(f"validation: launches {got}, expected {want}")
-    if table["dset size"] != 16 or not all(math.isfinite(v) for v in table.values()):
-        fail(f"validation: table {table}")
-    del model
+    for t in (table, traced_table):
+        if t["dset size"] != 16 or not all(math.isfinite(v) for v in t.values()):
+            fail(f"validation: table {t}")
+    del model, fn
     torch.cuda.empty_cache()
     return 16 / sec, medians
 
@@ -1389,9 +1573,9 @@ def validation(dev, card: str, guard_medians: dict):
 
 def sinkhorn_requests(dev, card: str):
     """Phase 10 (a): far_forward with match_type='sinkhorn' at B=4,
-    480x640, FARConfig() otherwise, in float32 and bfloat16: two requests
-    after a warm-up, finite outputs, K1/K3/K4 launched 16/1/2 times a
-    request and K2 never."""
+    480x640, FARConfig() otherwise, in float32 and bfloat16: two timed
+    requests after a warm-up, finite outputs; two more under a profiler
+    trace, K1/K3/K4 launched 16/1/2 times a request and K2 never."""
     import torch
 
     from far_tpu_torch.pipeline import build_inference_fn, init_model
@@ -1406,7 +1590,6 @@ def sinkhorn_requests(dev, card: str):
         gen = torch.Generator(device=dev).manual_seed(0)
         fn(batch, generator=gen)
         torch.cuda.synchronize()
-        reset_counters()
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(2):
@@ -1414,14 +1597,17 @@ def sinkhorn_requests(dev, card: str):
             out = fn(batch, generator=gen)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        got = {k: f.launches for k, f in counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        _, got, *_ = traced_launches(lambda: [fn(batch, generator=gen) for _ in range(2)],
+                                     f"sinkhorn request {dtype}")
         want = {"K1_loftr_layer": 32, "K2_dual_softmax_rowcol": 0,
                 "K3_fine_transformer": 2, "K4_bilinear_dual_softmax": 4}
         finite = all(bool(torch.isfinite(getattr(out, k)).all())
                      for k in ("R", "t", "regressed_9d", "gating", "num_inliers", "E"))
         print(f"sinkhorn request {dtype} B={B_REQUEST} 480x640: ms/request {times} "
-              f"(host clock), peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
-              f"GiB, launches in 2 requests {got}, outputs finite {finite}, valid matches "
+              f"(host clock), peak memory {peak / 2 ** 30:.3f} GiB beside the graph pool's "
+              f"{fn.pool_bytes() / 2 ** 30:.3f} GiB, launches in 2 more requests (profiler "
+              f"trace) {got}, outputs finite {finite}, valid matches "
               f"{out.matches.valid.sum(-1).tolist()} on {card}", flush=True)
         if got != want or not finite:
             fail(f"sinkhorn request {dtype}: launches {got} (expected {want}), finite {finite}")
@@ -2238,21 +2424,18 @@ def _per_batch(k1: int, k2: int, k3: int, k4: int, n: int = 1) -> dict:
 
 
 def _cli_call(name: str, fn, argv, want: dict, card: str, launches: dict, tc: bool = False):
-    """One CLI's ``main(argv)`` in-process on the card, the launch counters
-    set to 0 just before and read just after: they must read ``want`` (and
-    the tensor-core routes the same where ``tc``). Returns (result, ms)."""
+    """One CLI's ``main(argv)`` in-process on the card under a profiler
+    trace: the launches in its device kernels (eager ones and a compiled
+    request's replays alike) must read ``want`` (and the tensor-core routes
+    the same where ``tc``). Returns (result, ms of the traced call)."""
     import torch
 
     torch.cuda.synchronize()
-    reset_counters()
     t0 = time.perf_counter()
-    out = fn(argv)
-    torch.cuda.synchronize()
+    out, got, got_tc, _, _ = traced_launches(lambda: fn(argv), f"entry points {name}")
     ms = (time.perf_counter() - t0) * 1e3
-    got = {k: f.launches for k, f in counters().items()}
-    got_tc = {k: counters()[k].launches_tc for k in TC_ROUTES}
-    print(f"entry points {name}: {ms:.1f} ms, launches {got}, tensor-core route launches "
-          f"{got_tc} on {card}", flush=True)
+    print(f"entry points {name}: {ms:.1f} ms traced, launches (profiler trace) {got}, "
+          f"tensor-core route launches {got_tc} on {card}", flush=True)
     if got != want:
         fail(f"entry points {name}: launches {got}, expected {want}")
     if tc and got_tc != {k: want[k] for k in TC_ROUTES}:
@@ -2319,7 +2502,7 @@ def _write_mapfree_fixture(root: Path, n_query: int) -> None:
 
 def entry_points(dev, card: str, validation_pairs_s: float) -> dict:
     """Phase 15: every CLI's main(argv) in-process with --device cuda,
-    the counters set to 0 before each call and read after it. Returns
+    each call's launches read from a profiler trace of it. Returns
     {sub-phase: launches}."""
     import contextlib
     import io
@@ -2347,16 +2530,19 @@ def entry_points(dev, card: str, validation_pairs_s: float) -> dict:
             loop["s"] = time.perf_counter() - t0
             return out
 
+        argv = ["--dataset", "synthetic", "--image_size", "480x640", "--dtype", "bfloat16",
+                "--batch_size", "4", "--n_synthetic", "16", "--max_batches", "4"] + cuda
         evaluate.evaluate_far = timed_loop
-        try:
-            table, ms = _cli_call(
-                "evaluate far", evaluate.main,
-                ["--dataset", "synthetic", "--image_size", "480x640", "--dtype", "bfloat16",
-                 "--batch_size", "4", "--n_synthetic", "16", "--max_batches", "4",
-                 "--out_dir", str(tmp / "a")] + cuda, _per_batch(16, 1, 1, 2, 4), card,
-                launches, tc=True)
+        try:  # timed without the profiler, then traced
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate.main(argv + ["--out_dir", str(tmp / "a0")])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
         finally:
             evaluate.evaluate_far = real_loop
+        table, _ = _cli_call("evaluate far", evaluate.main, argv + ["--out_dir", str(tmp / "a")],
+                             _per_batch(16, 1, 1, 2, 4), card, launches, tc=True)
         _finite_table("evaluate far", table, 16)
         files = sorted(p.name for p in (tmp / "a").iterdir())
         want_files = sorted(["results_prior_ransac.txt", "results_prior_ransac_solverpose.txt",
@@ -2567,18 +2753,19 @@ def kernels_16_4(dev) -> dict:
 
 def option_requests(dev, card: str) -> dict:
     """16 (a)-(c): far_forward under each option at 480x640, full width,
-    B=4, three requests in f32 and three in bf16 after a warm-up, the
-    counters set to 0 just before the three and read just after: K1/K2/K3/K4
-    16/1/1/2 a request for 16/4 and GroupNorm, 0/1/0/2 for full attention,
-    the tensor-core routes the same in bf16 (K2's in f32 too). Finite
-    outputs of the expected shapes; ms/request (median) and the peak
-    memory. Returns {option: {dtype: launches}}."""
+    B=4, three timed requests in f32 and three in bf16 after a warm-up,
+    then three more under a profiler trace, whose device kernels give
+    K1/K2/K3/K4 16/1/1/2 a request for 16/4 and GroupNorm, 0/1/0/2 for
+    full attention, the tensor-core routes the same in bf16 (K2's in f32
+    too). Finite outputs of the expected shapes; ms/request (median) of
+    the compiled request, the peak memory of its replays and its graph
+    pool (which holds the request's intermediates). Returns {option:
+    {dtype: launches}}."""
     import torch
 
     from far_tpu_torch.pipeline import build_inference_fn, init_model
     from far_tpu_torch.tools.profile_forward import synthetic_batch
 
-    fns = counters()
     launches = {}
     for option in OPTIONS:
         for dtype in ("float32", "bfloat16"):
@@ -2592,10 +2779,9 @@ def option_requests(dev, card: str) -> dict:
             fn = build_inference_fn(model)
             batch = synthetic_batch(B_REQUEST, *cfg.image_size, dev)
             gen = torch.Generator(device=dev).manual_seed(0)
-            fn(batch, generator=gen)  # warm-up: cuDNN plans, allocator
+            fn(batch, generator=gen)  # warm-up and capture of the compiled request
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counters()
             times, outs = [], []
             for _ in range(N_REQUESTS):
                 t0 = time.perf_counter()
@@ -2603,12 +2789,11 @@ def option_requests(dev, card: str) -> dict:
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            got = {k: f.launches for k, f in fns.items()}
-            got_tc = {k: fns[k].launches_tc for k in TC_ROUTES}
-            want = {k: n * N_REQUESTS for k, n in per_req.items()}
-            want_tc = {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES}
-            got_tf32 = {k: fns[k].launches_tf32 for k in TF32_ROUTES}
-            want_tf32 = {k: want[k] if dtype in TF32_ROUTES[k] else 0 for k in TF32_ROUTES}
+            traced, got, got_tc, got_tf32, _ = traced_launches(
+                lambda: [fn(batch, generator=gen) for _ in range(N_REQUESTS)],
+                f"option {option} {dtype}")
+            outs += traced
+            want, want_tc, want_tf32 = route_launches(per_req, dtype, N_REQUESTS)
             if got != want or got_tc != want_tc or got_tf32 != want_tf32:
                 fail(f"option {option} {dtype}: launches {got}, tensor-core routes {got_tc}, "
                      f"3xTF32 {got_tf32}; expected {want}, {want_tc}, {want_tf32}")
@@ -2622,8 +2807,9 @@ def option_requests(dev, card: str) -> dict:
             print(f"option {option} far_forward {dtype} B={B_REQUEST} 480x640 (coarse "
                   f"{cfg.coarse_hw[0]}x{cfg.coarse_hw[1]}): ms/request median {ms:.2f} (runs "
                   f"{[round(t, 2) for t in times]}), pairs/s {B_REQUEST * 1e3 / ms:.2f}, "
-                  f"peak {peak:.3f} GiB, launches {got}, tensor-core route launches {got_tc}, "
-                  f"3xTF32 {got_tf32}, valid matches {outs[-1].matches.valid.sum(-1).tolist()} on {card}",
+                  f"peak {peak:.3f} GiB beside the graph pool's {fn.pool_bytes() / 2 ** 30:.3f} "
+                  f"GiB, launches of {N_REQUESTS} more (profiler trace) {got}, tensor-core "
+                  f"route launches {got_tc}, 3xTF32 {got_tf32}, valid matches {outs[-1].matches.valid.sum(-1).tolist()} on {card}",
                   flush=True)
             launches.setdefault(option, {})[dtype] = got
             del model, fn, outs
@@ -2857,25 +3043,9 @@ def matcher_clis(dev, card: str, launches: dict) -> None:
 
 # ---- phase 17: profiler, trace, visloc, figures, the 6DReg variants -----------------
 
-# the __global__ functions each kernel's bf16 tensor-core route launches in
-# one call (csrc/*.cu; PERF.md section 6: K1 3, K2 4, K3 1, K4 3)
-TC_SYMBOLS = {"K1_loftr_layer": ("kv_pass_kernel", "kv_reduce_tc_kernel", "row_pass_kernel"),
-              "K2_dual_softmax_rowcol": ("pass_kernel", "combine_stats_kernel",
-                                         "combine_conf_kernel"),
-              "K3_fine_transformer": ("fine_tc_kernel",),
-              "K4_bilinear_dual_softmax": ("row_stats_kernel", "main_kernel",
-                                           "sum_partials_tc_kernel")}
-TC_CALL_LAUNCHES = {"K1_loftr_layer": 3, "K2_dual_softmax_rowcol": 4,
-                    "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 3}
 PER_REQUEST = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1,
                "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 2}
 REG_HW = (368, 272)  # SixDRegConfig().image_hw
-
-
-def _launches():
-    fns = counters()
-    return ({k: f.launches for k, f in fns.items()},
-            {k: fns[k].launches_tc for k in TC_ROUTES})
 
 
 def _pose_diff(a, b) -> float:
@@ -2884,35 +3054,30 @@ def _pose_diff(a, b) -> float:
 
 
 def profiled_requests(dev, card: str) -> None:
-    """Phase 17 (a), (b): FARConfig() bf16 at B=4, 480x640. Three
-    unprofiled requests from one generator state (their spread is the
-    run-to-run difference), then three inside
-    ``InferenceProfiler.profile("far_forward")`` from the same state: counts
-    3, launches 16/1/1/2 a request on the tensor-core routes, the first
-    profiled request's R, t and gate within the unprofiled spread. Then one
-    request under ``TraceProfiler``: every hand-written kernel's symbols in
-    the Chrome trace as device kernels, the counters times the route's
-    launches a call."""
-    import re
-    import tempfile
-
+    """Phase 17 (a), (b): FARConfig() bf16 at B=4, 480x640, compiled
+    (build_inference_fn). Three unprofiled requests from one generator
+    state (their spread is the run-to-run difference), then three inside
+    ``InferenceProfiler.profile("far_forward")`` from the same state:
+    counts 3, the first profiled request's R, t and gate within the
+    unprofiled spread. Then one replay under ``TraceProfiler``: every
+    hand-written kernel's functions in the Chrome trace as device
+    kernels, 16/1/1/2 calls on the tensor-core routes and the polish's
+    small-matrix kernels 6 (``traced_launches``)."""
     import torch
 
     from far_tpu_torch.pipeline import build_inference_fn, init_model
     from far_tpu_torch.tools.profile_forward import synthetic_batch
     from far_tpu_torch.utils.config import FARConfig
-    from far_tpu_torch.utils.prof import InferenceProfiler, TraceProfiler
+    from far_tpu_torch.utils.prof import InferenceProfiler
 
     model = init_model(FARConfig(dtype="bfloat16"), seed=0, device=dev)
     fn = build_inference_fn(model)
     batch = synthetic_batch(B_REQUEST, 480, 640, dev)
     gen = torch.Generator(device=dev)
-    fn(batch, generator=gen.manual_seed(5))   # warm-up
+    fn(batch, generator=gen.manual_seed(5))   # warm-up and capture
     torch.cuda.synchronize()
-    want_tc = {k: PER_REQUEST[k] for k in TC_ROUTES}
 
     def request(prof=None):
-        reset_counters()
         gen.manual_seed(5)
         t0 = time.perf_counter()
         if prof is None:
@@ -2921,12 +3086,7 @@ def profiled_requests(dev, card: str) -> None:
         else:
             with prof.profile("far_forward"):
                 out = fn(batch, generator=gen)
-        ms = (time.perf_counter() - t0) * 1e3
-        got, got_tc = _launches()
-        if got != PER_REQUEST or got_tc != want_tc:
-            fail(f"profiled requests: launches {got} (tensor cores {got_tc}), expected "
-                 f"{PER_REQUEST} a request")
-        return out, ms
+        return out, (time.perf_counter() - t0) * 1e3
 
     plain = [request() for _ in range(N_REQUESTS)]
     spread = max(_pose_diff(a[0], b[0]) for a in plain for b in plain)
@@ -2939,35 +3099,25 @@ def profiled_requests(dev, card: str) -> None:
           f"regions, mean {ms_prof:.2f} ms (runs {[round(m, 2) for _, m in profiled]}) "
           f"against unprofiled median {ms_plain:.2f} ms (runs "
           f"{[round(m, 2) for _, m in plain]}); R, t, gate profiled vs unprofiled max abs "
-          f"{diff:.3e}, unprofiled spread {spread:.3e}, launches a request {PER_REQUEST} "
-          f"on {card}\n{prof.summary()}", flush=True)
+          f"{diff:.3e}, unprofiled spread {spread:.3e} on {card}\n{prof.summary()}",
+          flush=True)
     if prof.counts["far_forward"] != N_REQUESTS or not diff <= spread:
         fail(f"profiled requests: counts {dict(prof.counts)}, difference {diff} against "
              f"the unprofiled spread {spread}")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tp = TraceProfiler(tmp)
-        reset_counters()
-        gen.manual_seed(5)
-        with tp.trace():
-            t0 = time.perf_counter()
-            fn(batch, generator=gen)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-        got, _ = _launches()
-        events = json.loads(Path(tp.path).read_text())["traceEvents"]
-    kernels = [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
-    if not kernels:
-        fail("traced request: the Chrome trace holds no CUDA kernel events")
-    base = [(re.findall(r"(\w+)(?=[<(])", n) or [n])[0] for n in kernels]
-    seen = {k: sum(b in syms for b in base) for k, syms in TC_SYMBOLS.items()}
-    want = {k: got[k] * TC_CALL_LAUNCHES[k] for k in TC_SYMBOLS}
-    print(f"traced far_forward bfloat16 B={B_REQUEST}: {len(kernels)} device kernels in the "
-          f"trace ({ms:.1f} ms traced, export excluded), the hand-written ones by kernel "
-          f"{seen}, expected counters {got} x route launches {TC_CALL_LAUNCHES} = {want}",
-          flush=True)
-    if seen != want:
-        fail(f"traced request: kernel events {seen}, expected {want}")
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    _, got, got_tc, _, small = traced_launches(lambda: fn(batch, generator=gen),
+                                               "traced request")
+    ms = (time.perf_counter() - t0) * 1e3
+    want_tc = {k: PER_REQUEST[k] for k in TC_ROUTES}
+    want_small = SMALL_LINALG_PER_ROUND * FARConfig().solver.fine_pred_steps
+    print(f"traced compiled request (graph replay) bfloat16 B={B_REQUEST}: calls in the "
+          f"trace's device kernels {got}, tensor-core routes {got_tc}, small_linalg {small} "
+          f"({ms:.1f} ms traced, export included)", flush=True)
+    if (got, got_tc, small) != (PER_REQUEST, want_tc, want_small):
+        fail(f"traced request: calls {got}, tensor-core routes {got_tc}, small_linalg "
+             f"{small}; expected {PER_REQUEST}, {want_tc}, {want_small}")
     del model, fn
     torch.cuda.empty_cache()
 
@@ -3650,9 +3800,14 @@ def ddp_two_ranks(dev, card: str, guard_medians: dict) -> dict:
         procs, logs = [], []
         t0 = time.perf_counter()
         for rank in range(DDP_RANKS):
+            # both ranks share this card beside this process: a rank's f32 and
+            # float64 steps leave large cached blocks that small live tensors
+            # keep from being released; expandable segments let empty_cache
+            # hand their unused pages back
             env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
                    "WORLD_SIZE": str(DDP_RANKS), "MASTER_ADDR": "127.0.0.1",
-                   "MASTER_PORT": str(port)}
+                   "MASTER_PORT": str(port),
+                   "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
             log = open(work / f"rank{rank}.log", "w")
             logs.append(log)
             procs.append(subprocess.Popen(
@@ -3672,8 +3827,10 @@ def ddp_two_ranks(dev, card: str, guard_medians: dict) -> dict:
                 log.close()
         codes = [p.returncode for p in procs]
         if codes != [0] * DDP_RANKS:
-            tails = "\n".join((work / f"rank{r}.log").read_text()[-3000:]
-                              for r in range(DDP_RANKS))
+            logs = [(work / f"rank{r}.log").read_text() for r in range(DDP_RANKS)]
+            # each log from its first traceback on (its end where there is none)
+            tails = "\n".join(text[text.find("Traceback"):][:6000] if "Traceback" in text
+                              else text[-3000:] for text in logs)
             fail(f"ddp: the rank processes exited with {codes} (killed after "
                  f"{DDP_TIMEOUT_S} s if still running):\n{tails}")
         print(f"ddp: two ranks on the card over gloo ran (b)-(d) in "
@@ -3829,6 +3986,372 @@ def ddp_cli(dev, card: str) -> None:
             fail(f"ddp (e): checkpoint step {saved['step']}, restored unlike it: {bad[:4]}")
 
 
+# ---- phase 19: the compiled request ----------------------------------------------------
+
+# which op computes each FarOutput field, for a field a replay does not
+# reproduce bit for bit
+FIELD_OPS = {"R": "the last MoE fusion (regress_fuse)", "t": "the last MoE fusion",
+             "regressed_9d": "the last MoE fusion", "gating": "the last MoE fusion",
+             "prior_rt": "denormalize_9d of the last fusion",
+             "solver_rt": "the last RANSAC round", "E": "the last RANSAC round's polish",
+             "num_inliers": "the last RANSAC round", "success": "the last RANSAC round",
+             "translation_scale": "the scale head"}
+
+
+def _out_fields(out, prefix=""):
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(out):
+        v = getattr(out, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _out_fields(v, f"{f.name}.")
+        elif isinstance(v, torch.Tensor):
+            yield prefix + f.name, v
+
+
+def _field_diffs(a, b) -> dict:
+    """{field: max abs difference} of the FarOutput fields where a and b
+    are not equal bit for bit."""
+    import torch
+
+    return {name: max_err(x, y) for (name, x), (_, y) in zip(_out_fields(a), _out_fields(b))
+            if not torch.equal(x, y)}
+
+
+def _timed(fn, n: int = N_REQUESTS):
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def compiled_request(dev, card: str) -> None:
+    """Phase 19 (a)-(f): build_inference_fn's CUDA graph for FARConfig()
+    in f32 and bf16 with the 5pt and 8pt solvers at 480x640, B=4, against
+    the eager far_forward on the same batches and generator states; then
+    (d) in both dtypes."""
+    import torch
+
+    from far_tpu_torch.pipeline import build_inference_fn, far_forward, init_model
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig, SolverOptions
+
+    fns = counters()
+    torch.cuda.empty_cache()
+    print(f"compiled request: {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB of the card "
+          f"free, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this process, at "
+          f"the phase's start", flush=True)
+
+    def counted():
+        return ({k: f.launches for k, f in fns.items()},
+                {k: fns[k].launches_tc for k in TC_ROUTES},
+                {k: fns[k].launches_tf32 for k in TF32_ROUTES}, small_linalg_launches())
+
+    for dtype, solver in MAIN_RUNS:
+        cfg = FARConfig(dtype=dtype) if solver == "5pt" \
+            else FARConfig(solver=SolverOptions(minimal_solver=solver), dtype=dtype)
+        tag = f"compiled request {dtype} {solver} B={B_REQUEST} 480x640"
+        model = init_model(cfg, seed=0, device=dev)
+        b1 = synthetic_batch(B_REQUEST, *cfg.image_size, dev, seed=0)
+        b2 = synthetic_batch(B_REQUEST, *cfg.image_size, dev, seed=5)
+        gen = torch.Generator(device=dev)
+
+        def eager(batch, seed):
+            with torch.inference_mode():
+                return far_forward(model, batch, gen.manual_seed(seed))
+
+        # the eager request first (its peak memory, two requests from one
+        # state: their difference is what (a) may fall back on, its ms),
+        # then the graph: an f32 graph's pool and an eager f32 request do
+        # not fit the card together
+        eager(b1, 3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_reserved()
+        ref1 = eager(b1, 3)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        grown = torch.cuda.max_memory_reserved() - held
+        floor = _field_diffs(eager(b1, 3), ref1)
+        ref2 = eager(b2, 4)
+        eager_ms, eager_runs = _timed(lambda: eager(b1, 3))
+        torch.cuda.empty_cache()
+
+        per_req = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1,
+                   "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 2}
+        small_req = SMALL_LINALG_PER_ROUND * cfg.solver.fine_pred_steps
+        fn = build_inference_fn(model)
+        reset_counters()
+        t0 = time.perf_counter()
+        first = fn(b1, generator=gen.manual_seed(3))
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        warm = counted()
+        if warm != (*route_launches(per_req, dtype, 1), small_req):
+            fail(f"{tag}: the first call (eager warm-up, then the capture) counted {warm}, "
+                 f"expected one request's {per_req} and small_linalg {small_req}")
+        # (b): two replays under the sync debug mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out1 = fn(b1, generator=gen.manual_seed(3))
+            kept = [x.clone() for _, x in _out_fields(out1)]
+            out2 = fn(b2, generator=gen.manual_seed(4))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # (e): two replays more under a profiler trace; a replay runs no
+        # wrapper, so the counters stay as the warm-up left them
+        _, got, got_tc, got_tf32, got_small = traced_launches(
+            lambda: (fn(b1, generator=gen.manual_seed(3)), fn(b2, generator=gen.manual_seed(4))),
+            f"{tag} (e)")
+        want = (*route_launches(per_req, dtype, 2), 2 * small_req)
+        if (got, got_tc, got_tf32, got_small) != want or counted() != warm:
+            fail(f"{tag}: two replays launched {got} (tensor cores {got_tc}, 3xTF32 "
+                 f"{got_tf32}, small_linalg {got_small}) in the trace, expected {want}; "
+                 f"counters {counted()} after the replays, {warm} before")
+        # (a) bit for bit against the eager request; (c) the second batch,
+        # and the first output unchanged by the second call
+        bad = []
+        for what, got_out, ref in (("first call (warm-up)", first, ref1),
+                                   ("replay", out1, ref1), ("second batch", out2, ref2)):
+            for name, d in _field_diffs(got_out, ref).items():
+                ok = d <= floor.get(name, 0.0)
+                print(f"{tag}: {what} field {name} differs from the eager request by {d:.3e} "
+                      f"({FIELD_OPS.get(name.split('.')[-1], 'the matcher')}); two eager "
+                      f"requests differ there by {floor.get(name, 0.0):.3e}: "
+                      f"{'held' if ok else 'FAILED'}", flush=True)
+                if not ok:
+                    bad.append(f"{what} {name}")
+        aliased = [name for (name, x), y in zip(_out_fields(out1), kept) if not torch.equal(x, y)]
+        if bad or aliased:
+            fail(f"{tag}: differs from the eager request in {bad}; changed by the next "
+                 f"call: {aliased}")
+        graph_ms, graph_runs = _timed(lambda: fn(b1, generator=gen.manual_seed(3)))
+        print(f"{tag}: replays equal the eager request bit for bit (floor between two eager "
+              f"requests: {floor or 'none'}), no host sync under set_sync_debug_mode('error'), "
+              f"two batches unaliased; launches counted at the launch site in the first "
+              f"call's warm-up {warm[0]} + small_linalg {warm[3]}, in two replays' profiler "
+              f"trace {got} + small_linalg {got_small} (tensor cores {got_tc}, 3xTF32 "
+              f"{got_tf32}); eager ms median {eager_ms:.2f} (runs "
+              f"{[round(t, 2) for t in eager_runs]}), compiled ms median {graph_ms:.2f} (runs "
+              f"{[round(t, 2) for t in graph_runs]}), capture {capture_s:.2f} s (warm-up "
+              f"included), graph pool {fn.pool_bytes() / 2**30:.3f} GiB against the eager "
+              f"request's max_memory_allocated {peak / 2**30:.3f} GiB (the memory it "
+              f"reserved beyond an emptied cache {grown / 2**30:.3f} GiB) on {card}", flush=True)
+        del model, fn, first, out1, out2, ref1, ref2, kept
+        torch.cuda.empty_cache()
+
+    # (d) a second B captures a second graph in the same pool; in-place new
+    # weights keep both. Each eager reference runs in the memory state its
+    # graph was captured in (cuDNN's plans are filtered by the workspace
+    # the allocator can give, so an f32 request beside a large pool may
+    # take other convolution plans): B=4's before any graph (an f32 eager
+    # B=4 request does not fit beside an f32 graph), B=2's beside B=4's.
+    for dtype in ("float32", "bfloat16"):
+        cfg = FARConfig(dtype=dtype)
+        model = init_model(cfg, seed=0, device=dev)
+        own = {k: v.clone() for k, v in model.state_dict().items()}
+        other = init_model(cfg, seed=1, device=dev).state_dict()
+        gen = torch.Generator(device=dev)
+        batches = {"B=4": (synthetic_batch(B_REQUEST, *cfg.image_size, dev, seed=0), 3),
+                   "B=2": (synthetic_batch(2, *cfg.image_size, dev, seed=6), 7)}
+        refs = {}
+
+        def reference(weights, what):
+            with torch.no_grad():
+                model.load_state_dict(other if weights == "other" else own)
+            batch, seed = batches[what]
+            with torch.inference_mode():
+                refs[weights, what] = far_forward(model, batch, gen.manual_seed(seed))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+        def check(weights, what):
+            batch, seed = batches[what]
+            fn(batch, generator=gen.manual_seed(seed))  # captures where the signature is new
+            diffs = _field_diffs(fn(batch, generator=gen.manual_seed(seed)), refs[weights, what])
+            if diffs:
+                free = torch.cuda.mem_get_info()[0]
+                fail(f"compiled request (d) {dtype} {what} ({weights} weights): differs from "
+                     f"the eager request in {diffs} ({free / 2**30:.2f} GiB free, graph pool "
+                     f"{fn.pool_bytes() / 2**30:.3f} GiB)")
+
+        reference("other", "B=4")
+        reference("own", "B=4")
+        fn = build_inference_fn(model)
+        check("own", "B=4")
+        pool4 = fn.pool_bytes()
+        reference("own", "B=2")
+        check("own", "B=2")
+        if len(fn.graphs) != 2:
+            fail(f"compiled request (d) {dtype}: {len(fn.graphs)} graphs after B=4 and B=2, "
+                 f"expected 2")
+        reference("other", "B=2")  # leaves the other weights loaded, in place
+        check("other", "B=2")
+        check("other", "B=4")
+        if len(fn.graphs) != 2:
+            fail(f"compiled request (d) {dtype}: load_state_dict made {len(fn.graphs)} "
+                 f"graphs, expected 2")
+        print(f"compiled request (d) {dtype}: B=4 and B=2 two graphs in one pool ("
+              f"{pool4 / 2**30:.3f} GiB after B=4's capture, {fn.pool_bytes() / 2**30:.3f} "
+              f"GiB after B=2's), each equal to the eager request bit for bit, also after an "
+              f"in-place load_state_dict of other weights (no new capture) on {card}",
+              flush=True)
+        del model, fn, own, other, refs, batches
+        torch.cuda.empty_cache()
+
+
+def _polish_inputs(dev, B: int, seed: int):
+    """The 8-point polish's 9x9 X^T X and its DLT solution reshaped to 3x3
+    (before the rank-2 projection) for B synthetic scenes of 200
+    correspondences, 0.5 px noise at f = 518 px, on the card."""
+    import numpy as np
+    import torch
+
+    from far_tpu_torch.geometry.solvers import normalize_points
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -2, 4], [2, 2, 8], (B, 200, 3))
+    t = rng.normal(0, 0.5, (B, 1, 3))
+    proj = lambda p: p[..., :2] / p[..., 2:] + rng.normal(0, 0.5 / 518.0, p[..., :2].shape)
+    x0 = torch.tensor(proj(pts), dtype=torch.float32, device=dev)
+    x1 = torch.tensor(proj(pts + t), dtype=torch.float32, device=dev)
+    w = torch.ones(B, 200, device=dev)
+    p1n, _ = normalize_points(x0, w)
+    p2n, _ = normalize_points(x1, w)
+    a1, b1, a2, b2 = p1n[..., 0], p1n[..., 1], p2n[..., 0], p2n[..., 1]
+    X = torch.stack([a2 * a1, a2 * b1, a2, b2 * a1, b2 * b1, b2, a1, b1, torch.ones_like(a1)], -1)
+    XtX = (X * w[..., None]).transpose(-1, -2) @ X
+    return XtX, torch.linalg.eigh(XtX)[1][..., :, 0].reshape(B, 3, 3)
+
+
+def small_linalg_check(dev, card: str) -> dict:
+    """Phase 19 (g): the small-matrix kernels against their plain versions
+    (torch.linalg.eigh / svd) at the polish's shapes (B=4: one 9x9 eigh
+    and two 3x3 SVDs a round) and at ragged batches (2051 9x9 X^T X of
+    Gaussian 20x9, 7 and 2051 3x3 of singular values (1, [0.3, 1],
+    [0, 1e-3])), and 2051 nearly rank-1 3x3 of singular values (1, r, 0),
+    r = 1e-2 and 1e-3. eigh: eigenvalues within 1e-5 max|lambda|,
+    eigenvector k up to sign within 1e-5 + 64 u max|lambda| / gap_k (u =
+    2^-24; first-order perturbation with room for both solvers'
+    rounding). svd3: singular values within 1e-5 max S, the solver's
+    products (rank-2 and essential projections) within 1e-5 max|ref|; the
+    nearly rank-1 ones against torch.linalg.svd in float64 of the same
+    float32 F, the essential projection there within 1e-5 + 8 u s1 / (s2 -
+    s3) of max|ref| (u2, v2 are only that well determined in float32).
+    Returns the JSON entry's numbers: one round's small-matrix work at B=4
+    (an eigh and two svd3)."""
+    import torch
+
+    from far_tpu_torch.ops.small_linalg import EIGH_SWEEPS, SVD3_SWEEPS, eigh_small, svd3
+
+    u = 2.0 ** -24
+    ess = torch.tensor([1.0, 1.0, 0.0], device=dev)
+    failures, worst = [], 0.0
+
+    def eigh_case(what, A):
+        nonlocal worst
+        w, V = eigh_small(A)
+        w0, V0 = torch.linalg.eigh(A)
+        torch.cuda.synchronize()
+        scale = w0.abs().amax(-1, keepdim=True)
+        e_val = float(((w - w0).abs() / scale).max())
+        gaps = torch.full_like(w0, float("inf"))
+        gaps[..., 1:] = w0.diff(dim=-1)
+        gaps[..., :-1] = torch.minimum(gaps[..., :-1], w0.diff(dim=-1))
+        tol_vec = 1e-5 + 64 * u * scale / gaps.clamp(min=1e-30)
+        d_vec = torch.minimum((V - V0).abs().amax(-2), (V + V0).abs().amax(-2))
+        ok = e_val <= 1e-5 and bool((d_vec <= tol_vec).all())
+        worst = max(worst, float((w - w0).abs().max()), float(d_vec[..., 0].max()))
+        print(f"small_linalg eigh {what} {tuple(A.shape)}: eigenvalues max rel err {e_val:.3e} "
+              f"(tol 1e-5), eigenvectors up to sign max err {float(d_vec.max()):.3e}, max "
+              f"err/tol {float((d_vec / tol_vec).max()):.3f}: {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            failures.append(f"eigh {what}")
+
+    def svd_case(what, F, exact=False):
+        nonlocal worst
+        U, S, Vh = svd3(F)
+        U0, S0, V0 = (x.float() for x in torch.linalg.svd(F.double() if exact else F))
+        torch.cuda.synchronize()
+        errs = [float(((S - S0).abs() / S0.amax(-1, keepdim=True)).max())]
+        tols = [1e-5, 1e-5, 1e-5 + 8 * u * S0[:, 0] / (S0[:, 1] - S0[:, 2]) if exact else 1e-5]
+        for a, b in (((U * (S * ess)[..., None, :]) @ Vh, (U0 * (S0 * ess)[..., None, :]) @ V0),
+                     ((U * ess) @ Vh, (U0 * ess) @ V0)):  # rank-2, essential
+            errs.append((a - b).abs().amax((-2, -1)) / b.abs().amax((-2, -1)))
+            worst = max(worst, float((a - b).abs().max()))
+        ratio = [float((torch.as_tensor(e) / torch.as_tensor(t)).max()) for e, t in zip(errs, tols)]
+        ok = max(ratio) <= 1 and bool((S[..., :-1] >= S[..., 1:]).all())
+        print(f"small_linalg svd3 {what} {tuple(F.shape)}: singular values, rank-2 and "
+              f"essential projections max rel err {errs[0]:.3e} / {float(errs[1].max()):.3e} / "
+              f"{float(errs[2].max()):.3e}, max err/tol {max(ratio):.3f} (tol 1e-5"
+              f"{', essential 1e-5 + 8 u s1 / (s2 - s3), against float64' if exact else ''}): "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failures.append(f"svd3 {what}")
+
+    XtX, F = _polish_inputs(dev, B_REQUEST, seed=1)
+    eigh_case("polish", XtX)
+    svd_case("polish", F)
+    g = torch.Generator().manual_seed(4)
+    X = torch.randn(2051, 20, 9, generator=g)
+    eigh_case("ragged", (X.transpose(1, 2) @ X).to(dev))
+    for n in (7, 2051):
+        Q1 = torch.linalg.qr(torch.randn(n, 3, 3, generator=g))[0]
+        Q2 = torch.linalg.qr(torch.randn(n, 3, 3, generator=g))[0]
+        sv = torch.stack([torch.ones(n), 0.3 + 0.7 * torch.rand(n, generator=g),
+                          1e-3 * torch.rand(n, generator=g)], -1)
+        svd_case("ragged", ((Q1 * sv[:, None, :]) @ Q2).to(dev))
+    for r in (1e-2, 1e-3):
+        Q1, Q2 = (torch.linalg.qr(torch.randn(2051, 3, 3, generator=g, dtype=torch.float64))[0]
+                  for _ in range(2))
+        sv = torch.tensor([1.0, r, 0.0], dtype=torch.float64)
+        svd_case(f"nearly rank-1 (s2/s1 = {r:g})",
+                 ((Q1 * sv[None, None, :]) @ Q2).float().to(dev), exact=True)
+    if failures:
+        fail(f"small_linalg disagrees with torch.linalg: {failures}")
+
+    def kernel_round():
+        eigh_small(XtX)
+        svd3(F)
+        svd3(F)
+
+    def plain_round():
+        torch.linalg.eigh(XtX)
+        torch.linalg.svd(F)
+        torch.linalg.svd(F)
+
+    ms, plain_ms, lib_ms = cuda_ms(kernel_round, 20), cuda_ms(plain_round, 20), \
+        cuda_ms(plain_round, 20)
+    # a round's work at B=4: bytes in and out once; operations of the
+    # kernels' fixed schedules (a Jacobi rotation of an n x n matrix and its
+    # V: 12 (n - 1) + 15 flops, n (n - 1) / 2 rotations a sweep; a
+    # one-sided rotation of the 3x3's columns and of its V: 65 flops, 3 a
+    # sweep; ~200 for U), float32 on the CUDA cores
+    B = B_REQUEST
+
+    def jacobi_flops(n, sweeps):
+        return sweeps * n * (n - 1) // 2 * (12 * (n - 1) + 15)
+
+    flops = B * (jacobi_flops(9, EIGH_SWEEPS) + 2 * (SVD3_SWEEPS * 3 * 65 + 200))
+    nbytes = 4 * B * ((81 + 9 + 81) + 2 * (9 + 9 + 3 + 9))
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32)
+    print(f"small_linalg at the polish's shapes (B={B}: eigh 9x9 + 2 svd3 a round): "
+          f"ms={ms:.4f} plain_ms (torch.linalg)={plain_ms:.4f} library_ms (torch.linalg, "
+          f"timed again)={lib_ms:.4f} bound_ms={b_ms:.3e} ({b_by}) on {card}", flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--ddp-worker"]:
@@ -3853,7 +4376,7 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     entries = check_kernels(dev)
-    launches, launches_tc, launches_tf32 = run_main_path(dev, card)
+    launches, launches_tc, launches_tf32, launch_split = run_main_path(dev, card)
     small_agreement(dev)
     for minimal_solver in ("5pt", "8pt"):
         solver_guard(dev, minimal_solver)
@@ -3897,6 +4420,10 @@ def main() -> int:
     ddp = ddp_two_ranks(dev, card, guard_medians)
     ddp_cli(dev, card)
     print(f"data parallelism (phase 18): {time.perf_counter() - t_18:.1f} s", flush=True)
+    t_19 = time.perf_counter()
+    compiled_request(dev, card)
+    small_linalg = small_linalg_check(dev, card)
+    print(f"compiled request (phase 19): {time.perf_counter() - t_19:.1f} s", flush=True)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -3915,7 +4442,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"far_tpu_torch/csrc/{cu}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": e["max_abs_err"],
+            "launches": launches[name], **{f"launches_{how}": n for how, n in
+                                           launch_split[name].items()},
+            "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "dtype": main, "dtype_route": e["route"], other: entries[name][other]})
@@ -3956,6 +4485,17 @@ def main() -> int:
         # validation batch on each rank (two ranks, phase 18 (d))
         kernels[-1]["launches_ddp_step"] = ddp_step[name]
         kernels[-1]["launches_ddp_validation_batch_per_rank"] = ddp["per_batch"][name]
+    # the polish's eigensolver and 3x3 SVD (not a Pallas kernel: XLA's
+    # eigh/svd inside the JAX package's jit); its numbers are one solver
+    # round's small-matrix work at B=4 (phase 19 (g))
+    if launches["small_linalg"] == 0:
+        fail("small_linalg was never launched on the main path")
+    kernels.append({
+        "name": "small_linalg", "route": "cuda", "source": "far_tpu_torch/csrc/small_linalg.cu",
+        "replaces": "far_tpu/geometry/solvers.py:65 (jnp.linalg.eigh; svd at :178, :209)",
+        "launches": launches["small_linalg"], **{f"launches_{how}": n for how, n in
+                                                 launch_split["small_linalg"].items()},
+        **small_linalg, "dtype": "f32"})
     print(f"family training (phase 13): {json.dumps(family)}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

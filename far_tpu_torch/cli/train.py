@@ -56,7 +56,7 @@ from far_tpu_torch.parallel.comm import (
     process_count,
     process_index,
 )
-from far_tpu_torch.pipeline import resolve_device
+from far_tpu_torch.pipeline import build_inference_fn, resolve_device
 from far_tpu_torch.train.checkpoint import CheckpointManager
 from far_tpu_torch.train.family_trainers import (
     SixDRegTrainer,
@@ -269,11 +269,13 @@ def _train(args):
                           print_every=args.log_every)
 
     # validation during training (far family; the reference's val loop)
-    val_dataset = best_mgr = None
+    val_dataset = val_fn = best_mgr = None
     best_rot_err = float("inf")
     if args.val_every and family == "far":
         val_dataset = SyntheticPairDataset(n=args.val_n, hw=cfg.image_size,
                                            seed=args.seed + 7777)
+        # one compiled request for every validation: each replays its graphs
+        val_fn = build_inference_fn(trainer.model)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     step = trainer.step_count
@@ -302,7 +304,7 @@ def _train(args):
                         trainer.model, val_dataset, args.batch_size,
                         max_matches=cfg.match.max_matches,
                         max_batches=args.val_max_batches, generator=gen,
-                        fig_dir=f"{args.log_dir}/figures", step=step)
+                        fig_dir=f"{args.log_dir}/figures", step=step, fn=val_fn)
                 finally:
                     trainer.model.train()
                 logger.log(step, {f"val/{k}": float(v) for k, v in table.items()})

@@ -8,7 +8,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from far_tpu_torch.utils.tables import device_table
 
 
 def cross_product_matrix(v: torch.Tensor) -> torch.Tensor:
@@ -67,6 +70,11 @@ def symmetrical_epipolar_distance(pts1, pts2, Fm, eps: float = 1e-8):
     return num ** 2 * inv
 
 
+def _w_table() -> np.ndarray:
+    """Hartley and Zisserman's W (result 9.18)."""
+    return np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+
+
 def decompose_essential_matrix(
         E: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """SVD decomposition E = U diag(1, 1, 0) V^T into R1 = U W V^T,
@@ -81,8 +89,7 @@ def decompose_essential_matrix(
 
     U = U * flip(U)[..., None, :]
     Vh = Vh * flip(Vh)[..., :, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = device_table(_w_table, device=E.device, dtype=E.dtype)
     return U @ W @ Vh, U @ W.t() @ Vh, U[..., :, -1]
 
 

@@ -26,13 +26,13 @@ for the TPU's layout; eager PyTorch would pay one launch per entry).
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from far_tpu_torch.geometry.solvers import smallest_eigvec_power
+from far_tpu_torch.utils.tables import device_table
 
 _EPS = 1e-12
 
@@ -104,11 +104,9 @@ _TABLES = {"xy_nodes": lambda n: _XY_NODES, "vinv_t": lambda n: _VINV_T,
            "dk_start": _dk_start}
 
 
-@functools.lru_cache(maxsize=64)
 def _table(name: str, n: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """A fixed table on a device, copied there once (a copy from host
-    memory on every call would wait for the card each time)."""
-    return torch.as_tensor(_TABLES[name](n), dtype=dtype, device=device)
+    """A fixed table on a device, copied there once (``device_table``)."""
+    return device_table(_TABLES[name], n, device=device, dtype=dtype)
 
 
 def _const(name: str, like: torch.Tensor, n: int = 0) -> torch.Tensor:

@@ -2,8 +2,11 @@
 
 Counterpart of the solver parts of ``far_tpu/geometry/solvers.py``:
 Hartley normalization, the DLT normal equations solved by inverse
-iteration (``impl='power'``) or ``torch.linalg.eigh`` (``impl='eigh'``,
-the polish step and ``linalg='exact'``), the SVD-free adjugate
+iteration (``impl='power'``) or an eigensolver (``impl='eigh'``, the
+polish step and ``linalg='exact'``) with its rank-2 and essential
+projections by a 3x3 SVD (``ops/small_linalg``: ``torch.linalg`` on the
+CPU, hand-written kernels on CUDA, which read nothing back to the host,
+so a request can be captured in a CUDA graph), the SVD-free adjugate
 decomposition of E, and the recoverPose cheirality vote over the fast or
 the SVD decomposition. Everything is batched over leading axes; invalid
 correspondences carry weight 0.
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from far_tpu_torch.geometry.epipolar import (
@@ -24,6 +28,8 @@ from far_tpu_torch.geometry.rotations import (
     rotation_6d_to_matrix,
 )
 from far_tpu_torch.geometry.transforms import to_homogeneous
+from far_tpu_torch.ops.small_linalg import eigh_small, svd3
+from far_tpu_torch.utils.tables import device_table
 
 _EPS = 1e-8
 
@@ -100,10 +106,10 @@ def run_8point(points1: torch.Tensor, points2: torch.Tensor,
     if impl == "power":
         f = smallest_eigvec_power(XtX)
     else:
-        f = torch.linalg.eigh(XtX)[1][..., :, 0]  # ascending eigenvalues
+        f = eigh_small(XtX)[1][..., :, 0]  # ascending eigenvalues
     F = f.reshape(*f.shape[:-1], 3, 3)
     if rank2_project:
-        U, S, Vh = torch.linalg.svd(F)
+        U, S, Vh = svd3(F)
         S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
         F = (U * S[..., None, :]) @ Vh
     F = T2.transpose(-1, -2) @ F @ T1
@@ -122,9 +128,13 @@ def run_8point_essential(points1: torch.Tensor, points2: torch.Tensor,
                        rank2_project=False)
         return F * 2.0 ** 0.5
     F = run_8point(points1, points2, weights)
-    U, _, Vh = torch.linalg.svd(F)
-    S = torch.tensor([1.0, 1.0, 0.0], dtype=F.dtype, device=F.device)
-    return (U * S) @ Vh
+    U, _, Vh = svd3(F)
+    return (U * device_table(_essential_sv, device=F.device, dtype=F.dtype)) @ Vh
+
+
+def _essential_sv() -> np.ndarray:
+    """An essential matrix's singular values."""
+    return np.array([1.0, 1.0, 0.0], np.float32)
 
 
 def fast_decompose_essential(E: torch.Tensor):

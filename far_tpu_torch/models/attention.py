@@ -54,7 +54,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Softmax attention (the reference's FullAttention option); the
     softmax in float32, the rest in q's dtype."""
     scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=q.dtype))
-    logits = torch.einsum("nlhd,nshd->nlsh", q, k) * scale.to(q.device)
+    logits = torch.einsum("nlhd,nshd->nlsh", q, k) * scale  # a CPU scalar: no copy
     if q_mask is not None and kv_mask is not None:
         mask = q_mask[:, :, None, None] & kv_mask[:, None, :, None]
         logits = logits.masked_fill(~mask, -1e9)

@@ -125,9 +125,10 @@ def select_topk_matches_streamed(
     Returns (i_ids, j_ids, mconf, valid), all (B, K)."""
     B, L, C = feat0.shape
     scale = torch.tensor(1.0 / C ** 0.5, dtype=torch.float32).to(torch.bfloat16)
-    # rounded to bf16 even in an f32 model, as the JAX package does
-    f0 = (feat0.to(torch.bfloat16) * scale.to(feat0.device)).contiguous()
-    f1 = (feat1.to(torch.bfloat16) * scale.to(feat1.device)).contiguous()
+    # rounded to bf16 even in an f32 model, as the JAX package does; a CPU
+    # scalar multiplies a CUDA tensor without a copy to the card
+    f0 = (feat0.to(torch.bfloat16) * scale).contiguous()
+    f1 = (feat1.to(torch.bfloat16) * scale).contiguous()
     row_val, row_idx, col_max = dual_softmax_rowcol(
         f0, f1, 1.0 / cfg.dsmax_temperature)
 

@@ -1,7 +1,8 @@
 """2D sinusoidal position encoding.
 
 Counterpart of ``far_tpu/models/position.py``, including the
-``temp_bug_fix`` switch. The table is built with numpy once per shape.
+``temp_bug_fix`` switch. The table is built with numpy once per shape
+and copied to each device once per dtype.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import math
 
 import numpy as np
 import torch
+
+from far_tpu_torch.utils.tables import device_table
 
 
 @functools.lru_cache(maxsize=8)
@@ -40,5 +43,5 @@ def add_sine_position_encoding(x: torch.Tensor,
                                temp_bug_fix: bool = True) -> torch.Tensor:
     """x: (B, H, W, C) -> x + PE."""
     _, h, w, c = x.shape
-    pe = torch.from_numpy(_sine_table(c, h, w, temp_bug_fix))
-    return x + pe.to(device=x.device, dtype=x.dtype)[None]
+    pe = device_table(_sine_table, c, h, w, temp_bug_fix, device=x.device, dtype=x.dtype)
+    return x + pe[None]

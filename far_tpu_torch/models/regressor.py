@@ -19,10 +19,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from far_tpu_torch.models.constants import POSE_MEAN_6D, POSE_STD_6D
+from far_tpu_torch.models.constants import pose_stat
 from far_tpu_torch.models.transformer import LocalFeatureTransformer
 from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax_auto
 from far_tpu_torch.utils.config import RegressConfig
+from far_tpu_torch.utils.tables import device_table
 
 
 def lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -94,9 +95,8 @@ class CrossAttentionEMM(nn.Module):
         q2, k2, v2 = split(x2)
         h, w = self.grid_hw
         fx, fy = self.grid_f
-        pos = torch.from_numpy(epipolar_positional_basis(
-            h, w, fx, fy, w / 2.0, h / 2.0, self.basis_xy_first)).to(
-                device=x1.device, dtype=dt)
+        pos = device_table(epipolar_positional_basis, h, w, fx, fy, w / 2.0, h / 2.0,
+                           self.basis_xy_first, device=x1.device, dtype=dt)
         pos = pos[None, None].expand(B, H, N, 6)
         v1p = torch.cat([v1, pos], dim=-1).contiguous()
         v2p = torch.cat([v2, pos], dim=-1).contiguous()
@@ -222,8 +222,8 @@ class PoseRegressorEMM(nn.Module):
         solver_t = sp[..., :3]
         solver_rot = sp[..., 3:9]
         if cfg.scale_8pt:
-            mean_t = torch.from_numpy(POSE_MEAN_6D[:3]).to(sp.device)
-            std_t = torch.from_numpy(POSE_STD_6D[:3]).to(sp.device)
+            mean_t = pose_stat("mean", sp)[:3]
+            std_t = pose_stat("std", sp)[:3]
             solver_t_un = solver_t * std_t + mean_t
             reg_t_un = reg_t * std_t + mean_t
             norm_reg = torch.linalg.norm(reg_t_un, dim=-1, keepdim=True)

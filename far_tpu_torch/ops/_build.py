@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("loftr_layer", "matching_kernel", "fine_layer",
-           "bilinear_attention")
+           "bilinear_attention", "small_linalg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -114,6 +114,19 @@ def bind_size(name: str, fn: str, n_int: int):
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def count_launch(wrapper, route: str = "") -> None:
+    """One more launch on ``wrapper``'s counters (``launches``, and
+    ``launches_tc`` / ``launches_tf32`` for those routes), where its kernel
+    runs now: not while the current stream captures a CUDA graph, which
+    records the kernel for its replays to run without the wrapper."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    wrapper.launches += 1
+    if route in ("tc", "tf32"):
+        name = "launches_" + route
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

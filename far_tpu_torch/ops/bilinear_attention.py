@@ -217,10 +217,7 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scratch.data_ptr(), B * H, N, Dv, float(scale),
                  _build.stream_of(q))
         _build.check(err, name)
-        if route == "tc":
-            bilinear_dual_softmax.launches_tc += 1
-        else:
-            bilinear_dual_softmax.launches_tf32 += 1
+        _build.count_launch(bilinear_dual_softmax, route)
     else:
         size = _build.bind_size("bilinear_attention", "far_bilinear_scratch", 3)
         fn = _build.bind("bilinear_attention", "far_bilinear_dual_softmax",
@@ -230,7 +227,7 @@ def bilinear_dual_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scratch.data_ptr(), B * H, N, D, Dv, code, float(scale),
                  _build.stream_of(q))
         _build.check(err, "bilinear_dual_softmax")
-    bilinear_dual_softmax.launches += 1
+        _build.count_launch(bilinear_dual_softmax)
     return out
 
 

@@ -163,9 +163,7 @@ def fine_transformer(f0: torch.Tensor, f1: torch.Tensor,
         fn = _build.bind("fine_layer", "far_fine_transformer", 6, 7)
         err = fn(*ptrs, *ints, code, _build.stream_of(f0))
     _build.check(err, f"fine_transformer ({route})")
-    fine_transformer.launches += 1
-    fine_transformer.launches_tc += int(route == "tc")
-    fine_transformer.launches_tf32 += int(route == "tf32")
+    _build.count_launch(fine_transformer, route)
     return out0, out1
 
 

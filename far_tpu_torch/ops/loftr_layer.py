@@ -160,9 +160,7 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, params: Params,
              w["ln2"].data_ptr(), out.data_ptr(), scratch.data_ptr(),
              B, L, S, C, nhead, *tail, _build.stream_of(x))
     _build.check(err, name)
-    loftr_layer.launches += 1
-    loftr_layer.launches_tc += int(route == "tc")
-    loftr_layer.launches_tf32 += int(route == "tf32")
+    _build.count_launch(loftr_layer, route)
     return out
 
 

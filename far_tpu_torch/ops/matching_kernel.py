@@ -90,8 +90,7 @@ def dual_softmax_rowcol(f0: torch.Tensor, f1: torch.Tensor, inv_temp: float
                  row_idx.data_ptr(), col_max.data_ptr(), scratch.data_ptr(),
                  B, L, S, C, code, float(inv_temp), _build.stream_of(f0))
     _build.check(err, "dual_softmax_rowcol" + (" (bf16)" if tc else ""))
-    dual_softmax_rowcol.launches += 1
-    dual_softmax_rowcol.launches_tc += int(tc)
+    _build.count_launch(dual_softmax_rowcol, "tc" if tc else "")
     return row_val, row_idx, col_max
 
 

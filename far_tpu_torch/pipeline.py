@@ -7,12 +7,17 @@ Counterpart of ``far_tpu/pipeline.py`` (``make_solver_configs``,
 -> RANSAC -> gated ViTEss for the 8-point ViT. The entry points run on
 CUDA unless the caller asks for ``device="cpu"`` (there every kernel
 wrapper runs its plain version); without a card and without that request
-they raise.
+they raise. On a card ``build_inference_fn`` returns the counterpart of
+the JAX package's ``jax.jit(far_forward)``: the request captured once per
+signature in a CUDA graph and replayed after (``CompiledRequest``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import dataclasses
+import itertools
+import traceback
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +27,7 @@ from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
 from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
 from far_tpu_torch.parallel.comm import local_device
 from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
+from far_tpu_torch.solvers.ransac import draw_round_uniforms
 from far_tpu_torch.types import FarOutput, PairBatch, SolverSummary
 from far_tpu_torch.utils.config import FARConfig
 from far_tpu_torch.utils.convert_weights import init_weights
@@ -62,6 +68,21 @@ def _device_of(model: FARLoFTR) -> torch.device:
     return next(model.parameters()).device
 
 
+def draw_uniforms(cfg: FARConfig, B: int, generator: Optional[torch.Generator] = None,
+                  device=None) -> List[torch.Tensor]:
+    """The sampler's draws of every round of ``far_forward``, in its order:
+    one (B, n_samples, S) float32 tensor per round (``RansacConfig.sampling``
+    of the round's solver config), from ``generator`` or the device's
+    default generator. ``far_forward`` without ``uniforms`` and the
+    compiled request both draw through here, so the same generator state
+    gives both the same draws."""
+    first, refine = make_solver_configs(cfg)
+    steps = max(cfg.solver.fine_pred_steps, 1)
+    # sampling() reads only the budget and the minimal solver, not the prior
+    return [draw_round_uniforms((first if i == 0 else refine).ransac_config(False),
+                                B, generator, device) for i in range(steps)]
+
+
 def far_forward(
     model: FARLoFTR,
     batch: PairBatch,
@@ -78,7 +99,9 @@ def far_forward(
     matcher's predicted scale.
 
     Args:
-        generator: the RANSAC sampler's generator (on the model's device).
+        generator: the RANSAC sampler's generator (on the model's device);
+            every round's draws are taken from it up front
+            (``draw_uniforms``).
         uniforms: optional sampler draws in place of the generator's, one
             (B, n_samples, S) tensor per round: S = 5 and n_samples =
             max(H // 20, 1) for the 5-point solver, S = 8 and n_samples =
@@ -94,6 +117,8 @@ def far_forward(
     if uniforms is not None and len(uniforms) != steps:
         raise ValueError(f"need {steps} uniform tensors, got {len(uniforms)}")
     first_cfg, refine_cfg = make_solver_configs(cfg)
+    if uniforms is None:
+        uniforms = draw_uniforms(cfg, batch.image0.shape[0], generator, device)
 
     out = model.match(batch)
     m = out.matches
@@ -106,9 +131,7 @@ def far_forward(
             m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid,
             prior_rt=prior_rt, translation_scale=out.translation_scale,
             cfg=first_cfg if i == 0 else refine_cfg,
-            prior_pcl=prior_pcl,
-            uniforms=None if uniforms is None else uniforms[i],
-            generator=generator)
+            prior_pcl=prior_pcl, uniforms=uniforms[i])
         pose_9d, gate = model.regress_fuse(features, _summarize(est, num_before))
         prior_rt = denormalize_9d(pose_9d)
 
@@ -193,15 +216,159 @@ def vitess_forward(
     return vitess_model(images, solver_pose, num_corr)
 
 
+# the batch fields far_forward reads
+REQUEST_FIELDS = ("image0", "image1", "K0", "K1", "scale0", "scale1")
+
+
+def request_signature(model: FARLoFTR, batch: PairBatch,
+                      uniforms: Optional[Sequence[torch.Tensor]] = None,
+                      prior_pcl: Optional[torch.Tensor] = None) -> tuple:
+    """What a captured request is specialised to, as JAX's jit is to its
+    arguments' shapes: shape, dtype and device of each batch field
+    ``far_forward`` reads, of ``uniforms`` (or that none was given) and of
+    ``prior_pcl``; the storages of the model's parameters and buffers
+    (``load_state_dict`` copies into them in place, so it keeps the key;
+    moving or replacing them changes it); the mode; and the numerics flags
+    the eager request reads (TF32 in cuBLAS and cuDNN, cuDNN itself,
+    deterministic algorithms)."""
+    def spec(t):
+        return None if t is None else (tuple(t.shape), t.dtype, str(t.device))
+
+    return (tuple(spec(getattr(batch, f)) for f in REQUEST_FIELDS),
+            None if uniforms is None else tuple(spec(u) for u in uniforms),
+            spec(prior_pcl),
+            tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())),
+            model.training,
+            (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.enabled, torch.are_deterministic_algorithms_enabled()))
+
+
+def _map_tensors(fn, out):
+    """``out`` (a dataclass of tensors, nested dataclasses and None) with
+    ``fn`` applied to every tensor."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if dataclasses.is_dataclass(out):
+        return type(out)(**{f.name: _map_tensors(fn, getattr(out, f.name))
+                            for f in dataclasses.fields(out)})
+    return out
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: torch.cuda.CUDAGraph
+    batch: PairBatch                      # static inputs, filled before a replay
+    uniforms: List[torch.Tensor]
+    prior_pcl: Optional[torch.Tensor]
+    output: FarOutput                     # static outputs in the graph's pool
+    pool_bytes: int                       # device memory the capture added to the pool
+
+
+class CompiledRequest:
+    """``far_forward`` as one CUDA graph per request signature: the port's
+    ``jax.jit(far_forward)``.
+
+    A call looks up ``request_signature``. The first call of a signature
+    runs the eager request on a side stream (the warm-up: kernel builds,
+    ``cudaFuncSetAttribute``, cuDNN's plan choice, the cached tables and
+    the allocator's growth stay out of the capture), returns its output,
+    then captures the same request into a graph. Every signature's graph
+    takes its memory from one pool of this object's: replays run one at a
+    time on one stream and their outputs are cloned before the next, so
+    one graph's intermediates may reuse another's. Later calls copy the
+    batch fields (and ``uniforms`` / ``prior_pcl`` when given) into the
+    graph's static inputs, draw the
+    sampler's uniforms outside the graph into its static buffers where
+    none are given (``draw_uniforms``: the draws an eager request from the
+    same generator state takes), replay, and return clones of the static
+    outputs, so nothing returned aliases the graph. The kernel wrappers'
+    launch counters count the warm-up, whose kernels they launch; a
+    capture records kernels without running them and a replay runs them
+    without the wrappers, so neither adds to a counter (a profiler trace
+    of a replay shows its kernels). A failed capture raises, naming the
+    op; there is no eager fallback on the card. On a CPU model a call is
+    the eager ``far_forward``."""
+
+    def __init__(self, model: FARLoFTR):
+        self.model = model
+        self.graphs: Dict[tuple, _Captured] = {}
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._pool = None  # the graphs' memory pool, made at the first capture
+
+    def __call__(self, batch: PairBatch, generator=None, uniforms=None, prior_pcl=None):
+        model = self.model
+        device = _device_of(model)
+        with torch.inference_mode():
+            if device.type != "cuda":
+                return far_forward(model, batch, generator, uniforms, prior_pcl)
+            if batch.image0.device != device:
+                raise ValueError(f"batch on {batch.image0.device}, model on {device}")
+            key = request_signature(model, batch, uniforms, prior_pcl)
+            entry = self.graphs.get(key)
+            if entry is None:
+                return self._capture(key, batch, generator, uniforms, prior_pcl)
+            for f in REQUEST_FIELDS:
+                src = getattr(batch, f)
+                if src is not None:
+                    getattr(entry.batch, f).copy_(src)
+            if uniforms is None:
+                uniforms = draw_uniforms(model.config, batch.image0.shape[0], generator,
+                                         device)
+            for dst, src in zip(entry.uniforms, uniforms):
+                dst.copy_(src)
+            if prior_pcl is not None:
+                entry.prior_pcl.copy_(prior_pcl)
+            entry.graph.replay()
+            return _map_tensors(torch.Tensor.clone, entry.output)
+
+    def pool_bytes(self) -> int:
+        """Device memory the captures of every signature reserved: the
+        size of the graphs' pool."""
+        return sum(e.pool_bytes for e in self.graphs.values())
+
+    def _capture(self, key, batch, generator, uniforms, prior_pcl) -> FarOutput:
+        model = self.model
+        device = _device_of(model)
+        static = PairBatch(**{f: None if getattr(batch, f) is None
+                              else getattr(batch, f).clone() for f in REQUEST_FIELDS})
+        if uniforms is None:
+            uniforms = draw_uniforms(model.config, batch.image0.shape[0], generator, device)
+        static_u = [u.to(device).clone() for u in uniforms]
+        static_pcl = None if prior_pcl is None else prior_pcl.to(device).clone()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+            self._pool = torch.cuda.graph_pool_handle()
+        stream, main = self._stream, torch.cuda.current_stream(device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out = far_forward(model, static, None, static_u, static_pcl)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                static_out = far_forward(model, static, None, static_u, static_pcl)
+        except Exception as exc:  # the op that broke the capture, by its frame
+            frames = [f for f in traceback.extract_tb(exc.__traceback__)
+                      if "far_tpu_torch" in f.filename]
+            where = (f" at {frames[-1].filename}:{frames[-1].lineno} ({frames[-1].line})"
+                     if frames else "")
+            raise RuntimeError(f"capturing the request in a CUDA graph failed{where}: "
+                               f"{exc}") from exc
+        self.graphs[key] = _Captured(graph, static, static_u, static_pcl, static_out,
+                                     torch.cuda.memory_reserved(device) - reserved)
+        main.wait_stream(stream)
+        _map_tensors(lambda t: t.record_stream(main), out)
+        return out
+
+
 def build_inference_fn(model: FARLoFTR) -> Callable[..., FarOutput]:
     """(batch, generator=None, uniforms=None, prior_pcl=None) -> FarOutput,
-    under ``torch.inference_mode``."""
-
-    def fn(batch: PairBatch, generator=None, uniforms=None, prior_pcl=None):
-        with torch.inference_mode():
-            return far_forward(model, batch, generator, uniforms, prior_pcl)
-
-    return fn
+    under ``torch.inference_mode``: a ``CompiledRequest`` (captured once
+    per ``request_signature`` on a card; the eager ``far_forward`` on the
+    CPU)."""
+    return CompiledRequest(model)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -12,11 +12,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from far_tpu_torch.geometry.transforms import normalize_kpts_by_K
 from far_tpu_torch.solvers.ransac import RansacConfig, prior_ransac
 from far_tpu_torch.solvers.types import PoseEstimate, PriorParams
+from far_tpu_torch.utils.tables import device_table
 
 # probe cloud size of the prior transport error (reference metrics.py:103)
 _NUM_PCL = 300
@@ -54,12 +56,17 @@ class SolverConfig:
 
 def default_prior_pcl(device=None, dtype=torch.float32) -> torch.Tensor:
     """The port's fixed probe cloud: 300 points uniform in [-3, 3]^3 from
-    a generator seeded 0. (The JAX package draws its own from
-    ``jax.random.PRNGKey(0)``; the two clouds differ, so a comparison
+    a CPU generator seeded 0, made once per (device, dtype) and shared by
+    every caller, who must not change it. (The JAX package draws its own
+    from ``jax.random.PRNGKey(0)``; the two clouds differ, so a comparison
     hands one cloud to both.)"""
+    return device_table(_probe_cloud, device=device if device is not None else "cpu",
+                        dtype=dtype)
+
+
+def _probe_cloud() -> np.ndarray:
     g = torch.Generator().manual_seed(0)
-    pcl = torch.rand((_NUM_PCL, 3), generator=g, dtype=torch.float32) * 6 - 3
-    return pcl.to(device=device, dtype=dtype)
+    return (torch.rand((_NUM_PCL, 3), generator=g, dtype=torch.float32) * 6 - 3).numpy()
 
 
 def estimate_pose(

@@ -76,6 +76,17 @@ class RansacConfig:
         return self.num_hypotheses, 8, 1
 
 
+def draw_round_uniforms(cfg: RansacConfig, B: int,
+                        generator: Optional[torch.Generator] = None,
+                        device=None) -> torch.Tensor:
+    """One round's sampler draws, (B, n_samples, S) float32 uniforms
+    (``cfg.sampling()``), from ``generator`` (or the device's default
+    generator) on ``device``."""
+    n_samples, S, _ = cfg.sampling()
+    return torch.rand((B, n_samples, S), generator=generator, device=device,
+                      dtype=torch.float32)
+
+
 def sample_indices(u: torch.Tensor, logw: torch.Tensor) -> torch.Tensor:
     """Weighted sampling with replacement by inverse CDF.
 
@@ -141,8 +152,8 @@ def prior_ransac(
         inl_th: optional (B,) per-pair squared threshold.
         uniforms: optional (B, n_samples, S) sampler draws (S = 8 for the
             8-point solver, 5 for the 5-point one, n_samples from
-            ``cfg.sampling()``); else they come from ``generator`` on the
-            points' device.
+            ``cfg.sampling()``); else ``draw_round_uniforms`` draws them
+            from ``generator`` on the points' device.
     """
     B, N, _ = kp1.shape
     n_samples, S, n_cand = cfg.sampling()
@@ -157,8 +168,7 @@ def prior_ransac(
     else:
         logw = torch.where(valid, 0.0, -torch.inf).to(dtype)
     if uniforms is None:
-        uniforms = torch.rand((B, n_samples, S), generator=generator,
-                              device=kp1.device, dtype=torch.float32)
+        uniforms = draw_round_uniforms(cfg, B, generator, kp1.device)
     if tuple(uniforms.shape) != (B, n_samples, S):
         raise ValueError(f"uniforms {tuple(uniforms.shape)} != {(B, n_samples, S)}")
     idx = sample_indices(uniforms.to(device=kp1.device, dtype=dtype), logw)

@@ -20,14 +20,18 @@ Random weights from seeds 0 (matcher) and 1 (regressor). After two
 warm-up requests it times one request by stage with CUDA events, then
 traces one more with ``torch.profiler`` and prints the device time of the
 busiest kernels and the share of the request's wall time in which the
-card ran no kernel; for ``far`` also the kernels launched and their
-device time inside each solver round.
+card ran no kernel; for ``far`` the stages are those of the eager
+``far_forward`` (a CUDA graph replay calls no module method), followed by
+the kernels launched and their device time inside each solver round, and
+then the compiled request (``build_inference_fn``: a CUDA graph replay):
+its ms (median of 3), its graph pool and one traced replay's idle share.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import statistics
 import time
 
 import torch
@@ -144,6 +148,9 @@ def trace(fn):
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
     busy = busy_ms(prof)
+    if busy == 0:
+        print(f"traced request: {traced:.3f} ms wall; the trace shows no device kernel")
+        return
     print(f"traced request: {traced:.3f} ms wall, device busy {busy:.3f} ms, "
           f"idle share {1 - busy / traced:.3f}")
     rows = []
@@ -260,21 +267,27 @@ def main() -> int:
         return 0
     cfg = FARConfig(solver=SolverOptions(minimal_solver=args.solver), dtype=args.dtype)
     model = init_model(cfg, seed=0, device=dev)
-    fn = build_inference_fn(model)
     batch = synthetic_batch(args.batch, *cfg.image_size, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def eager():
+        with torch.inference_mode():
+            return pipeline_mod.far_forward(model, batch, gen)
+
     for _ in range(2):
-        fn(batch, generator=gen)
+        eager()
     torch.cuda.synchronize()
 
+    # the stages, timed over the eager far_forward: a CUDA graph replay
+    # calls no module method, so wrappers around them see nothing
     timer = StageTimer()
-    for mod, name in ((model.backbone, "backbone"),
-                      (model.loftr_coarse, "coarse transformer (K1)")):
-        mod.forward = timer.wrap(name, mod.forward)
-    model.fine_stage = timer.wrap("fine stage (gather, K3, soft-argmax)",
-                                  model.fine_stage)
-    model.regress_features = timer.wrap("EMM features (K4)", model.regress_features)
-    model.regress_fuse = timer.wrap("MoE fusion", model.regress_fuse)
+    wrapped = [(model.backbone, "forward", "backbone"),
+               (model.loftr_coarse, "forward", "coarse transformer (K1)"),
+               (model, "fine_stage", "fine stage (gather, K3, soft-argmax)"),
+               (model, "regress_features", "EMM features (K4)"),
+               (model, "regress_fuse", "MoE fusion")]
+    for obj, attr, name in wrapped:
+        setattr(obj, attr, timer.wrap(name, getattr(obj, attr)))
     saved = (loftr_mod.coarse_match, pipeline_mod.estimate_pose)
     rounds = []  # each solver round's arguments, replayed alone below
 
@@ -286,17 +299,36 @@ def main() -> int:
     pipeline_mod.estimate_pose = timer.wrap("solver round", solver_round)
     try:
         t0 = time.perf_counter()
-        timer.wrap("request", fn)(batch, generator=gen)
+        timer.wrap("request", eager)()
     finally:
         loftr_mod.coarse_match, pipeline_mod.estimate_pose = saved
-    report(f"far_forward {args.dtype} {args.solver} B={args.batch} {cfg.image_size[0]}x"
-           f"{cfg.image_size[1]}", timer, lambda: fn(batch, generator=gen), t0)
+        for obj, attr, _ in wrapped:
+            delattr(obj, attr)  # the class's method again
+    title = f"{args.dtype} {args.solver} B={args.batch} {cfg.image_size[0]}x{cfg.image_size[1]}"
+    report(f"eager far_forward {title}", timer, eager, t0)
     for i, (a, kw) in enumerate(rounds):
         with torch.inference_mode():
             n, dev_ms, wall = round_profile(lambda: saved[1](*a, **kw))
         print(f"solver round {i} ({kw['cfg'].num_hypotheses} hypotheses, "
               f"{args.solver}) traced alone: {n} kernels, {dev_ms:.3f} ms of "
               f"device time, {wall:.3f} ms wall")
+    del rounds
+    torch.cuda.empty_cache()
+
+    # the compiled request (build_inference_fn: one CUDA graph replay)
+    fn = build_inference_fn(model)
+    for _ in range(2):  # the first call captures
+        fn(batch, generator=gen)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"compiled far_forward {title} (build_inference_fn, CUDA graph): "
+          f"{statistics.median(times):.3f} ms on the host clock (median of "
+          f"{[round(t, 3) for t in times]}), graph pool {fn.pool_bytes() / 2**30:.3f} GiB")
+    trace(lambda: fn(batch, generator=gen))
     return 0
 
 

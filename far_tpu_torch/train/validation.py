@@ -15,7 +15,7 @@ which need matplotlib: without it the pass raises ImportError.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ def validate_far(
     fig_dir: Optional[str] = None,
     n_figs: int = 2,
     step: int = 0,
+    fn: Optional[Callable[..., FarOutput]] = None,
 ) -> Dict:
     """One validation pass of ``model`` (``build_inference_fn``, on the
     model's device) over ``dataset`` -> the Matterport table.
@@ -72,13 +73,17 @@ def validate_far(
         fig_dir: when set, process 0 saves the match figures of the first
             batch's first ``n_figs`` pairs there, as
             ``val_step{step:07d}_pair{i}.png`` at dpi 75.
+        fn: ``build_inference_fn(model)`` to run the batches through; pass
+            the same one to every pass (a trainer's validations), so that
+            each replays the graphs the first captured. One is built for
+            the pass when None.
     Returns:
         the table of ``aggregate_metrics``, with 'rot mean err'.
     """
     max_matches = max_matches or model.config.match.max_matches
     acc = {k: [] for k in _KEYS}
     batches = far_batches(model, dataset, batch_size, max_batches, generator, uniforms,
-                          prior_pcl)
+                          prior_pcl, fn)
     for bi, (batch, meta, out) in enumerate(batches):
         epi = accumulate_far(acc, out, batch, meta, max_matches)
         if bi == 0 and fig_dir is not None and process_index() == 0:
@@ -105,15 +110,16 @@ def save_match_figures(out: FarOutput, batch: PairBatch, epi: np.ndarray, fig_di
 def far_batches(model: FARLoFTR, dataset, batch_size: int, max_batches: int = 0,
                 generator: Optional[torch.Generator] = None,
                 uniforms: Optional[Sequence[Sequence[torch.Tensor]]] = None,
-                prior_pcl: Optional[torch.Tensor] = None
+                prior_pcl: Optional[torch.Tensor] = None,
+                fn: Optional[Callable[..., FarOutput]] = None
                 ) -> Iterator[Tuple[PairBatch, Dict, FarOutput]]:
     """The evaluation loop that ``validate_far`` and the evaluation CLI
     share: this process's sequential shard of ``dataset`` in batches (at
     most ``max_batches``; 0: all), each moved to the model's device and
-    run through ``build_inference_fn`` -> ``(batch, meta, output)``. The
-    arguments are ``validate_far``'s."""
+    run through ``fn`` (``build_inference_fn(model)`` when None) ->
+    ``(batch, meta, output)``. The arguments are ``validate_far``'s."""
     device = next(model.parameters()).device
-    fn = build_inference_fn(model)
+    fn = fn or build_inference_fn(model)
     idx = sequential_indices(len(dataset), rank=process_index(),
                              world_size=process_count())
     for bi, (batch, meta) in enumerate(Loader(dataset, idx, batch_size, keep_meta=True)):

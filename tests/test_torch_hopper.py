@@ -14,6 +14,7 @@ This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_hopper.py
 """
 
+import json
 import math
 
 import numpy as np
@@ -861,3 +862,153 @@ def test_small_vitess_step_card_vs_cpu(card):
         assert float((g[n] - ref).abs().max()) <= tol * float(scale.abs().max()), n
     for n, ref in s_ref.items():
         assert float((s[n] - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 2051])
+@pytest.mark.parametrize("n", [3, 4, 9])
+def test_eigh_small_on_card(card, B, n):
+    """far_eigh_small against torch.linalg.eigh on X^T X of Gaussian 20 x n:
+    eigenvalues within 1e-5 max|lambda|; eigenvector k up to sign within
+    1e-5 + 64 u max|lambda| / gap_k (u = 2^-24, first-order perturbation
+    with room for both solvers' float32 rounding); one launch."""
+    from far_tpu_torch.ops.small_linalg import eigh_small
+
+    g = torch.Generator().manual_seed(B * 10 + n)
+    X = torch.randn(B, 20, n, generator=g)
+    A = (X.transpose(1, 2) @ X).to(card)
+    before = eigh_small.launches
+    w, V = eigh_small(A)
+    w0, V0 = torch.linalg.eigh(A)
+    torch.cuda.synchronize()
+    assert eigh_small.launches == before + 1
+    scale = w0.abs().amax(-1, keepdim=True)
+    assert float(((w - w0).abs() / scale).max()) <= 1e-5
+    gaps = torch.full_like(w0, float("inf"))
+    gaps[..., 1:] = w0.diff(dim=-1)
+    gaps[..., :-1] = torch.minimum(gaps[..., :-1], w0.diff(dim=-1))
+    tol = 1e-5 + 64 * 2.0 ** -24 * scale / gaps
+    d = torch.minimum((V - V0).abs().amax(-2), (V + V0).abs().amax(-2))
+    assert bool((d <= tol).all()), float((d / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 2051])
+def test_svd3_on_card(card, B):
+    """far_svd3 against torch.linalg.svd on 3x3 matrices of singular values
+    (1, [0.3, 1], [0, 1e-3]), the polish's kind: singular values
+    descending within 1e-5 max S; the rank-2 projection (U diag(s1, s2,
+    0)) Vh and the essential projection U diag(1, 1, 0) Vh within 1e-5
+    max|ref|; one launch."""
+    from far_tpu_torch.ops.small_linalg import svd3
+
+    g = torch.Generator().manual_seed(B)
+    Q1 = torch.linalg.qr(torch.randn(B, 3, 3, generator=g))[0]
+    Q2 = torch.linalg.qr(torch.randn(B, 3, 3, generator=g))[0]
+    sv = torch.stack([torch.ones(B), 0.3 + 0.7 * torch.rand(B, generator=g),
+                      1e-3 * torch.rand(B, generator=g)], -1)
+    F = ((Q1 * sv[:, None, :]) @ Q2).to(card)
+    before = svd3.launches
+    U, S, Vh = svd3(F)
+    U0, S0, V0 = torch.linalg.svd(F)
+    torch.cuda.synchronize()
+    assert svd3.launches == before + 1
+    assert bool((S[:, :-1] >= S[:, 1:]).all())
+    assert float((S - S0).abs().max()) <= 1e-5 * float(S0.max())
+    ess = torch.tensor([1.0, 1.0, 0.0], device=card)
+    for a, b in (((U * (S * ess)[:, None, :]) @ Vh, (U0 * (S0 * ess)[:, None, :]) @ V0),
+                 ((U * ess) @ Vh, (U0 * ess) @ V0)):
+        err = (a - b).abs().amax((-2, -1)) / b.abs().amax((-2, -1))
+        assert float(err.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [1e-2, 1e-3])
+def test_svd3_nearly_rank1_on_card(card, ratio):
+    """far_svd3 on 2051 3x3 F of singular values (1, ratio, 0) against
+    torch.linalg.svd in float64 of the same float32 F: singular values
+    within 1e-5 max S; the rank-2 projection within 1e-5 max|ref|; the
+    essential projection within 1e-5 + 8 u s1 / (s2 - s3) of max|ref| (u
+    = 2^-24; u2, v2 are only that well determined in float32)."""
+    from far_tpu_torch.ops.small_linalg import svd3
+
+    g = torch.Generator().manual_seed(int(1 / ratio))
+    Q1, Q2 = (torch.linalg.qr(torch.randn(2051, 3, 3, generator=g, dtype=torch.float64))[0]
+              for _ in range(2))
+    F = ((Q1 * torch.tensor([1.0, ratio, 0.0], dtype=torch.float64)) @ Q2).float().to(card)
+    U, S, Vh = svd3(F)
+    U0, S0, V0 = (x.float() for x in torch.linalg.svd(F.double()))
+    assert bool((S[:, :-1] >= S[:, 1:]).all())
+    assert float((S - S0).abs().max()) <= 1e-5
+    ess = torch.tensor([1.0, 1.0, 0.0], device=card)
+    rank2, ref2 = (U * (S * ess)[:, None, :]) @ Vh, (U0 * (S0 * ess)[:, None, :]) @ V0
+    assert float(((rank2 - ref2).abs().amax((-2, -1)) / ref2.abs().amax((-2, -1))).max()) <= 1e-5
+    essential, refe = (U * ess) @ Vh, (U0 * ess) @ V0
+    tol = 1e-5 + 8 * 2.0 ** -24 * S0[:, 0] / (S0[:, 1] - S0[:, 2])
+    err = (essential - refe).abs().amax((-2, -1)) / refe.abs().amax((-2, -1))
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["5pt", "8pt"])
+def test_compiled_request_on_card(card, solver, tmp_path):
+    """build_inference_fn at a small width on the card: the first call
+    captures, a replay equals the eager far_forward from the same
+    generator state bit for bit, with no host sync under
+    set_sync_debug_mode("error"). The first call's warm-up adds one
+    request's launches to the counters; a replay runs no wrapper and adds
+    none, and a profiler trace of it shows the polish's small-matrix
+    kernels as often as the warm-up launched them."""
+    import dataclasses
+
+    from far_tpu_torch.ops import launch_counts
+    from far_tpu_torch.ops.small_linalg import eigh_small, svd3
+    from far_tpu_torch.pipeline import build_inference_fn, far_forward, init_model
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import (
+        AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
+        RegressConfig, SolverOptions)
+
+    cfg = FARConfig(
+        image_size=(96, 128), backbone=BackboneConfig(initial_dim=16, block_dims=(16, 24, 32)),
+        coarse=AttentionStackConfig(d_model=32, nhead=4),
+        match=MatchConfig(max_matches=32, thr=0.0), fine=FineConfig(d_model=16, nhead=4),
+        regress=RegressConfig(d_model=32, emm_heads=4, hidden=64),
+        solver=SolverOptions(num_hypotheses=256, refine_num_hypotheses=256,
+                             minimal_solver=solver))
+    model = init_model(cfg, seed=1, device=card)
+    batch = synthetic_batch(2, *cfg.image_size, card, seed=3)
+    gen = torch.Generator(device=card)
+    with torch.inference_mode():
+        ref = far_forward(model, batch, gen.manual_seed(2))
+    fn = build_inference_fn(model)
+    before = launch_counts()
+    first = fn(batch, generator=gen.manual_seed(2))
+    one = {k: v - before[k] for k, v in launch_counts().items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(batch, generator=gen.manual_seed(2))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in launch_counts().items()} == one
+    assert one[(loftr_layer, "launches")] > 0 and one[(eigh_small, "launches")] > 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(batch, generator=gen.manual_seed(2))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    for kernel, wrapper in (("eigh_kernel", eigh_small), ("svd3_kernel", svd3)):
+        assert sum(kernel in n for n in names) == one[(wrapper, "launches")], kernel
+
+    def fields(o):
+        for f in dataclasses.fields(o):
+            v = getattr(o, f.name)
+            yield from (fields(v) if dataclasses.is_dataclass(v) else
+                        [(f.name, v)] if isinstance(v, torch.Tensor) else [])
+
+    for got in (first, out):
+        for (name, a), (_, b) in zip(fields(got), fields(ref)):
+            assert torch.equal(a, b), name
