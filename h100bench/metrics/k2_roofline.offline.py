@@ -1,0 +1,6 @@
+"""K2's share of its roofline: its least time at the card's peaks
+(kernels/K2.py) over its device time a request, in %."""
+
+
+def read(view):
+    return view.roofline("K2")

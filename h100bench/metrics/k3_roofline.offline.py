@@ -1,0 +1,6 @@
+"""K3's share of its roofline: its least time at the card's peaks
+(kernels/K3.py) over its device time a request, in %."""
+
+
+def read(view):
+    return view.roofline("K3")
