@@ -62,6 +62,7 @@ from far_tpu_torch.models.regressor import PoseRegressorEMM, lin
 from far_tpu_torch.models.transformer import LocalFeatureTransformer
 from far_tpu_torch.types import MatcherOutput, MatchResult, PairBatch, SolverSummary
 from far_tpu_torch.utils.config import FARConfig
+from far_tpu_torch.utils.prof import BACKBONE, COARSE, FINE, MATCH, mark
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -147,11 +148,13 @@ class FARLoFTR(nn.Module):
         B = image0.shape[0]
         imgs = torch.cat([image0, image1], dim=0).permute(0, 3, 1, 2)
         feat_c, feat_f = self.run_backbone(imgs.to(self.dtype))
+        mark(BACKBONE)
         feat_c_hwc = feat_c.permute(0, 2, 3, 1)
         feat_f = feat_f.permute(0, 2, 3, 1).contiguous()
         t = add_sine_position_encoding(feat_c_hwc, cfg.coarse.temp_bug_fix)
         t = t.reshape(2 * B, hc * wc, -1).contiguous()
         t0, t1 = self.loftr_coarse(t[:B], t[B:])
+        mark(COARSE)
         return feat_c, feat_f[:B], feat_f[B:], t0, t1
 
     def run_backbone(self, imgs: torch.Tensor):
@@ -187,7 +190,10 @@ class FARLoFTR(nn.Module):
         return fine_matching(self.loftr_fine, f0w, f1w, cfg.fine.window_size)
 
     def match(self, batch: PairBatch) -> MatcherOutput:
-        """Backbone + coarse transformer + coarse/fine matching."""
+        """Backbone + coarse transformer + coarse/fine matching, with the
+        end of each of these four stages marked (``utils.prof.mark``:
+        ``BACKBONE``, ``COARSE``, ``MATCH``, ``FINE``) for the compiled
+        request."""
         cfg = self.config
         hc, wc = cfg.coarse_hw
         feat_c, feat_f0, feat_f1, t0, t1 = self.coarse_features(
@@ -211,11 +217,13 @@ class FARLoFTR(nn.Module):
                 scale0=batch.scale0, scale1=batch.scale1, return_conf=self.training)
             i_ids, j_ids, mconf, valid, mkpts0, mkpts1 = res[:6]
             conf = res[6] if self.training else None
+        mark(MATCH)
         expec_f = self.fine_stage(feat_f0, feat_f1, t0, t1, i_ids, j_ids)
         mkpts1_f = fine_coords_to_kpts(
             expec_f, mkpts1, cfg.fine.window_size,
             float(cfg.backbone.resolution[1]), batch.scale1)
         mkpts1_f = torch.where(valid[..., None], mkpts1_f, mkpts1)
+        mark(FINE)
         matches = MatchResult(
             i_ids=i_ids, j_ids=j_ids, mconf=mconf, valid=valid,
             mkpts0=mkpts0, mkpts1=mkpts1, mkpts0_f=mkpts0, mkpts1_f=mkpts1_f,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 import traceback
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -31,6 +32,9 @@ from far_tpu_torch.solvers.ransac import draw_round_uniforms
 from far_tpu_torch.types import FarOutput, PairBatch, SolverSummary
 from far_tpu_torch.utils.config import FARConfig
 from far_tpu_torch.utils.convert_weights import init_weights
+from far_tpu_torch.utils.prof import (
+    BACKBONE, COARSE, EMM, FINE, MATCH, REQUEST_MARK, MarkSink, add_counter, mark, marking,
+    round_mark)
 
 
 def make_solver_configs(cfg: FARConfig) -> Tuple[SolverConfig, SolverConfig]:
@@ -83,6 +87,17 @@ def draw_uniforms(cfg: FARConfig, B: int, generator: Optional[torch.Generator] =
                                 B, generator, device) for i in range(steps)]
 
 
+def request_stages(cfg: FARConfig) -> Tuple[str, ...]:
+    """The stages of ``far_forward`` in order, each ended by a mark of its
+    name (``utils.prof.mark``) after ``REQUEST_MARK`` opens the first: the
+    backbone; the position encoding and coarse transformer (K1); the coarse
+    match (K2) with the scale head; the fine stage (K3) to the refined
+    keypoints; the EMM features (K4); then each solver round with its MoE
+    fusion."""
+    steps = max(cfg.solver.fine_pred_steps, 1)
+    return (BACKBONE, COARSE, MATCH, FINE, EMM) + tuple(round_mark(i) for i in range(steps))
+
+
 def far_forward(
     model: FARLoFTR,
     batch: PairBatch,
@@ -94,7 +109,8 @@ def far_forward(
 
     Round 0 solves without a prior; each of the config's
     ``fine_pred_steps - 1`` later rounds re-solves with the previous
-    fused pose as a prior and re-fuses. With
+    fused pose as a prior and re-fuses. The start and the end of each of
+    ``request_stages`` are marked (``utils.prof.mark``). With
     ``predict_translation_scale`` every round's t is scaled by the
     matcher's predicted scale.
 
@@ -120,10 +136,12 @@ def far_forward(
     if uniforms is None:
         uniforms = draw_uniforms(cfg, batch.image0.shape[0], generator, device)
 
+    mark(REQUEST_MARK)
     out = model.match(batch)
     m = out.matches
     num_before = m.valid.float().sum(-1)
     features = model.regress_features(out.feat_c0, out.feat_c1)
+    mark(EMM)
 
     prior_rt = None
     for i in range(steps):
@@ -134,6 +152,7 @@ def far_forward(
             prior_pcl=prior_pcl, uniforms=uniforms[i])
         pose_9d, gate = model.regress_fuse(features, _summarize(est, num_before))
         prior_rt = denormalize_9d(pose_9d)
+        mark(round_mark(i))
 
     return FarOutput(
         R=prior_rt[..., :3, :3], t=prior_rt[..., :3, 3], solver_rt=est.rt34,
@@ -262,6 +281,8 @@ class _Captured:
     prior_pcl: Optional[torch.Tensor]
     output: FarOutput                     # static outputs in the graph's pool
     pool_bytes: int                       # device memory the capture added to the pool
+    stages: Tuple[str, ...]               # request_stages of the model's config
+    slots: torch.Tensor                   # int64 clock (ns) of each mark, written by a run
 
 
 class CompiledRequest:
@@ -287,13 +308,23 @@ class CompiledRequest:
     without the wrappers, so neither adds to a counter (a profiler trace
     of a replay shows its kernels). A failed capture raises, naming the
     op; there is no eager fallback on the card. On a CPU model a call is
-    the eager ``far_forward``."""
+    the eager ``far_forward``.
+
+    The graph holds a device mark at the request's start and at the end of
+    each of ``request_stages`` (``utils.prof.mark``); ``stage_ms`` reads
+    the last request's. The warm-up and the capture write counters
+    (``utils.prof.counters``, summed over signatures):
+    ``far.capture.warmup_s`` (the warm-up to its synchronize),
+    ``far.capture.record_s`` (the capture with the graph's instantiation)
+    and ``far.capture.nodes.<stage>`` (the stage's operation nodes:
+    kernels, copies and memsets, marks left out)."""
 
     def __init__(self, model: FARLoFTR):
         self.model = model
         self.graphs: Dict[tuple, _Captured] = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None  # the graphs' memory pool, made at the first capture
+        self._last: Optional[_Captured] = None  # the signature that ran last
 
     def __call__(self, batch: PairBatch, generator=None, uniforms=None, prior_pcl=None):
         model = self.model
@@ -319,12 +350,23 @@ class CompiledRequest:
             if prior_pcl is not None:
                 entry.prior_pcl.copy_(prior_pcl)
             entry.graph.replay()
+            self._last = entry
             return _map_tensors(torch.Tensor.clone, entry.output)
 
     def pool_bytes(self) -> int:
         """Device memory the captures of every signature reserved: the
         size of the graphs' pool."""
         return sum(e.pool_bytes for e in self.graphs.values())
+
+    def stage_ms(self) -> Dict[str, float]:
+        """{stage: device ms} of the last request on the card, from its
+        marks' clock (a replay's; before a signature's first replay, its
+        warm-up's): the time from one mark to the next. Copies the slots
+        to the host, which waits for the request."""
+        if self._last is None:
+            raise RuntimeError("stage_ms: no request has run on the card")
+        t = self._last.slots.tolist()
+        return {s: (t[i + 1] - t[i]) / 1e6 for i, s in enumerate(self._last.stages)}
 
     def _capture(self, key, batch, generator, uniforms, prior_pcl) -> FarOutput:
         model = self.model
@@ -338,16 +380,22 @@ class CompiledRequest:
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
             self._pool = torch.cuda.graph_pool_handle()
+        stages = request_stages(model.config)
+        slots = torch.zeros(len(stages) + 1, dtype=torch.int64, device=device)
         stream, main = self._stream, torch.cuda.current_stream(device)
         stream.wait_stream(main)
-        with torch.cuda.stream(stream):
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream), marking(MarkSink(slots)):
             out = far_forward(model, static, None, static_u, static_pcl)
         torch.cuda.synchronize(device)
+        warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
+        sink = MarkSink(slots)
+        t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+            with marking(sink), torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 static_out = far_forward(model, static, None, static_u, static_pcl)
         except Exception as exc:  # the op that broke the capture, by its frame
             frames = [f for f in traceback.extract_tb(exc.__traceback__)
@@ -356,8 +404,18 @@ class CompiledRequest:
                      if frames else "")
             raise RuntimeError(f"capturing the request in a CUDA graph failed{where}: "
                                f"{exc}") from exc
-        self.graphs[key] = _Captured(graph, static, static_u, static_pcl, static_out,
-                                     torch.cuda.memory_reserved(device) - reserved)
+        record_s = time.perf_counter() - t0
+        if tuple(sink.names) != (REQUEST_MARK,) + stages:
+            raise RuntimeError(f"the capture marked {sink.names}, not the request's "
+                               f"stages {stages}")
+        add_counter("far.capture.warmup_s", warmup_s)
+        add_counter("far.capture.record_s", record_s)
+        for i, stage in enumerate(stages, 1):  # the nodes between two marks
+            add_counter(f"far.capture.nodes.{stage}",
+                        sink.nodes[i] - sink.nodes[i - 1] - 1)
+        self.graphs[key] = self._last = _Captured(
+            graph, static, static_u, static_pcl, static_out,
+            torch.cuda.memory_reserved(device) - reserved, stages, slots)
         main.wait_stream(stream)
         _map_tensors(lambda t: t.record_stream(main), out)
         return out

@@ -24,7 +24,9 @@ card ran no kernel; for ``far`` the stages are those of the eager
 ``far_forward`` (a CUDA graph replay calls no module method), followed by
 the kernels launched and their device time inside each solver round, and
 then the compiled request (``build_inference_fn``: a CUDA graph replay):
-its ms (median of 3), its graph pool and one traced replay's idle share.
+its ms (median of 3), its graph pool, the device ms of each of its
+stages in the last replay (``CompiledRequest.stage_ms``, read from the
+marks inside the graph) and one traced replay's idle share.
 """
 
 from __future__ import annotations
@@ -328,6 +330,8 @@ def main() -> int:
     print(f"compiled far_forward {title} (build_inference_fn, CUDA graph): "
           f"{statistics.median(times):.3f} ms on the host clock (median of "
           f"{[round(t, 3) for t in times]}), graph pool {fn.pool_bytes() / 2**30:.3f} GiB")
+    print("compiled far_forward stages, device ms of the last replay from the graph's "
+          "marks: " + ", ".join(f"{k} {v:.3f}" for k, v in fn.stage_ms().items()))
     trace(lambda: fn(batch, generator=gen))
     return 0
 

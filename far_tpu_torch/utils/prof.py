@@ -7,6 +7,21 @@ range that ends in ``torch.cuda.synchronize()`` (the JAX package's
 it enqueued; ``TraceProfiler`` writes a ``torch.profiler`` Chrome trace
 (host and CUDA activity) where the JAX package writes an XLA trace;
 ``build_profiler`` takes the JAX package's flag values.
+
+Inside the compiled request (``pipeline.CompiledRequest``, one CUDA graph
+a request) the port marks its own stages, where the JAX package leaves
+that to XLA's profiler:
+
+- ``mark(stage)``: while a ``MarkSink`` is active (``marking``), a device
+  mark (``ops/stage_mark``: a one-thread kernel that writes the card's
+  clock to the stage's slot) on the current stream. The compiled request
+  activates a sink for its warm-up and its capture, so the graph holds a
+  mark at the request's start (``REQUEST_MARK``) and at the end of each
+  stage (``BACKBONE`` … ``EMM``, then ``round_mark(i)`` a solver round;
+  ``pipeline.request_stages`` puts them in order). With no sink (eager
+  calls, the CPU, training) it returns at once.
+- ``counters()``: numbers the capture writes (its seconds, each stage's
+  operation nodes); a replay writes none.
 """
 
 from __future__ import annotations
@@ -16,7 +31,7 @@ import os
 import tempfile
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -94,3 +109,66 @@ class TraceProfiler(PassThroughProfiler):
                 torch.cuda.synchronize()
         os.makedirs(self.logdir, exist_ok=True)
         prof.export_chrome_trace(self.path)
+
+
+# the compiled request's marks: its start, then the end of each stage
+REQUEST_MARK = "request"
+BACKBONE, COARSE, MATCH, FINE, EMM = "backbone", "coarse", "match", "fine", "emm"
+
+
+def round_mark(i: int) -> str:
+    """The mark that ends solver round ``i`` with its MoE fusion."""
+    return f"round.{i}"
+
+
+class MarkSink:
+    """Where ``mark`` goes while the sink is active: a device mark each
+    (``ops/stage_mark``) that writes its clock to its slot of ``slots``
+    (int64, one slot a mark), the marks' names in order (``names``) and the
+    operation nodes (kernels, copies, memsets) the capturing graph held
+    before each (``nodes``: -1 outside a capture)."""
+
+    def __init__(self, slots: torch.Tensor):
+        self.slots = slots
+        self.names: List[str] = []
+        self.nodes: List[int] = []
+
+    def mark(self, stage: str) -> None:
+        from far_tpu_torch.ops.stage_mark import stage_mark
+
+        self.nodes.append(stage_mark(self.slots, len(self.names)))
+        self.names.append(stage)
+
+
+_SINK: Optional[MarkSink] = None
+
+
+@contextlib.contextmanager
+def marking(sink: MarkSink):
+    """``sink`` receives the marks made inside the block."""
+    global _SINK
+    prev, _SINK = _SINK, sink
+    try:
+        yield sink
+    finally:
+        _SINK = prev
+
+
+def mark(stage: str) -> None:
+    """The end of ``stage`` (or the request's start): a device mark where a
+    sink is active, nothing otherwise."""
+    if _SINK is not None:
+        _SINK.mark(stage)
+
+
+_COUNTERS: Dict[str, float] = {}
+
+
+def add_counter(name: str, value: float) -> None:
+    """Add ``value`` to the counter ``name`` (made at 0)."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+
+
+def counters() -> Dict[str, float]:
+    """A snapshot of every counter: {name: number}."""
+    return dict(_COUNTERS)

@@ -1012,3 +1012,77 @@ def test_compiled_request_on_card(card, solver, tmp_path):
     for got in (first, out):
         for (name, a), (_, b) in zip(fields(got), fields(ref)):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_stage_marks_on_card(card):
+    """The compiled request's marks at a small width on the card: the
+    warm-up launches one mark a stage boundary, the eager far_forward and a
+    replay launch none through the wrapper; a replay still equals the
+    eager far_forward bit for bit. In a profiler trace of a replay the
+    graph's marks come one a boundary, ``stage_ms()`` agrees with the
+    trace's mark-to-mark spans within max(2 %, 10 us), each stage's
+    node counter (kernel, copy and memset nodes) equals the device
+    operations the trace shows between its marks, and no device event
+    carries a program mark's name."""
+    import dataclasses
+
+    from far_tpu_torch.ops.stage_mark import stage_mark
+    from far_tpu_torch.pipeline import REQUEST_MARK, build_inference_fn, far_forward, \
+        init_model, request_stages
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import (
+        AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
+        RegressConfig, SolverOptions)
+    from far_tpu_torch.utils.prof import counters
+
+    cfg = FARConfig(
+        image_size=(96, 128), backbone=BackboneConfig(initial_dim=16, block_dims=(16, 24, 32)),
+        coarse=AttentionStackConfig(d_model=32, nhead=4),
+        match=MatchConfig(max_matches=32, thr=0.0), fine=FineConfig(d_model=16, nhead=4),
+        regress=RegressConfig(d_model=32, emm_heads=4, hidden=64),
+        solver=SolverOptions(num_hypotheses=256, refine_num_hypotheses=256))
+    stages = request_stages(cfg)
+    model = init_model(cfg, seed=1, device=card)
+    batch = synthetic_batch(2, *cfg.image_size, card, seed=3)
+    gen = torch.Generator(device=card)
+    launches = stage_mark.launches
+    with torch.inference_mode():
+        ref = far_forward(model, batch, gen.manual_seed(2))
+    assert stage_mark.launches == launches
+    fn = build_inference_fn(model)
+    before = counters()
+    fn(batch, generator=gen.manual_seed(2))
+    nodes = {k[len("far.capture.nodes."):]: v - before.get(k, 0)
+             for k, v in counters().items() if k.startswith("far.capture.nodes.")}
+    assert stage_mark.launches == launches + len(stages) + 1
+    out = fn(batch, generator=gen.manual_seed(2))
+    assert stage_mark.launches == launches + len(stages) + 1
+
+    def fields(o):
+        for f in dataclasses.fields(o):
+            v = getattr(o, f.name)
+            yield from (fields(v) if dataclasses.is_dataclass(v) else
+                        [(f.name, v)] if isinstance(v, torch.Tensor) else [])
+
+    for (name, a), (_, b) in zip(fields(out), fields(ref)):
+        assert torch.equal(a, b), name
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(batch, generator=gen.manual_seed(2))
+        torch.cuda.synchronize()
+    ms = fn.stage_ms()
+    events = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [(s, e) for s, e, n in dev if "stage_mark_kernel" in n]
+    assert len(marks) == len(stages) + 1
+    assert sorted(ms) == sorted(stages) and sorted(nodes) == sorted(stages)
+    for i, stage in enumerate(stages):
+        traced = (marks[i + 1][0] - marks[i][0]) / 1e3
+        assert abs(ms[stage] - traced) <= max(0.02 * traced, 0.010), (stage, ms[stage], traced)
+        # from a mark's start: the next operation may start before the mark ends
+        ops = sum(marks[i][0] < s < marks[i + 1][0] and "stage_mark_kernel" not in n
+                  for s, _, n in dev)
+        assert ops == nodes[stage], stage
+    assert not {n for _, _, n in dev} & {REQUEST_MARK, *stages}
