@@ -31,14 +31,17 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    under a profiler trace, whose device kernels give each route's
    launches (a replay runs no wrapper and leaves the counters as they
    were), then three timed replays. A float32 request launches K1 16, K3
-   once and K4 2 times on the 3xTF32 routes;
+   once and K4 2 times on the 3xTF32 routes; a 5-point request the fused
+   5-point kernel once a round (2), an 8-point one never;
 5. the matcher and the EMM features at a small width with the kernels on
    the card and with the plain versions on the CPU, compared;
 6. the port's solver on 16 synthetic scenes at 0.5 px noise, 5-point and
-   8-point, and the 5-point minimal solver on 64 exact problems;
+   8-point, and the fused 5-point kernel on 64 exact problems (the plain
+   version's share beside it);
 7. the network guard: ``assets/tiny_guard.npz`` (trained tiny weights)
    through ``far_forward`` on 16 synthetic pairs, float32 and bfloat16,
-   held to the JAX package's gate (bench.py);
+   held to the JAX package's gate (bench.py); float32 also with the plain
+   5-point solve in the fused kernel's place, each median pinned;
 8. training (``far_tpu_torch.train.Trainer``): (a) the differentiable
    forms of K1, K4 and K3 at the main shapes in float32 and bfloat16
    against autograd through their plain versions on the card; (b) one
@@ -172,8 +175,9 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    the replays under ``torch.cuda.set_sync_debug_mode("error")``; (c) two
    batches in turn, each equal to its own eager request, the first output
    unchanged by the second call; (e) the first call's warm-up counted
-   16/1/1/2 on phase 4's routes and 6 small_linalg launches by the
-   wrappers, and two replays more the same a request in a profiler trace,
+   16/1/1/2 on phase 4's routes, 6 small_linalg launches and (5-point) 2
+   of the fused 5-point kernel by the wrappers, and two replays more the
+   same a request in a profiler trace,
    the counters unchanged by them; (f) the eager and compiled ms a request
    (median of 3), the graph pool's memory beside the eager request's
    ``max_memory_allocated``; then (d) in f32 and in bf16: B=2 captures a
@@ -193,7 +197,11 @@ Phase 3 also holds K1 and K2 at the map-free matcher's 6120 coarse tokens
 gives it, B=6; 3 heads, N=576, D=64, Dv=70) against their plain versions
 in both dtypes (K1 and K4 in float32 on their 3xTF32 routes). Float32
 bounds are 3xTF32's on the tensor cores (495 / 3 = 165 TFLOP/s), with the
-CUDA cores' 67 TFLOP/s beside them (``bound_cuda_core_ms``).
+CUDA cores' 67 TFLOP/s beside them (``bound_cuda_core_ms``). Phase 3 ends
+with the fused 5-point kernel (``ops/fivepoint.py``) at the benchmark
+cells' rounds (B=1 and 16 pairs, 102 and 51 samples of N=1024 exact
+correspondences), held to its plain version and timed beside it with its
+bound (``fivepoint_kernel_check``; the CUDA cores' 67 TFLOP/s).
 
 Prints one JSON line with the kernels' numbers, then the card line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -203,6 +211,7 @@ rank of phase 18 (b)-(d); phase 18 starts those itself.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -753,6 +762,130 @@ def check_kernels(dev):
     return entries
 
 
+def fivepoint_flops(n_samples: int, n_rot: int = 2) -> int:
+    """Operations of far_fivepoint's fixed schedule (csrc/fivepoint.cu) for
+    n_samples samples of n_rot basis rotations, a multiply-add counted 2:
+    the epipolar system and five Householder steps on [A^T | Q^T] (a
+    step's v, norms and beta ~68, 14 columns of 45); per rotation the
+    basis mix (36 x 8), 110 + 100 constraint evaluations (187 each: E 54,
+    E E^T 45, det 14, the cubic terms 74), C = q^T V^-T at the z-nodes
+    and at the roots (2,100 entries of 20), the row mix (1,100 of 19), 11
+    eliminations (635 each), the interpolation (~270), 64 Durand-Kerner
+    steps of 10 roots (194 each: Horner 70, the product 100, the division,
+    magnitudes and clamp 24), C^T C (1,000 of 20), the ridge (230),
+    Gauss-Jordan (10 x 10 x 190), inverse iteration (510 + 4 x 2,320) and
+    the candidates (10 x 113)."""
+    nullspace = 25 + 5 * (68 + 14 * 45)
+    per_rot = (36 * 8 + 210 * 187 + 2100 * 20 + 1100 * 19 + 11 * 635 + 270
+               + 64 * 10 * 194 + 1000 * 20 + 230 + 10 * 10 * 190 + 510 + 4 * 2320
+               + 10 * 113)
+    return n_samples * (nullspace + n_rot * per_rot)
+
+
+def _random_pose(rng):
+    """A rotation from a uniform unit quaternion, a unit translation and
+    their essential matrix [t]x R, as tests/test_fivepoint.py draws them."""
+    import numpy as np
+
+    q = rng.normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    R = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+    t = rng.normal(size=3)
+    t /= np.linalg.norm(t)
+    return R, t, np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) @ R
+
+
+def _fivepoint_problems(B: int, n: int, seed: int, dev, N: int = 1024):
+    """B rigid scenes of N exact K-normalised correspondences (depths 2-6,
+    unit translation), n samples of 5 of each pair's: (B, n, 5, 2) float32
+    on ``dev`` twice, and each pair's true E (B, 3, 3) in numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    p1s, p2s, Es = [], [], []
+    for _ in range(B):
+        R, t, E = _random_pose(rng)
+        P = rng.uniform(-1, 1, (N, 3))
+        P[:, 2] = rng.uniform(2, 6, N)
+        P2 = P @ R.T + t
+        idx = rng.integers(0, N, (n, 5))
+        p1s.append((P[:, :2] / P[:, 2:])[idx])
+        p2s.append((P2[:, :2] / P2[:, 2:])[idx])
+        Es.append(E)
+    f = lambda a: torch.tensor(np.stack(a), dtype=torch.float32, device=dev)
+    return f(p1s), f(p2s), np.stack(Es)
+
+
+def _fivepoint_hits(E, valid, Egt):
+    """Per problem: a valid candidate aligned with its pair's true E
+    (|cos| > 0.999)."""
+    import numpy as np
+
+    E, valid = E.double().cpu().numpy(), valid.cpu().numpy()
+    Egt = Egt.reshape(Egt.shape[:1] + (1,) * (E.ndim - 3) + (3, 3))
+    cos = np.abs((E * Egt).sum((-2, -1))) / (
+        np.linalg.norm(E, axis=(-2, -1)) * np.linalg.norm(Egt, axis=(-2, -1)) + 1e-12)
+    return np.where(valid, cos, 0).max(-1) > 0.999
+
+
+def fivepoint_kernel_check(dev, card: str) -> dict:
+    """Phase 3, the fused 5-point kernel (``ops/fivepoint.py``) at the
+    benchmark cells' rounds: B = 1 and 16 pairs, 102 samples (the first
+    round) and 51 (the second), N = 1024 exact correspondences a pair;
+    held to the plain version on the same inputs (``tests/
+    test_torch_hopper.py``: ``test_fivepoint_kernel_on_card``'s criteria:
+    the truth recovered in >= 85 % of problems, the plain version winning
+    the problems only one of the two recovers no more often than a fair
+    coin within 3 sigma, the valid masks agreeing on >= 85 % of slots,
+    ||E||_F = sqrt(2) where valid) and timed beside it (CUDA-event means of
+    10 launches; the plain version eager, as it would run outside a
+    graph), with its bound: ``fivepoint_flops`` at the CUDA cores' 67
+    TFLOP/s or its bytes (80 in and 1,480 out a sample, the tables once),
+    the larger. Returns the JSON entry's numbers."""
+    import torch
+
+    from far_tpu_torch.geometry.fivepoint import run_5point_essential
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential, kernel_tables
+
+    shapes, failures = [], []
+    with torch.inference_mode():
+        for B, n in ((1, 102), (1, 51), (16, 102), (16, 51)):
+            p1, p2, Egt = _fivepoint_problems(B, n, 100 * B + n, dev)
+            Ek, vk = fivepoint_essential(p1, p2)
+            Ep, vp = run_5point_essential(p1, p2)
+            torch.cuda.synchronize()
+            hk, hp = _fivepoint_hits(Ek, vk, Egt), _fivepoint_hits(Ep, vp, Egt)
+            only_p, only_k = int((hp & ~hk).sum()), int((hk & ~hp).sum())
+            masks = float((vk == vp).float().mean())
+            norm_err = float((torch.linalg.norm(Ek[vk], dim=(-2, -1)) - 2 ** 0.5).abs().max()) \
+                if bool(vk.any()) else 0.0
+            ok = (hk.mean() >= 0.85 and masks >= 0.85 and norm_err <= 1e-5 * 2 ** 0.5
+                  and only_p <= (only_p + only_k) / 2 + 1.5 * math.sqrt(only_p + only_k)
+                  and bool(torch.isfinite(Ek).all()))
+            ms = cuda_ms(lambda: fivepoint_essential(p1, p2), 10)
+            plain_ms = cuda_ms(lambda: run_5point_essential(p1, p2), 10)
+            nbytes = B * n * (80 + 1480) + 4 * kernel_tables(2).size
+            b_ms, b_by = bound_ms(fivepoint_flops(B * n), nbytes, PEAK_F32)
+            print(f"fused 5-point kernel B={B} n_samples={n} (N=1024): truth recovered in "
+                  f"{hk.mean() * 100:.1f} % of problems (plain {hp.mean() * 100:.1f} %; only the "
+                  f"plain {only_p}, only the kernel {only_k}), valid masks agree on "
+                  f"{masks * 100:.1f} %, max | ||E|| - sqrt 2 | {norm_err:.2e}: "
+                  f"{'ok' if ok else 'FAILED'}; ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                  f"bound_ms={b_ms:.3e} ({b_by}) on {card}", flush=True)
+            if not ok:
+                failures.append(f"B={B} n={n}")
+            shapes.append(dict(shape=f"B={B} n_samples={n} R=2", ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, recovered=float(hk.mean()),
+                               recovered_plain=float(hp.mean()), masks_agree=masks))
+    if failures:
+        fail(f"the fused 5-point kernel disagrees with its plain version: {failures}")
+    return {"shapes": shapes}
+
+
 def counters():
     from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax
     from far_tpu_torch.ops.fine_layer import fine_transformer
@@ -771,6 +904,13 @@ def reset_counters():
 
     for fn, name in launch_counts():
         setattr(fn, name, 0)
+
+
+def fivepoint_launches() -> int:
+    """Launches of the fused 5-point kernel (one a 5-point solver round)."""
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
+
+    return fivepoint_essential.launches
 
 
 def small_linalg_launches() -> int:
@@ -836,6 +976,7 @@ ROUTE_SYMBOLS = {
                                            "anon::sum_partials_kernel": 1},
     ("small_linalg", "eigh"): {"anon::eigh_kernel": 1},
     ("small_linalg", "svd3"): {"anon::svd3_kernel": 1},
+    ("fivepoint", "cuda"): {"anon::fivepoint_kernel": 1},
 }
 
 
@@ -869,7 +1010,8 @@ def trace_kernels(call):
 def traced_launches(call, what: str):
     """call() under a profiler trace -> (its result, launches by kernel,
     launches of the bf16 tensor-core routes (TC_ROUTES' kernels), of the
-    3xTF32 routes (TF32_ROUTES'), small_linalg launches): wrapper calls
+    3xTF32 routes (TF32_ROUTES'), small_linalg launches, fused 5-point
+    kernel launches): wrapper calls
     counted in the trace's device kernels, eager and replayed alike. Fails
     where a route's functions do not come in the numbers its calls
     launch."""
@@ -891,23 +1033,26 @@ def traced_launches(call, what: str):
     got = {k: 0 for k in counters()}
     got_tc = {k: 0 for k in TC_ROUTES}
     got_tf32 = {k: 0 for k in TF32_ROUTES}
-    small = 0
+    small = five = 0
     for (kernel, route), n in calls.items():
         if kernel == "small_linalg":
             small += n
+            continue
+        if kernel == "fivepoint":
+            five += n
             continue
         got[kernel] += n
         if route == "tc":
             got_tc[kernel] += n
         elif route == "tf32":
             got_tf32[kernel] += n
-    return out, got, got_tc, got_tf32, small
+    return out, got, got_tc, got_tf32, small, five
 
 
 def route_launches(per_req: dict, dtype: str, n: int):
     """What n requests of ``dtype`` launch: (by kernel, on the bf16
     tensor-core routes, on the 3xTF32 routes), per_req a request's."""
-    want = {k: v * n for k, v in per_req.items() if k != "small_linalg"}
+    want = {k: v * n for k, v in per_req.items() if k not in ("small_linalg", "fivepoint")}
     return (want, {k: want[k] if dtype in TC_ROUTES[k] else 0 for k in TC_ROUTES},
             {k: want[k] if dtype in TF32_ROUTES[k] else 0 for k in TF32_ROUTES})
 
@@ -931,7 +1076,7 @@ def run_main_path(dev, card: str):
 
     fns = counters()
     total = {k: 0 for k in fns}
-    total["small_linalg"] = 0
+    total["small_linalg"] = total["fivepoint"] = 0
     total_tc = {k: 0 for k in TC_ROUTES}
     total_tf32 = {k: 0 for k in TF32_ROUTES}
     split = {k: {"counted": 0, "traced": 0} for k in total}
@@ -939,6 +1084,7 @@ def run_main_path(dev, card: str):
     def counted():
         got = {k: f.launches for k, f in fns.items()}
         got["small_linalg"] = small_linalg_launches()
+        got["fivepoint"] = fivepoint_launches()
         return (got, {k: fns[k].launches_tc for k in TC_ROUTES},
                 {k: fns[k].launches_tf32 for k in TF32_ROUTES})
 
@@ -950,7 +1096,8 @@ def run_main_path(dev, card: str):
                    + 4 * cfg.regress.num_loftr_layers,
                    "K2_dual_softmax_rowcol": 1, "K3_fine_transformer": 1,
                    "K4_bilinear_dual_softmax": 2,
-                   "small_linalg": SMALL_LINALG_PER_ROUND * cfg.solver.fine_pred_steps}
+                   "small_linalg": SMALL_LINALG_PER_ROUND * cfg.solver.fine_pred_steps,
+                   "fivepoint": cfg.solver.fine_pred_steps if solver == "5pt" else 0}
         model = init_model(cfg, seed=0, device=dev)
         fn = build_inference_fn(model)
         batch = synthetic_batch(B_REQUEST, *cfg.image_size, dev)
@@ -960,19 +1107,22 @@ def run_main_path(dev, card: str):
         torch.cuda.synchronize()
         warm = counted()
         want = route_launches(per_req, dtype, 1)
-        if warm != ({**want[0], "small_linalg": per_req["small_linalg"]}, *want[1:]):
+        if warm != ({**want[0], "small_linalg": per_req["small_linalg"],
+                     "fivepoint": per_req["fivepoint"]}, *want[1:]):
             fail(f"{tag}: the first call (warm-up) counted {warm}, expected one request's "
                  f"{per_req} on the routes {want[1:]}")
-        replays, traced, traced_tc, traced_tf32, traced_small = traced_launches(
+        replays, traced, traced_tc, traced_tf32, traced_small, traced_five = traced_launches(
             lambda: [fn(batch, generator=gen) for _ in range(N_REQUESTS)],
             f"{tag} replays")
         outs += replays
         want = route_launches(per_req, dtype, N_REQUESTS)
-        if (traced, traced_tc, traced_tf32, traced_small) != (
-                *want, per_req["small_linalg"] * N_REQUESTS):
+        if (traced, traced_tc, traced_tf32, traced_small, traced_five) != (
+                *want, per_req["small_linalg"] * N_REQUESTS, per_req["fivepoint"] * N_REQUESTS):
             fail(f"{tag}: {N_REQUESTS} replays launched {traced} (tensor cores {traced_tc}, "
-                 f"3xTF32 {traced_tf32}, small_linalg {traced_small}) in the trace, expected "
-                 f"{want} and small_linalg {per_req['small_linalg'] * N_REQUESTS}")
+                 f"3xTF32 {traced_tf32}, small_linalg {traced_small}, fused 5-point "
+                 f"{traced_five}) in the trace, expected {want}, small_linalg "
+                 f"{per_req['small_linalg'] * N_REQUESTS} and fused 5-point "
+                 f"{per_req['fivepoint'] * N_REQUESTS}")
         times = []
         for _ in range(N_REQUESTS):
             t0 = time.perf_counter()
@@ -982,6 +1132,7 @@ def run_main_path(dev, card: str):
         if counted() != warm:
             fail(f"{tag}: the replays changed the counters from {warm} to {counted()}")
         traced["small_linalg"] = traced_small
+        traced["fivepoint"] = traced_five
         for k in total:
             split[k]["counted"] += warm[0][k]
             split[k]["traced"] += traced[k]
@@ -1125,79 +1276,95 @@ def solver_guard(dev, minimal_solver: str):
 
 def minimal_problems(dev, n: int = 64) -> float:
     """Phase 6: the 5-point solver on n exact minimal problems (as
-    tests/test_fivepoint.py builds them): the share with a valid candidate
-    aligned with the true E (|cos| > 0.999), which must reach 85 %."""
+    tests/test_fivepoint.py builds them), through the fused kernel (the
+    main path's) and the plain version: the share with a valid candidate
+    aligned with the true E (|cos| > 0.999), which must reach 85 % for the
+    kernel."""
     import numpy as np
     import torch
 
     from far_tpu_torch.geometry.fivepoint import run_5point_essential
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
 
     p1s, p2s, Es = [], [], []
     for seed in range(n):
         rng = np.random.default_rng(seed)
-        q = rng.normal(size=4)
-        w, x, y, z = q / np.linalg.norm(q)
-        R = np.array([
-            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
-        t = rng.normal(size=3)
-        t /= np.linalg.norm(t)
+        R, t, E = _random_pose(rng)
         P = rng.uniform(-1, 1, (5, 3))
         P[:, 2] = rng.uniform(2, 6, 5)
         P2 = P @ R.T + t
         p1s.append(P[:, :2] / P[:, 2:3])
         p2s.append(P2[:, :2] / P2[:, 2:3])
-        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
-        Es.append(tx @ R)
+        Es.append(E)
+    p1 = torch.tensor(np.stack(p1s), dtype=torch.float32, device=dev)
+    p2 = torch.tensor(np.stack(p2s), dtype=torch.float32, device=dev)
     with torch.inference_mode():
-        E, valid = run_5point_essential(
-            torch.tensor(np.stack(p1s), dtype=torch.float32, device=dev),
-            torch.tensor(np.stack(p2s), dtype=torch.float32, device=dev))
-    E, valid = E.double().cpu().numpy(), valid.cpu().numpy()
+        E, valid = fivepoint_essential(p1, p2)
+        E0, valid0 = run_5point_essential(p1, p2)
     Egt = np.stack(Es)
-    cos = np.abs((E * Egt[:, None]).sum((-2, -1))) / (
-        np.linalg.norm(E, axis=(-2, -1)) * np.linalg.norm(Egt, axis=(-2, -1))[:, None])
-    share = float((np.where(valid, cos, 0).max(-1) > 0.999).mean())
+    share = float(_fivepoint_hits(E, valid, Egt).mean())
+    share_plain = float(_fivepoint_hits(E0, valid0, Egt).mean())
     print(f"5-point minimal solver: {n} exact problems on the card, "
-          f"{share * 100:.1f} % recovered exactly, {valid.sum(-1).mean():.2f} "
-          f"valid candidates a problem", flush=True)
+          f"{share * 100:.1f} % recovered exactly by the fused kernel (plain version "
+          f"{share_plain * 100:.1f} %), {valid.sum(-1).float().mean():.2f} valid candidates "
+          f"a problem", flush=True)
     if share < 0.85:
         fail(f"5-point solver recovered {share:.3f} of exact problems (< 0.85)")
     return share
 
 
 # deg: the network guard's float32 median on the card with K1 and K4 in
-# float32 on the CUDA cores (PERF.md section 2). The 3xTF32 routes keep
-# float32 accuracy, so the median must not move by more than the table's
-# rounding (the guard's fine stack, C = 16, keeps K3 on the CUDA cores).
-GUARD_F32_MEDIAN = 8.5490
+# float32 on the CUDA cores and the plain 5-point solve (PERF.md section
+# 2). The 3xTF32 routes keep float32 accuracy, so with the plain solve
+# swapped in the median must not move by more than the table's rounding
+# (the guard's fine stack, C = 16, keeps K3 on the CUDA cores).
+GUARD_F32_MEDIAN_PLAIN_SOLVE = 8.5490
+# deg: the same with the fused 5-point kernel, the main path's solve since
+# PR 19. It is another float32 implementation of the solve, so RANSAC picks
+# other hypotheses on some of the 16 pairs (the JAX package trained to
+# 8.353 deg); it must not move either.
+GUARD_F32_MEDIAN = 8.3428
 
 
 def network_guard(dev) -> dict:
     """Phase 7: the trained tiny checkpoint through far_forward on the
     card, float32 and bfloat16; each median must stay under the JAX
     package's gate max(3 x the trained median, 5 deg) (bench.py), and
-    the float32 one within 0.01 deg of GUARD_F32_MEDIAN."""
+    the float32 one within 0.01 deg of GUARD_F32_MEDIAN, and within 0.01
+    deg of GUARD_F32_MEDIAN_PLAIN_SOLVE with the plain 5-point solve in
+    the fused kernel's place."""
     import torch
 
+    import far_tpu_torch.solvers.ransac as ransac
+    from far_tpu_torch.geometry.fivepoint import run_5point_essential
     from far_tpu_torch.tools.guard import gate_deg, guard_eval, load_guard
 
+    def plain_solve(p1, p2, n_basis_rotations, det_tol):
+        return run_5point_essential(p1, p2, n_basis_rotations=n_basis_rotations,
+                                    det_tol=det_tol)
+
     out = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype, solve in (("float32", None), ("float32", plain_solve), ("bfloat16", None)):
         model, meta = load_guard(dtype=dtype, device=dev)
         gen = torch.Generator(device=dev).manual_seed(7)
-        errs, med = guard_eval(model, seed=meta["eval_seed"], generator=gen)
+        kernel = ransac.fivepoint_essential
+        ransac.fivepoint_essential = solve or kernel
+        try:
+            errs, med = guard_eval(model, seed=meta["eval_seed"], generator=gen)
+        finally:
+            ransac.fivepoint_essential = kernel
         gate = gate_deg(meta)
-        print(f"network guard {dtype}: median rotation error {med:.4f} deg over "
+        what = f"{dtype}{', plain 5-point solve' if solve else ''}"
+        print(f"network guard {what}: median rotation error {med:.4f} deg over "
               f"{len(errs)} pairs (max {float(errs.max()):.4f}; trained "
               f"{meta['eval_rot_err_med_deg']} deg, gate {gate:.2f} deg)", flush=True)
         if not med < gate:
-            fail(f"network guard {dtype}: median {med} deg >= gate {gate} deg")
-        if dtype == "float32" and abs(med - GUARD_F32_MEDIAN) > 0.01:
-            fail(f"network guard float32: median {med:.4f} deg, not within 0.01 deg of "
-                 f"{GUARD_F32_MEDIAN}")
-        out[dtype] = med
+            fail(f"network guard {what}: median {med} deg >= gate {gate} deg")
+        want = GUARD_F32_MEDIAN_PLAIN_SOLVE if solve else GUARD_F32_MEDIAN
+        if dtype == "float32" and abs(med - want) > 0.01:
+            fail(f"network guard {what}: median {med:.4f} deg, not within 0.01 deg of {want}")
+        if not solve:
+            out[dtype] = med
     return out
 
 
@@ -2432,7 +2599,7 @@ def _cli_call(name: str, fn, argv, want: dict, card: str, launches: dict, tc: bo
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, got, got_tc, _, _ = traced_launches(lambda: fn(argv), f"entry points {name}")
+    out, got, got_tc, *_ = traced_launches(lambda: fn(argv), f"entry points {name}")
     ms = (time.perf_counter() - t0) * 1e3
     print(f"entry points {name}: {ms:.1f} ms traced, launches (profiler trace) {got}, "
           f"tensor-core route launches {got_tc} on {card}", flush=True)
@@ -2789,7 +2956,7 @@ def option_requests(dev, card: str) -> dict:
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            traced, got, got_tc, got_tf32, _ = traced_launches(
+            traced, got, got_tc, got_tf32, *_ = traced_launches(
                 lambda: [fn(batch, generator=gen) for _ in range(N_REQUESTS)],
                 f"option {option} {dtype}")
             outs += traced
@@ -3107,7 +3274,7 @@ def profiled_requests(dev, card: str) -> None:
 
     gen.manual_seed(5)
     t0 = time.perf_counter()
-    _, got, got_tc, _, small = traced_launches(lambda: fn(batch, generator=gen),
+    _, got, got_tc, _, small, _ = traced_launches(lambda: fn(batch, generator=gen),
                                                "traced request")
     ms = (time.perf_counter() - t0) * 1e3
     want_tc = {k: PER_REQUEST[k] for k in TC_ROUTES}
@@ -4044,15 +4211,21 @@ def compiled_request(dev, card: str) -> None:
     from far_tpu_torch.utils.config import FARConfig, SolverOptions
 
     fns = counters()
+    # earlier phases' unreachable graphs and models hold their pools until a
+    # collection: cuDNN's float32 plans depend on the memory left free, and
+    # (d) holds a graph to an eager request taken in the same state
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"compiled request: {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB of the card "
-          f"free, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this process, at "
-          f"the phase's start", flush=True)
+          f"free, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this process "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated), at the phase's "
+          f"start", flush=True)
 
     def counted():
         return ({k: f.launches for k, f in fns.items()},
                 {k: fns[k].launches_tc for k in TC_ROUTES},
-                {k: fns[k].launches_tf32 for k in TF32_ROUTES}, small_linalg_launches())
+                {k: fns[k].launches_tf32 for k in TF32_ROUTES}, small_linalg_launches(),
+                fivepoint_launches())
 
     for dtype, solver in MAIN_RUNS:
         cfg = FARConfig(dtype=dtype) if solver == "5pt" \
@@ -4088,6 +4261,8 @@ def compiled_request(dev, card: str) -> None:
         per_req = {"K1_loftr_layer": 16, "K2_dual_softmax_rowcol": 1,
                    "K3_fine_transformer": 1, "K4_bilinear_dual_softmax": 2}
         small_req = SMALL_LINALG_PER_ROUND * cfg.solver.fine_pred_steps
+        # the fused 5-point kernel: one launch a 5-point round
+        five_req = cfg.solver.fine_pred_steps if solver == "5pt" else 0
         fn = build_inference_fn(model)
         reset_counters()
         t0 = time.perf_counter()
@@ -4095,9 +4270,10 @@ def compiled_request(dev, card: str) -> None:
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         warm = counted()
-        if warm != (*route_launches(per_req, dtype, 1), small_req):
+        if warm != (*route_launches(per_req, dtype, 1), small_req, five_req):
             fail(f"{tag}: the first call (eager warm-up, then the capture) counted {warm}, "
-                 f"expected one request's {per_req} and small_linalg {small_req}")
+                 f"expected one request's {per_req}, small_linalg {small_req} and fused "
+                 f"5-point {five_req}")
         # (b): two replays under the sync debug mode
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -4109,14 +4285,15 @@ def compiled_request(dev, card: str) -> None:
         torch.cuda.synchronize()
         # (e): two replays more under a profiler trace; a replay runs no
         # wrapper, so the counters stay as the warm-up left them
-        _, got, got_tc, got_tf32, got_small = traced_launches(
+        _, got, got_tc, got_tf32, got_small, got_five = traced_launches(
             lambda: (fn(b1, generator=gen.manual_seed(3)), fn(b2, generator=gen.manual_seed(4))),
             f"{tag} (e)")
-        want = (*route_launches(per_req, dtype, 2), 2 * small_req)
-        if (got, got_tc, got_tf32, got_small) != want or counted() != warm:
+        want = (*route_launches(per_req, dtype, 2), 2 * small_req, 2 * five_req)
+        if (got, got_tc, got_tf32, got_small, got_five) != want or counted() != warm:
             fail(f"{tag}: two replays launched {got} (tensor cores {got_tc}, 3xTF32 "
-                 f"{got_tf32}, small_linalg {got_small}) in the trace, expected {want}; "
-                 f"counters {counted()} after the replays, {warm} before")
+                 f"{got_tf32}, small_linalg {got_small}, fused 5-point {got_five}) in the "
+                 f"trace, expected {want}; counters {counted()} after the replays, {warm} "
+                 f"before")
         # (a) bit for bit against the eager request; (c) the second batch,
         # and the first output unchanged by the second call
         bad = []
@@ -4138,9 +4315,10 @@ def compiled_request(dev, card: str) -> None:
         print(f"{tag}: replays equal the eager request bit for bit (floor between two eager "
               f"requests: {floor or 'none'}), no host sync under set_sync_debug_mode('error'), "
               f"two batches unaliased; launches counted at the launch site in the first "
-              f"call's warm-up {warm[0]} + small_linalg {warm[3]}, in two replays' profiler "
-              f"trace {got} + small_linalg {got_small} (tensor cores {got_tc}, 3xTF32 "
-              f"{got_tf32}); eager ms median {eager_ms:.2f} (runs "
+              f"call's warm-up {warm[0]} + small_linalg {warm[3]} + fused 5-point {warm[4]}, "
+              f"in two replays' profiler trace {got} + small_linalg {got_small} + fused "
+              f"5-point {got_five} (tensor cores {got_tc}, 3xTF32 {got_tf32}); eager ms "
+              f"median {eager_ms:.2f} (runs "
               f"{[round(t, 2) for t in eager_runs]}), compiled ms median {graph_ms:.2f} (runs "
               f"{[round(t, 2) for t in graph_runs]}), capture {capture_s:.2f} s (warm-up "
               f"included), graph pool {fn.pool_bytes() / 2**30:.3f} GiB against the eager "
@@ -4376,6 +4554,7 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     entries = check_kernels(dev)
+    fivepoint = fivepoint_kernel_check(dev, card)
     launches, launches_tc, launches_tf32, launch_split = run_main_path(dev, card)
     small_agreement(dev)
     for minimal_solver in ("5pt", "8pt"):
@@ -4496,6 +4675,17 @@ def main() -> int:
         "launches": launches["small_linalg"], **{f"launches_{how}": n for how, n in
                                                  launch_split["small_linalg"].items()},
         **small_linalg, "dtype": "f32"})
+    # the fused 5-point kernel (not a Pallas kernel: the JAX package's
+    # run_5point_essential is plain jnp inside the jit); its numbers are
+    # phase 3's, at the benchmark cells' rounds
+    if launches["fivepoint"] == 0:
+        fail("the fused 5-point kernel was never launched on the main path")
+    kernels.append({
+        "name": "fivepoint", "route": "cuda", "source": "far_tpu_torch/csrc/fivepoint.cu",
+        "replaces": "far_tpu/geometry/fivepoint.py:run_5point_essential (plain jnp in the jit)",
+        "launches": launches["fivepoint"], **{f"launches_{how}": n for how, n in
+                                              launch_split["fivepoint"].items()},
+        **fivepoint, "dtype": "f32"})
     print(f"family training (phase 13): {json.dumps(family)}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

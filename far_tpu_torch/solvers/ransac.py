@@ -26,13 +26,13 @@ from far_tpu_torch.geometry.epipolar import (
     sampson_epipolar_distance,
     symmetrical_epipolar_distance,
 )
-from far_tpu_torch.geometry.fivepoint import run_5point_essential
 from far_tpu_torch.geometry.solvers import (
     fast_decompose_essential,
     recover_pose_from_essential,
     run_8point,
     run_8point_essential,
 )
+from far_tpu_torch.ops.fivepoint import fivepoint_essential
 from far_tpu_torch.solvers.types import PoseEstimate, PriorParams
 
 # elimination passes per 5-point sample (see fivepoint._basis_rotations)
@@ -177,7 +177,7 @@ def prior_ransac(
     bidx = torch.arange(B, device=kp1.device)[:, None, None]
     kp1_s, kp2_s = kp1[bidx, idx], kp2[bidx, idx]             # (B, n, S, 2)
     if cfg.minimal_solver == "5pt":
-        E5, valid5 = run_5point_essential(
+        E5, valid5 = fivepoint_essential(
             kp1_s, kp2_s, n_basis_rotations=_FIVEPT_ROTATIONS,
             det_tol=cfg.fivept_det_tol)
         E = E5.reshape(B, n_samples * n_cand, 3, 3)

@@ -1086,3 +1086,198 @@ def test_stage_marks_on_card(card):
                   for s, _, n in dev)
         assert ops == nodes[stage], stage
     assert not {n for _, _, n in dev} & {REQUEST_MARK, *stages}
+
+
+# ---- the fused 5-point kernel (ops/fivepoint.py, csrc/fivepoint.cu) ------------
+
+
+def _fivepoint_problems(B, n, seed, N=1024):
+    """B rigid scenes of N exact K-normalised correspondences (points at
+    depths 2-6, unit translation) and n samples of 5 of each pair's, as a
+    round draws them: (B, n, 5, 2) float32 twice, and each pair's true E
+    (B, 3, 3)."""
+    rng = np.random.default_rng(seed)
+    p1s, p2s, Es = [], [], []
+    for _ in range(B):
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        R = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+        t = rng.normal(size=3)
+        t /= np.linalg.norm(t)
+        P = rng.uniform(-1, 1, (N, 3))
+        P[:, 2] = rng.uniform(2, 6, N)
+        P2 = P @ R.T + t
+        idx = rng.integers(0, N, (n, 5))
+        p1s.append((P[:, :2] / P[:, 2:])[idx])
+        p2s.append((P2[:, :2] / P2[:, 2:])[idx])
+        Es.append(np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) @ R)
+    f = lambda a: torch.tensor(np.stack(a), dtype=torch.float32)
+    return f(p1s), f(p2s), np.stack(Es)
+
+
+def _fivepoint_hits(E, valid, Egt):
+    """Per problem (B, n): a valid candidate aligned with its pair's true
+    E (|cos| > 0.999)."""
+    E, valid = E.double().cpu().numpy(), valid.cpu().numpy()
+    cos = np.abs((E * Egt[:, None, None]).sum((-2, -1))) / (
+        np.linalg.norm(E, axis=(-2, -1)) * np.linalg.norm(Egt, axis=(-2, -1))[:, None, None]
+        + 1e-12)
+    return np.where(valid, cos, 0).max(-1) > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 102), (1, 51), (16, 102), (16, 51)])
+def test_fivepoint_kernel_on_card(card, B, n):
+    """far_fivepoint against run_5point_essential on the same card at the
+    cells' rounds (B pairs, 102 samples in the first round and 51 in the
+    second, N = 1024), with tests/test_torch_fivepoint.py's criteria: the
+    kernel recovers the truth in >= 85 % of problems; the valid masks agree
+    on >= 85 % of slots; ||E||_F = sqrt(2) where valid and the identity
+    where masked; one launch. Two float32 implementations part where det
+    C(z) is ill-conditioned (a few ulp of C(z) move its roots), so two
+    criteria are read against the JAX package and the plain version on
+    the CPU on these very problems. Where only one of the two recovers a
+    problem's truth (there 8 and 5 of 512 exact problems each way), the
+    plain version may win no more often than a fair coin within 3 sigma.
+    Of the kernel's candidates on the essential manifold >= 65 % have one
+    of the plain version's within 1e-3 up to sign: there 70.6, 92.2, 87.3
+    and 88.4 % at (1, 102), (1, 51), (16, 102), (16, 51) (85 % on
+    tests/test_torch_fivepoint.py's 64 problems, which this scene's pair
+    at B = 1 does not reach)."""
+    from far_tpu_torch.geometry.fivepoint import run_5point_essential
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
+
+    p1, p2, Egt = _fivepoint_problems(B, n, seed=100 * B + n)
+    p1, p2 = p1.to(card), p2.to(card)
+    before = fivepoint_essential.launches
+    Ek, vk = fivepoint_essential(p1, p2)
+    torch.cuda.synchronize()
+    assert fivepoint_essential.launches == before + 1
+    Ep, vp = run_5point_essential(p1, p2)
+    assert Ek.shape == (B, n, 20, 3, 3) and vk.shape == (B, n, 20) and vk.dtype == torch.bool
+    hk, hp = _fivepoint_hits(Ek, vk, Egt), _fivepoint_hits(Ep, vp, Egt)
+    assert hk.mean() >= 0.85, hk.mean()
+    only_p, only_k = int((hp & ~hk).sum()), int((hk & ~hp).sum())
+    d = only_p + only_k
+    assert only_p <= d / 2 + 1.5 * math.sqrt(d), (only_p, only_k)
+    assert float((vk == vp).float().mean()) >= 0.85
+
+    def on_manifold(E, valid):
+        E = E.double()
+        EEt = E @ E.transpose(-1, -2)
+        tr = torch.diagonal(EEt, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+        return valid & ((2 * EEt @ E - tr * E).abs().amax((-2, -1)) < 1e-3)
+
+    mk, mp = on_manifold(Ek, vk), on_manifold(Ep, vp)
+    dist = torch.minimum((Ek[..., :, None, :, :] - Ep[..., None, :, :, :]).abs().amax((-2, -1)),
+                         (Ek[..., :, None, :, :] + Ep[..., None, :, :, :]).abs().amax((-2, -1)))
+    dist = torch.where(mp[..., None, :], dist, torch.full_like(dist, float("inf")))
+    found = (dist.amin(-1) < 1e-3)[mk]
+    assert float(found.float().mean()) >= 0.65
+    nrm = torch.linalg.norm(Ek[vk], dim=(-2, -1))
+    assert float((nrm - 2 ** 0.5).abs().max()) <= 1e-5 * 2 ** 0.5
+    assert torch.equal(Ek[~vk], torch.eye(3, device=card).expand(int((~vk).sum()), 3, 3))
+
+
+@pytest.mark.cuda
+def test_fivepoint_kernel_degenerate_samples_on_card(card):
+    """Identical, collinear and zero points: every output finite, masked
+    slots the identity, valid ones of norm sqrt(2); a float64, a bfloat16
+    or a mixed-device input and five rotations raise before any launch."""
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
+
+    p1, p2, _ = _fivepoint_problems(1, 8, seed=5)
+    same = p1[0, :, :1].expand(8, 5, 2)
+    line = torch.linspace(-1, 1, 5)[:, None].expand(5, 2)
+    cases = {"identical": (same, same),
+             "collinear": (line.expand(8, 5, 2), 1.1 * line.expand(8, 5, 2)),
+             "zero": (torch.zeros(8, 5, 2), torch.zeros(8, 5, 2))}
+    for name, (a, b) in cases.items():
+        E, valid = fivepoint_essential(a.contiguous().to(card), b.contiguous().to(card))
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(E).all()), name
+        assert torch.equal(E[~valid], torch.eye(3, device=card).expand(int((~valid).sum()), 3, 3))
+        nrm = torch.linalg.norm(E[valid], dim=(-2, -1))
+        assert nrm.numel() == 0 or float((nrm - 2 ** 0.5).abs().max()) <= 1e-5, name
+    before = fivepoint_essential.launches
+    x = p1.to(card)
+    for bad in ({"points1": x.double(), "points2": x.double()},
+                {"points1": x.bfloat16(), "points2": x.bfloat16()},
+                {"points1": x, "points2": p2},
+                {"points1": x, "points2": x, "n_basis_rotations": 5}):
+        with pytest.raises(ValueError):
+            fivepoint_essential(**bad)
+    assert fivepoint_essential.launches == before
+
+
+@pytest.mark.cuda
+def test_fivepoint_kernel_in_a_captured_graph_on_card(card):
+    """Captured in a CUDA graph the wrapper counts no launch, and a replay
+    writes what the eager call wrote, bit for bit."""
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
+
+    p1, p2, _ = _fivepoint_problems(2, 51, seed=9)
+    p1, p2 = p1.to(card), p2.to(card)
+    E0, v0 = fivepoint_essential(p1, p2)  # eager, which also loads the tables
+    torch.cuda.synchronize()
+    before = fivepoint_essential.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        E, valid = fivepoint_essential(p1, p2)
+    assert fivepoint_essential.launches == before
+    graph.replay()
+    torch.cuda.synchronize()
+    assert fivepoint_essential.launches == before
+    assert torch.equal(E, E0) and torch.equal(valid, v0)
+
+
+@pytest.mark.cuda
+def test_fivepoint_kernel_in_the_compiled_request_on_card(card):
+    """The compiled request with FARConfig()'s 5-point solver at a small
+    width: the warm-up launches the kernel once a round and the capture
+    none; a replay equals the eager far_forward bit for bit; each round's
+    captured nodes (far.capture.nodes.round.<i>) number below 1,000 (the
+    plain solve alone was ~2,700 a round)."""
+    import dataclasses
+
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
+    from far_tpu_torch.pipeline import build_inference_fn, far_forward, init_model
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import (
+        AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
+        RegressConfig, SolverOptions)
+    from far_tpu_torch.utils.prof import counters, round_mark
+
+    cfg = FARConfig(
+        image_size=(96, 128), backbone=BackboneConfig(initial_dim=16, block_dims=(16, 24, 32)),
+        coarse=AttentionStackConfig(d_model=32, nhead=4),
+        match=MatchConfig(max_matches=32, thr=0.0), fine=FineConfig(d_model=16, nhead=4),
+        regress=RegressConfig(d_model=32, emm_heads=4, hidden=64),
+        solver=SolverOptions(num_hypotheses=256, refine_num_hypotheses=256))
+    assert cfg.solver.minimal_solver == "5pt"
+    model = init_model(cfg, seed=1, device=card)
+    batch = synthetic_batch(2, *cfg.image_size, card, seed=3)
+    gen = torch.Generator(device=card)
+    with torch.inference_mode():
+        ref = far_forward(model, batch, gen.manual_seed(2))
+    fn = build_inference_fn(model)
+    launches, before = fivepoint_essential.launches, counters()
+    fn(batch, generator=gen.manual_seed(2))
+    assert fivepoint_essential.launches == launches + cfg.solver.fine_pred_steps
+    out = fn(batch, generator=gen.manual_seed(2))
+    assert fivepoint_essential.launches == launches + cfg.solver.fine_pred_steps
+    for i in range(cfg.solver.fine_pred_steps):
+        key = f"far.capture.nodes.{round_mark(i)}"
+        assert 0 < counters()[key] - before.get(key, 0) < 1000, key
+
+    def fields(o):
+        for f in dataclasses.fields(o):
+            v = getattr(o, f.name)
+            yield from (fields(v) if dataclasses.is_dataclass(v) else
+                        [(f.name, v)] if isinstance(v, torch.Tensor) else [])
+
+    for (name, a), (_, b) in zip(fields(out), fields(ref)):
+        assert torch.equal(a, b), name
