@@ -186,6 +186,17 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    on them; (g) the polish's eigensolver and 3x3 SVD kernels
    (``ops/small_linalg``) against ``torch.linalg`` at the polish's shapes,
    at ragged batches and on nearly rank-1 F.
+20. the compiled map-free request (``pipeline.build_mapfree_fn``) at the
+   benchmark cell's shapes (B=1, matcher 720x544, regressor 368x272,
+   bf16): the first call's warm-up counted 16/1/1/0 on K1-K4 and 6
+   small_linalg launches; two replays under the sync debug mode; two
+   more in a profiler trace holding twice a request's K1-K3 and
+   small_linalg launches and no fused 5-point launch; a replay writing
+   all 13 stage marks' slots in order; the first call, a replay and a
+   second batch against the eager
+   ``mapfree_forward`` bit for bit; the stages' device ms. The kernels
+   line's ``launches_mapfree`` is one replayed request's, phase 12's eager
+   B=4 totals ``launches_mapfree_eager``.
 Phase 4 drives the compiled request (its first call captures), so its
 times are the graph's; each far_forward request there also launches the
 small-matrix kernels 6 times (an eigh and two svd3 a solver round). The
@@ -1015,9 +1026,15 @@ def traced_launches(call, what: str):
     counted in the trace's device kernels, eager and replayed alike. Fails
     where a route's functions do not come in the numbers its calls
     launch."""
+    out, names = trace_kernels(call)
+    return (out, *launches_in(names, what))
+
+
+def launches_in(names, what: str):
+    """``traced_launches``' counts (without the call's result) from the
+    names of a trace's device kernels."""
     from collections import Counter
 
-    out, names = trace_kernels(call)
     seen = Counter(kernel_symbol(n) for n in names)
     calls = {}
     for route, syms in ROUTE_SYMBOLS.items():
@@ -1046,7 +1063,7 @@ def traced_launches(call, what: str):
             got_tc[kernel] += n
         elif route == "tf32":
             got_tf32[kernel] += n
-    return out, got, got_tc, got_tf32, small, five
+    return got, got_tc, got_tf32, small, five
 
 
 def route_launches(per_req: dict, dtype: str, n: int):
@@ -2193,8 +2210,8 @@ def mapfree_requests(dev, card: str):
     batch = synthetic_batch(B_REQUEST, 720, 544, dev)
 
     def check(out):
-        R, t, gate, est = out
-        for v in (R, t, gate, est.rt34, est.num_inliers):
+        R = out.R
+        for v in (R, out.t, out.gating, out.solver_rt, out.num_inliers):
             if not bool(v.isfinite().all()):
                 fail("mapfree_forward: non-finite output")
         if tuple(R.shape) != (B_REQUEST, 3, 3) or orth_err(R) > 1e-3:
@@ -3521,8 +3538,8 @@ def sixdreg_variants(dev, card: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def check(out):
-        R, t, gate, est = out
-        for v in (R, t, gate, est.rt34):
+        R = out.R
+        for v in (R, out.t, out.gating, out.solver_rt):
             if not bool(v.isfinite().all()):
                 fail("mapfree_forward with the aggregator flags: non-finite output")
         if orth_err(R) > 1e-3:
@@ -4187,6 +4204,30 @@ def _field_diffs(a, b) -> dict:
             if not torch.equal(x, y)}
 
 
+def _held_to_eager(tag: str, pairs, floor: dict, ops: dict, out, kept) -> None:
+    """Fails unless every (what, output, eager reference) of ``pairs``
+    agrees bit for bit, a field that differs printed with the op behind it
+    (``ops``) and held to the difference of two eager requests
+    (``floor``), and unless ``out``'s fields still equal ``kept``, their
+    copies taken before the next call."""
+    import torch
+
+    bad = []
+    for what, got_out, ref in pairs:
+        for name, d in _field_diffs(got_out, ref).items():
+            ok = d <= floor.get(name, 0.0)
+            print(f"{tag}: {what} field {name} differs from the eager request by {d:.3e} "
+                  f"({ops.get(name.split('.')[-1], 'the matcher')}); two eager requests "
+                  f"differ there by {floor.get(name, 0.0):.3e}: {'held' if ok else 'FAILED'}",
+                  flush=True)
+            if not ok:
+                bad.append(f"{what} {name}")
+    aliased = [name for (name, x), y in zip(_out_fields(out), kept) if not torch.equal(x, y)]
+    if bad or aliased:
+        fail(f"{tag}: differs from the eager request in {bad}; changed by the next call: "
+             f"{aliased}")
+
+
 def _timed(fn, n: int = N_REQUESTS):
     import torch
 
@@ -4296,21 +4337,8 @@ def compiled_request(dev, card: str) -> None:
                  f"before")
         # (a) bit for bit against the eager request; (c) the second batch,
         # and the first output unchanged by the second call
-        bad = []
-        for what, got_out, ref in (("first call (warm-up)", first, ref1),
-                                   ("replay", out1, ref1), ("second batch", out2, ref2)):
-            for name, d in _field_diffs(got_out, ref).items():
-                ok = d <= floor.get(name, 0.0)
-                print(f"{tag}: {what} field {name} differs from the eager request by {d:.3e} "
-                      f"({FIELD_OPS.get(name.split('.')[-1], 'the matcher')}); two eager "
-                      f"requests differ there by {floor.get(name, 0.0):.3e}: "
-                      f"{'held' if ok else 'FAILED'}", flush=True)
-                if not ok:
-                    bad.append(f"{what} {name}")
-        aliased = [name for (name, x), y in zip(_out_fields(out1), kept) if not torch.equal(x, y)]
-        if bad or aliased:
-            fail(f"{tag}: differs from the eager request in {bad}; changed by the next "
-                 f"call: {aliased}")
+        _held_to_eager(tag, (("first call (warm-up)", first, ref1), ("replay", out1, ref1),
+                             ("second batch", out2, ref2)), floor, FIELD_OPS, out1, kept)
         graph_ms, graph_runs = _timed(lambda: fn(b1, generator=gen.manual_seed(3)))
         print(f"{tag}: replays equal the eager request bit for bit (floor between two eager "
               f"requests: {floor or 'none'}), no host sync under set_sync_debug_mode('error'), "
@@ -4530,6 +4558,142 @@ def small_linalg_check(dev, card: str) -> dict:
                 library_ms=lib_ms)
 
 
+# ---- phase 20: the compiled map-free request --------------------------------------------
+
+B_MAPFREE = 1  # the benchmark cell's batch (mapfree_6dreg.reloc_b1)
+# which op computes each MapfreeOutput field, for a field a replay does not
+# reproduce bit for bit
+MAPFREE_FIELD_OPS = {"R": "the last MoE blend (blend)", "t": "the last MoE blend",
+                     "gating": "the last MoE blend", "regressed_9d": "the last pose MLP",
+                     "solver_rt": "the last RANSAC round", "E": "the last RANSAC round's polish",
+                     "num_inliers": "the last RANSAC round", "num_tight": "the last RANSAC round",
+                     "num_ultra_tight": "the last RANSAC round"}
+
+
+def compiled_mapfree(dev, card: str) -> dict:
+    """Phase 20: ``build_mapfree_fn`` at the benchmark cell's shapes (B=1,
+    matcher 720x544, regressor 368x272, bf16): (a) the first call (eager
+    warm-up, then the capture) counted 16/1/1/0 on K1-K4 and 6
+    small_linalg launches by the wrappers, the counters set to 0 before
+    it; (b) two replays under ``set_sync_debug_mode("error")``; (c) two
+    replays more in a profiler trace, which must hold twice a request's
+    launches of each hand-written kernel (K1-K3, small_linalg, no fused
+    5-point kernel), the wrappers' counters unchanged, and a replay after
+    the graph's mark slots are zeroed must write all 13 (the request's
+    start and its 12 stages) in order; (d) the first call,
+    a replay and a second batch against the eager ``mapfree_forward`` on
+    the same inputs and generator states, every field bit for bit (a field
+    that differs is printed with its op and held to the difference of two
+    eager requests), the first output unchanged by the second call; (e)
+    the device ms of each stage (``stage_ms``), the eager and compiled ms
+    a request and the graph's pool. Returns the launches of one replayed
+    request by kernel."""
+    import torch
+
+    from far_tpu_torch.models.sixdreg import SixDRegConfig
+    from far_tpu_torch.ops.stage_mark import SYMBOL
+    from far_tpu_torch.pipeline import (build_mapfree_fn, init_model, init_sixdreg,
+                                        mapfree_forward, mapfree_stages)
+    from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils.config import FARConfig
+
+    fns = counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dtype = "bfloat16"
+    reg_cfg = SixDRegConfig(dtype=dtype)
+    tag = f"compiled map-free request {dtype} B={B_MAPFREE} 720x544 / 368x272"
+    matcher = init_model(FARConfig(image_size=(720, 544), regress_rt=False, dtype=dtype),
+                         seed=0, device=dev)
+    reg = init_sixdreg(reg_cfg, seed=1, device=dev)
+    g = torch.Generator().manual_seed(20)
+    inputs = []
+    for seed in (0, 5):
+        regs = [torch.rand(B_MAPFREE, *reg_cfg.image_hw, 3, generator=g).to(dev)
+                for _ in range(2)]
+        inputs.append((synthetic_batch(B_MAPFREE, 720, 544, dev, seed=seed), *regs))
+    gen = torch.Generator(device=dev)
+
+    def eager(which, seed):
+        with torch.inference_mode():
+            return mapfree_forward(matcher, reg, *inputs[which], generator=gen.manual_seed(seed))
+
+    def counted():
+        return ({k: f.launches for k, f in fns.items()}, small_linalg_launches(),
+                fivepoint_launches())
+
+    eager(0, 3)
+    torch.cuda.synchronize()
+    ref1 = eager(0, 3)
+    floor = _field_diffs(eager(0, 3), ref1)
+    ref2 = eager(1, 4)
+    eager_ms, eager_runs = _timed(lambda: eager(0, 3))
+    torch.cuda.empty_cache()
+
+    small_req = SMALL_LINALG_PER_ROUND * 2  # two solver rounds
+    stages = mapfree_stages()
+    fn = build_mapfree_fn(matcher, reg)
+    reset_counters()
+    t0 = time.perf_counter()
+    first = fn(*inputs[0], generator=gen.manual_seed(3))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    warm = counted()
+    if warm != (MAPFREE, small_req, 0):
+        fail(f"{tag}: the first call (eager warm-up, then the capture) counted {warm}, "
+             f"expected one request's {MAPFREE}, small_linalg {small_req} and no fused "
+             f"5-point launch")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out1 = fn(*inputs[0], generator=gen.manual_seed(3))
+        kept = [x.clone() for _, x in _out_fields(out1)]
+        out2 = fn(*inputs[1], generator=gen.manual_seed(4))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _, names = trace_kernels(lambda: (fn(*inputs[0], generator=gen.manual_seed(3)),
+                                      fn(*inputs[1], generator=gen.manual_seed(4))))
+    got, got_tc, got_tf32, got_small, got_five = launches_in(names, f"{tag} (c)")
+    marks = sum(kernel_symbol(n) == SYMBOL for n in names)
+    want = (*route_launches(MAPFREE, dtype, 2), 2 * small_req, 0)
+    if (got, got_tc, got_tf32, got_small, got_five) != want or counted() != warm:
+        fail(f"{tag}: two replays launched {got} (tensor cores {got_tc}, 3xTF32 {got_tf32}, "
+             f"small_linalg {got_small}, fused 5-point {got_five}) in the trace, expected "
+             f"{want}; counters {counted()} after the replays, {warm} before")
+    # each mark writes the card's clock to its slot: a replay after the
+    # slots are zeroed must write every one, in order. (The trace's count
+    # of marks is printed beside it: one full run of this script traced
+    # 25 of the 26, the routes' kernels all there.)
+    slots = fn._last.slots
+    with torch.inference_mode():
+        slots.zero_()
+    fn(*inputs[0], generator=gen.manual_seed(3))
+    stamps = slots.tolist()
+    if len(stamps) != len(stages) + 1 or min(stamps) <= 0 or stamps != sorted(stamps):
+        fail(f"{tag}: a replay wrote the mark slots {stamps}, expected {len(stages) + 1} "
+             f"clocks in order")
+    _held_to_eager(tag, (("first call (warm-up)", first, ref1), ("replay", out1, ref1),
+                         ("second batch", out2, ref2)), floor, MAPFREE_FIELD_OPS, out1, kept)
+    graph_ms, graph_runs = _timed(lambda: fn(*inputs[0], generator=gen.manual_seed(3)))
+    stage_ms = fn.stage_ms()
+    if list(stage_ms) != list(stages):
+        fail(f"{tag}: stage_ms gives {list(stage_ms)}, not the request's stages {stages}")
+    print(f"{tag}: replays equal the eager request bit for bit (floor between two eager "
+          f"requests: {floor or 'none'}), no host sync under set_sync_debug_mode('error'), "
+          f"two batches unaliased; the first call's warm-up counted {warm[0]} + small_linalg "
+          f"{warm[1]}, two replays' profiler trace {got} + small_linalg {got_small}, fused "
+          f"5-point {got_five}, stage marks {marks} of {2 * len(stamps)} (tensor cores "
+          f"{got_tc}); a replay wrote all {len(stamps)} mark slots in order; device ms by "
+          f"stage {json.dumps({k: round(v, 3) for k, v in stage_ms.items()})}; eager ms "
+          f"median {eager_ms:.2f} (runs {[round(t, 2) for t in eager_runs]}), compiled ms "
+          f"median {graph_ms:.2f} (runs {[round(t, 2) for t in graph_runs]}), capture "
+          f"{capture_s:.2f} s (warm-up included), graph pool {fn.pool_bytes() / 2**30:.3f} "
+          f"GiB on {card}", flush=True)
+    del matcher, reg, fn, first, out1, out2, ref1, ref2, kept
+    torch.cuda.empty_cache()
+    return {k: v // 2 for k, v in got.items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--ddp-worker"]:
@@ -4603,6 +4767,10 @@ def main() -> int:
     compiled_request(dev, card)
     small_linalg = small_linalg_check(dev, card)
     print(f"compiled request (phase 19): {time.perf_counter() - t_19:.1f} s", flush=True)
+    t_20 = time.perf_counter()
+    mapfree_compiled = compiled_mapfree(dev, card)
+    print(f"compiled map-free request (phase 20): {time.perf_counter() - t_20:.1f} s",
+          flush=True)
 
     src = {"K1_loftr_layer": ("loftr_layer.cu", "far_tpu/ops/loftr_layer.py:147"),
            "K2_dual_softmax_rowcol": ("matching_kernel.cu",
@@ -4638,11 +4806,13 @@ def main() -> int:
         kernels[-1]["launches_train_step"] = train_launches[name]
         if "cuda_core_shapes" in entries[name]:
             kernels[-1]["cuda_core_shapes"] = entries[name]["cuda_core_shapes"]
-        # the other paths' launches (phases 11 (b), 12 (b)), and the kernel
-        # at the shapes they give it (phase 3)
+        # the other paths' launches (phases 11 (b), 12 (b); map-free's main
+        # path: one replayed request of phase 20), and the kernel at the
+        # shapes they give it (phase 3)
         kernels[-1]["launches_vitess"] = vitess_launches["gated"][name]
         kernels[-1]["launches_vitess_ungated"] = vitess_launches["ungated"][name]
-        kernels[-1]["launches_mapfree"] = mapfree_launches[name]
+        kernels[-1]["launches_mapfree"] = mapfree_compiled[name]
+        kernels[-1]["launches_mapfree_eager"] = mapfree_launches[name]
         if "family_shapes" in entries[name]:
             kernels[-1]["family_shapes"] = entries[name]["family_shapes"]
         # launches of a family training step by dtype (phase 13 (a), (b))

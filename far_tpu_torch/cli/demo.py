@@ -106,14 +106,15 @@ def run_mapfree(args, img0, img1, K, gt, dev: torch.device):
     batch = _pair_batch(gray(img0), gray(img1), K0, K1, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
-        R, t, gate, est = mapfree_forward(
+        out = mapfree_forward(
             matcher, reg, batch, _reg_image(img0, rh, rw, dev), _reg_image(img1, rh, rw, dev),
             generator=gen)
-    rt = np.concatenate([R[0].float().cpu().numpy(), t[0].float().cpu().numpy()[:, None]], -1)
+    rt = np.concatenate([out.R[0].float().cpu().numpy(),
+                         out.t[0].float().cpu().numpy()[:, None]], -1)
     np.set_printoptions(precision=4, suppress=True)
     print("predicted metric [R|t] (map-free 6DReg):")
     print(rt)
-    print(f"solver inliers: {float(est.num_inliers[0]):.0f}")
+    print(f"solver inliers: {float(out.num_inliers[0]):.0f}")
     if gt is not None:
         print("ground truth [R|t]:")
         print(gt[:3])

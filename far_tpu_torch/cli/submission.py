@@ -3,7 +3,9 @@
 Counterpart of ``far_tpu/cli/submission.py`` (after crockwell/far:
 mapfree_6dreg/submission.py): the map-free pipeline on the card over a
 split, one pair at a time (the matcher with ``regress_rt=False`` at
-``--matcher_hw``, ``SixDRegConfig`` at ``--reg_hw``, ``mapfree_forward``),
+``--matcher_hw``, ``SixDRegConfig`` at ``--reg_hw``, ``mapfree_forward``
+through ``build_mapfree_fn``: one CUDA graph replay a pair on a card, the
+eager request with ``--device cpu``),
 written as the official submission zip: one ``pose_<scene>.txt`` a scene,
 world-to-cam quaternion and translation with the inlier count as
 confidence::
@@ -25,7 +27,7 @@ import torch
 from far_tpu_torch.data import MapFreeDataset
 from far_tpu_torch.eval.submission import SubmissionWriter
 from far_tpu_torch.models.sixdreg import SixDRegConfig
-from far_tpu_torch.pipeline import init_model, init_sixdreg, mapfree_forward, resolve_device
+from far_tpu_torch.pipeline import build_mapfree_fn, init_model, init_sixdreg, resolve_device
 from far_tpu_torch.train.checkpoint import CheckpointManager
 from far_tpu_torch.types import PairBatch
 from far_tpu_torch.utils.cli import add_device_arg, apply_overrides, parse_hw
@@ -65,6 +67,7 @@ def main(argv=None):
     dataset = MapFreeDataset(args.data_dir, split=args.split,
                              resize_wh=(mw, mh), reg_resize_wh=(rw, rh))
     writer = SubmissionWriter()
+    fn = build_mapfree_fn(matcher, reg)
     gen = torch.Generator(device=dev).manual_seed(0)
     t = lambda s, k: torch.from_numpy(np.asarray(s[k], np.float32))[None].to(dev)
     for i in range(len(dataset)):
@@ -73,12 +76,10 @@ def main(argv=None):
         s = dataset[i]
         batch = PairBatch(image0=t(s, "image0"), image1=t(s, "image1"),
                           K0=t(s, "K0"), K1=t(s, "K1"))
-        with torch.inference_mode():
-            R, tr, _, est = mapfree_forward(matcher, reg, batch, t(s, "image0_reg"),
-                                            t(s, "image1_reg"), generator=gen)
+        out = fn(batch, t(s, "image0_reg"), t(s, "image1_reg"), generator=gen)
         writer.add_pose_matrix(
-            s["scene"], s["pair_names"][1], R[0].float().cpu().numpy(),
-            tr[0].float().cpu().numpy(), confidence=float(est.num_inliers[0]))
+            s["scene"], s["pair_names"][1], out.R[0].float().cpu().numpy(),
+            out.t[0].float().cpu().numpy(), confidence=float(out.num_inliers[0]))
     writer.write(args.out)
     print(f"wrote {args.out}")
     return writer

@@ -510,24 +510,38 @@ class MapfreeRegression(nn.Module):
         if cfg.use_solver_preds:
             self.moe_predictor = _seq(feat + 9 + 9 + 3, cfg.hidden, cfg.hidden, 2)
 
-    def features(self, image0: torch.Tensor, image1: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images in [0, 1] -> (B, C L) features, flattened
-        channel-major. Independent of the solver."""
+    def encode(self, image0: torch.Tensor, image1: torch.Tensor):
+        """(B, H, W, 3) images in [0, 1] -> the ResUNet's maps of both,
+        (B, encoder_out_layers, ~H/4, ~W/4) each."""
         nchw = lambda im: im.permute(0, 3, 1, 2).contiguous().to(self.dtype)
-        vol0 = self.encoder(nchw(image0))
-        vol1 = self.encoder(nchw(image1))
-        feats = self.head(self.aggregator(vol0, vol1))      # (B, C, Hf, Wf)
+        return self.encoder(nchw(image0)), self.encoder(nchw(image1))
+
+    def volume(self, vol0: torch.Tensor, vol1: torch.Tensor) -> torch.Tensor:
+        """The aggregator and the head: (B, HEAD_WIDTH, Hf, Wf)."""
+        return self.head(self.aggregator(vol0, vol1))
+
+    def tokens(self, feats: torch.Tensor) -> torch.Tensor:
+        """The head's map through the transformer -> (B, C L) features,
+        flattened channel-major."""
         B = feats.shape[0]
         tokens = feats.flatten(2).transpose(1, 2)           # (B, L, C)
         if self.config.use_vanilla_transformer:
             tokens = self.transformer(tokens)
         return tokens.transpose(1, 2).reshape(B, -1).float()
 
-    def fuse(self, features: torch.Tensor, solver_rt: Optional[torch.Tensor] = None,
-             solver_inliers: Optional[torch.Tensor] = None):
-        """The pose MLP and the MoE blend with the solver pose."""
-        dt = self.dtype
-        pred_9d = run_seq(self.pose_regressor, features.to(dt)).float()
+    def features(self, image0: torch.Tensor, image1: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images in [0, 1] -> (B, C L) features, flattened
+        channel-major. Independent of the solver."""
+        return self.tokens(self.volume(*self.encode(image0, image1)))
+
+    def regress(self, features: torch.Tensor) -> torch.Tensor:
+        """The pose MLP: the regressed (t, 6D) pose (B, 9), float32."""
+        return run_seq(self.pose_regressor, features.to(self.dtype)).float()
+
+    def blend(self, features: torch.Tensor, pred_9d: torch.Tensor,
+              solver_rt: Optional[torch.Tensor] = None,
+              solver_inliers: Optional[torch.Tensor] = None):
+        """The MoE blend of the regressed pose with the solver pose."""
         gate = None
         if self.config.use_solver_preds:
             if solver_rt is None or solver_inliers is None:
@@ -539,11 +553,16 @@ class MapfreeRegression(nn.Module):
                 sp_t, dim=-1).clamp(1e-2, 1e2)
             sp_t = sp_t * ratio.clamp(1e-2, 1e2)[..., None]
             gin = torch.cat([features, pred_9d, sp_t, sp_r, counts], -1)
-            gate = torch.sigmoid(run_seq(self.moe_predictor, gin.to(dt))).float()
+            gate = torch.sigmoid(run_seq(self.moe_predictor, gin.to(self.dtype))).float()
             pred_9d = torch.cat([
                 gate[..., :1] * pred_9d[..., :3] + (1 - gate[..., :1]) * sp_t,
                 gate[..., 1:] * pred_9d[..., 3:] + (1 - gate[..., 1:]) * sp_r], -1)
         return rotation_6d_to_matrix(pred_9d[..., 3:]), pred_9d[..., :3], pred_9d, gate
+
+    def fuse(self, features: torch.Tensor, solver_rt: Optional[torch.Tensor] = None,
+             solver_inliers: Optional[torch.Tensor] = None):
+        """The pose MLP and the MoE blend with the solver pose."""
+        return self.blend(features, self.regress(features), solver_rt, solver_inliers)
 
     def forward(self, image0: torch.Tensor, image1: torch.Tensor,
                 solver_rt: Optional[torch.Tensor] = None,

@@ -9,7 +9,8 @@ CUDA unless the caller asks for ``device="cpu"`` (there every kernel
 wrapper runs its plain version); without a card and without that request
 they raise. On a card ``build_inference_fn`` returns the counterpart of
 the JAX package's ``jax.jit(far_forward)``: the request captured once per
-signature in a CUDA graph and replayed after (``CompiledRequest``).
+signature in a CUDA graph and replayed after (``CompiledRequest``);
+``build_mapfree_fn`` does the same for ``mapfree_forward``.
 """
 
 from __future__ import annotations
@@ -29,12 +30,12 @@ from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
 from far_tpu_torch.parallel.comm import local_device
 from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
 from far_tpu_torch.solvers.ransac import draw_round_uniforms
-from far_tpu_torch.types import FarOutput, PairBatch, SolverSummary
+from far_tpu_torch.types import FarOutput, MapfreeOutput, PairBatch, SolverSummary
 from far_tpu_torch.utils.config import FARConfig
 from far_tpu_torch.utils.convert_weights import init_weights
 from far_tpu_torch.utils.prof import (
-    BACKBONE, COARSE, EMM, FINE, MATCH, REQUEST_MARK, MarkSink, add_counter, mark, marking,
-    round_mark)
+    BACKBONE, COARSE, EMM, FINE, MATCH, REQUEST_MARK, MarkSink, add_counter, encode_mark, mark,
+    marking, round_mark, solve_mark, volume_mark)
 
 
 def make_solver_configs(cfg: FARConfig) -> Tuple[SolverConfig, SolverConfig]:
@@ -161,6 +162,36 @@ def far_forward(
         gating=gate, translation_scale=out.translation_scale)
 
 
+def mapfree_solver_configs(pixel_thr: float = 2.0) -> Tuple[SolverConfig, SolverConfig]:
+    """(first-round, prior-round) solver configs of ``mapfree_forward``:
+    RANSAC at ``pixel_thr`` under MAGSAC scoring (the reference's cv2
+    USAC_MAGSAC), then the prior-biased engine; 2,048 8-point hypotheses
+    each."""
+    return (SolverConfig(solver="ransac", pixel_thr=pixel_thr, scoring="magsac"),
+            SolverConfig(solver="prior_ransac"))
+
+
+def draw_mapfree_uniforms(B: int, generator: Optional[torch.Generator] = None,
+                          device=None, fine_pred_steps: int = 2) -> List[torch.Tensor]:
+    """The sampler's draws of every round of ``mapfree_forward``, in its
+    order: one (B, 2048, 8) float32 tensor a round, from ``generator`` or
+    the device's default generator (see ``draw_uniforms``)."""
+    first, refine = mapfree_solver_configs()
+    return [draw_round_uniforms((first if i == 0 else refine).ransac_config(i > 0),
+                                B, generator, device) for i in range(fine_pred_steps)]
+
+
+def mapfree_stages(fine_pred_steps: int = 2) -> Tuple[str, ...]:
+    """The stages of ``mapfree_forward`` in order, each ended by a mark of
+    its name after ``REQUEST_MARK``: the matcher's backbone, coarse
+    transformer (K1), coarse match (K2) and fine stage (K3); then in each
+    round the solver, the ResUNet on both images, the correlation volume
+    with the head, and the transformer with the pose MLP and the MoE."""
+    rounds = tuple(m(i) for i in range(fine_pred_steps)
+                   for m in (solve_mark, encode_mark, volume_mark, round_mark))
+    return (BACKBONE, COARSE, MATCH, FINE) + rounds
+
+
 def mapfree_forward(
     matcher: FARLoFTR,
     reg_model: MapfreeRegression,
@@ -172,38 +203,55 @@ def mapfree_forward(
     prior_pcl: Optional[torch.Tensor] = None,
     pixel_thr: float = 2.0,
     fine_pred_steps: int = 2,
-):
+) -> MapfreeOutput:
     """Map-free FAR inference: matcher -> RANSAC -> 6DReg -> prior loop.
 
     Round 0 solves with plain RANSAC under MAGSAC scoring (the
     reference's cv2 USAC_MAGSAC); each later round with the prior-biased
     engine around the previous fused [R|t]. The regressor runs whole in
-    every round, as the JAX package's does.
+    every round, as the JAX package's does. The start and the end of each
+    of ``mapfree_stages`` are marked (``utils.prof.mark``).
 
     Args:
         batch: the matcher-resolution grayscale pair with intrinsics.
         image0_reg/image1_reg: the regressor-resolution RGB pair
             (B, H, W, 3) in [0, 1].
-        uniforms: optional sampler draws, one (B, H, 8) tensor per round
-            (H: 2048 hypotheses in round 0, the refinement budget after).
-    Returns:
-        (R (B, 3, 3), t (B, 3), gate, the last round's PoseEstimate).
+        generator: the sampler's generator; every round's draws are taken
+            from it up front (``draw_mapfree_uniforms``).
+        uniforms: optional sampler draws, one (B, 2048, 8) tensor per
+            round.
     """
+    if fine_pred_steps < 1:
+        raise ValueError(f"fine_pred_steps must be at least 1, got {fine_pred_steps}")
     if uniforms is not None and len(uniforms) != fine_pred_steps:
         raise ValueError(f"need {fine_pred_steps} uniform tensors, got {len(uniforms)}")
+    if uniforms is None:
+        uniforms = draw_mapfree_uniforms(batch.image0.shape[0], generator,
+                                         batch.image0.device, fine_pred_steps)
+    first_cfg, refine_cfg = mapfree_solver_configs(pixel_thr)
+    mark(REQUEST_MARK)
     m = matcher.match(batch).matches
-    first_cfg = SolverConfig(solver="ransac", pixel_thr=pixel_thr, scoring="magsac")
-    refine_cfg = SolverConfig(solver="prior_ransac")
-    prior_rt = R = t = gate = est = None
+    prior_rt = None
     for i in range(fine_pred_steps):
         est = estimate_pose(
             m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid, prior_rt=prior_rt,
             cfg=first_cfg if i == 0 else refine_cfg, prior_pcl=prior_pcl,
-            uniforms=None if uniforms is None else uniforms[i], generator=generator)
+            uniforms=uniforms[i])
+        mark(solve_mark(i))
+        vols = reg_model.encode(image0_reg, image1_reg)
+        mark(encode_mark(i))
+        grid = reg_model.volume(*vols)
+        mark(volume_mark(i))
+        features = reg_model.tokens(grid)
+        pose_9d = reg_model.regress(features)
         counts = torch.stack([est.num_inliers, est.num_tight, est.num_ultra_tight], -1)
-        R, t, _, gate = reg_model(image0_reg, image1_reg, est.rt34, counts)
+        R, t, _, gate = reg_model.blend(features, pose_9d, est.rt34, counts)
         prior_rt = torch.cat([R, t[..., None]], -1)
-    return R, t, gate, est
+        mark(round_mark(i))
+    return MapfreeOutput(
+        R=R, t=t, gating=gate, regressed_9d=pose_9d, solver_rt=est.rt34, E=est.E,
+        num_inliers=est.num_inliers, num_tight=est.num_tight,
+        num_ultra_tight=est.num_ultra_tight, matches=m)
 
 
 def vitess_forward(
@@ -235,29 +283,60 @@ def vitess_forward(
     return vitess_model(images, solver_pose, num_corr)
 
 
-# the batch fields far_forward reads
+# the batch fields far_forward and mapfree_forward read
 REQUEST_FIELDS = ("image0", "image1", "K0", "K1", "scale0", "scale1")
 
 
-def request_signature(model: FARLoFTR, batch: PairBatch,
-                      uniforms: Optional[Sequence[torch.Tensor]] = None,
+def _spec(t):
+    return None if t is None else (tuple(t.shape), t.dtype, str(t.device))
+
+
+def _map_inputs(fn, inputs):
+    """A request's inputs (a ``PairBatch``, a tensor, None or a tuple of
+    them) with ``fn`` applied to each tensor: a batch's ``REQUEST_FIELDS``
+    as a ``PairBatch`` again (its other fields left out), None as None."""
+    if isinstance(inputs, PairBatch):
+        return PairBatch(**{f: None if getattr(inputs, f) is None else fn(getattr(inputs, f))
+                            for f in REQUEST_FIELDS})
+    if isinstance(inputs, (tuple, list)):
+        return tuple(_map_inputs(fn, x) for x in inputs)
+    return None if inputs is None else fn(inputs)
+
+
+def _leaves(inputs) -> List[torch.Tensor]:
+    """The tensors of a request's inputs, in ``_map_inputs``' order."""
+    out: List[torch.Tensor] = []
+    _map_inputs(out.append, inputs)
+    return out
+
+
+def request_signature(modules, inputs, uniforms: Optional[Sequence[torch.Tensor]] = None,
                       prior_pcl: Optional[torch.Tensor] = None) -> tuple:
     """What a captured request is specialised to, as JAX's jit is to its
-    arguments' shapes: shape, dtype and device of each batch field
-    ``far_forward`` reads, of ``uniforms`` (or that none was given) and of
-    ``prior_pcl``; the storages of the model's parameters and buffers
-    (``load_state_dict`` copies into them in place, so it keeps the key;
-    moving or replacing them changes it); the mode; and the numerics flags
-    the eager request reads (TF32 in cuBLAS and cuDNN, cuDNN itself,
-    deterministic algorithms)."""
-    def spec(t):
-        return None if t is None else (tuple(t.shape), t.dtype, str(t.device))
+    arguments' shapes: shape, dtype and device of each input tensor and of
+    each batch field the requests read (``inputs``: a ``PairBatch``, a
+    tensor or a tuple of them), of ``uniforms`` (or that none was given) and of
+    ``prior_pcl``; the storages of the parameters and buffers of
+    ``modules`` (a module or a sequence of them; ``load_state_dict`` copies
+    into them in place, so it keeps the key; moving or replacing them
+    changes it); their modes; and the numerics flags the eager request
+    reads (TF32 in cuBLAS and cuDNN, cuDNN itself, deterministic
+    algorithms)."""
+    mods = (modules,) if isinstance(modules, torch.nn.Module) else tuple(modules)
 
-    return (tuple(spec(getattr(batch, f)) for f in REQUEST_FIELDS),
-            None if uniforms is None else tuple(spec(u) for u in uniforms),
-            spec(prior_pcl),
-            tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())),
-            model.training,
+    def spec(x):
+        if isinstance(x, PairBatch):
+            return tuple(_spec(getattr(x, f)) for f in REQUEST_FIELDS)
+        if isinstance(x, (tuple, list)):
+            return tuple(spec(y) for y in x)
+        return _spec(x)
+
+    return (spec(inputs),
+            None if uniforms is None else tuple(_spec(u) for u in uniforms),
+            _spec(prior_pcl),
+            tuple(t.data_ptr() for m in mods
+                  for t in itertools.chain(m.parameters(), m.buffers())),
+            tuple(m.training for m in mods),
             (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
              torch.backends.cudnn.enabled, torch.are_deterministic_algorithms_enabled()))
 
@@ -276,75 +355,91 @@ def _map_tensors(fn, out):
 @dataclasses.dataclass
 class _Captured:
     graph: torch.cuda.CUDAGraph
-    batch: PairBatch                      # static inputs, filled before a replay
+    inputs: tuple                         # static inputs, filled before a replay
     uniforms: List[torch.Tensor]
     prior_pcl: Optional[torch.Tensor]
-    output: FarOutput                     # static outputs in the graph's pool
+    output: object                        # static outputs (a dataclass) in the graph's pool
     pool_bytes: int                       # device memory the capture added to the pool
-    stages: Tuple[str, ...]               # request_stages of the model's config
+    stages: Tuple[str, ...]               # the request's stages
     slots: torch.Tensor                   # int64 clock (ns) of each mark, written by a run
 
 
 class CompiledRequest:
-    """``far_forward`` as one CUDA graph per request signature: the port's
-    ``jax.jit(far_forward)``.
+    """A request function as one CUDA graph per request signature: the
+    port's ``jax.jit`` of ``far_forward`` (``build_inference_fn``) and of
+    ``mapfree_forward`` (``build_mapfree_fn``).
 
-    A call looks up ``request_signature``. The first call of a signature
-    runs the eager request on a side stream (the warm-up: kernel builds,
+    Args:
+        forward: the eager request, ``forward(*inputs, generator=,
+            uniforms=, prior_pcl=)`` -> a dataclass of tensors.
+        modules: the modules whose parameters, buffers and modes enter the
+            signature; the first's device is the request's.
+        stages: () -> the names the request marks after ``REQUEST_MARK``,
+            in order (read at each capture).
+        draw: (inputs, generator, device) -> each round's sampler draws,
+            the ones the eager request takes from the same generator
+            state.
+        prefix: the counters' prefix (``<prefix>.capture.*``).
+
+    A call ``fn(*inputs, generator=None, uniforms=None, prior_pcl=None)``
+    looks up ``request_signature``. The first call of a signature runs the
+    eager request on a side stream (the warm-up: kernel builds,
     ``cudaFuncSetAttribute``, cuDNN's plan choice, the cached tables and
     the allocator's growth stay out of the capture), returns its output,
     then captures the same request into a graph. Every signature's graph
     takes its memory from one pool of this object's: replays run one at a
     time on one stream and their outputs are cloned before the next, so
     one graph's intermediates may reuse another's. Later calls copy the
-    batch fields (and ``uniforms`` / ``prior_pcl`` when given) into the
-    graph's static inputs, draw the
-    sampler's uniforms outside the graph into its static buffers where
-    none are given (``draw_uniforms``: the draws an eager request from the
-    same generator state takes), replay, and return clones of the static
-    outputs, so nothing returned aliases the graph. The kernel wrappers'
-    launch counters count the warm-up, whose kernels they launch; a
-    capture records kernels without running them and a replay runs them
-    without the wrappers, so neither adds to a counter (a profiler trace
-    of a replay shows its kernels). A failed capture raises, naming the
-    op; there is no eager fallback on the card. On a CPU model a call is
-    the eager ``far_forward``.
+    inputs (and ``uniforms`` / ``prior_pcl`` when given) into the graph's
+    static inputs, draw the sampler's uniforms outside the graph into its
+    static buffers where none are given (``draw``), replay, and return
+    clones of the static outputs, so nothing returned aliases the graph.
+    The kernel wrappers' launch counters count the warm-up, whose kernels
+    they launch; a capture records kernels without running them and a
+    replay runs them without the wrappers, so neither adds to a counter
+    (a profiler trace of a replay shows its kernels). A failed capture
+    raises, naming the op; there is no eager fallback on the card. On a
+    CPU model a call is the eager ``forward``.
 
     The graph holds a device mark at the request's start and at the end of
-    each of ``request_stages`` (``utils.prof.mark``); ``stage_ms`` reads
-    the last request's. The warm-up and the capture write counters
+    each of ``stages`` (``utils.prof.mark``); ``stage_ms`` reads the last
+    request's. The warm-up and the capture write counters
     (``utils.prof.counters``, summed over signatures):
-    ``far.capture.warmup_s`` (the warm-up to its synchronize),
-    ``far.capture.record_s`` (the capture with the graph's instantiation)
-    and ``far.capture.nodes.<stage>`` (the stage's operation nodes:
-    kernels, copies and memsets, marks left out)."""
+    ``<prefix>.capture.warmup_s`` (the warm-up to its synchronize),
+    ``<prefix>.capture.record_s`` (the capture with the graph's
+    instantiation) and ``<prefix>.capture.nodes.<stage>`` (the stage's
+    operation nodes: kernels, copies and memsets, marks left out)."""
 
-    def __init__(self, model: FARLoFTR):
-        self.model = model
+    def __init__(self, forward: Callable, modules: Sequence[torch.nn.Module],
+                 stages: Callable[[], Tuple[str, ...]], draw: Callable,
+                 prefix: str = "far"):
+        self.forward = forward
+        self.modules = tuple(modules)
+        self.stages = stages
+        self.draw = draw
+        self.prefix = prefix
         self.graphs: Dict[tuple, _Captured] = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None  # the graphs' memory pool, made at the first capture
         self._last: Optional[_Captured] = None  # the signature that ran last
 
-    def __call__(self, batch: PairBatch, generator=None, uniforms=None, prior_pcl=None):
-        model = self.model
-        device = _device_of(model)
+    def __call__(self, *inputs, generator=None, uniforms=None, prior_pcl=None):
+        device = _device_of(self.modules[0])
         with torch.inference_mode():
             if device.type != "cuda":
-                return far_forward(model, batch, generator, uniforms, prior_pcl)
-            if batch.image0.device != device:
-                raise ValueError(f"batch on {batch.image0.device}, model on {device}")
-            key = request_signature(model, batch, uniforms, prior_pcl)
+                return self.forward(*inputs, generator=generator, uniforms=uniforms,
+                                    prior_pcl=prior_pcl)
+            for x in _leaves(inputs):
+                if x.device != device:
+                    raise ValueError(f"batch on {x.device}, model on {device}")
+            key = request_signature(self.modules, inputs, uniforms, prior_pcl)
             entry = self.graphs.get(key)
             if entry is None:
-                return self._capture(key, batch, generator, uniforms, prior_pcl)
-            for f in REQUEST_FIELDS:
-                src = getattr(batch, f)
-                if src is not None:
-                    getattr(entry.batch, f).copy_(src)
+                return self._capture(key, inputs, generator, uniforms, prior_pcl)
+            for dst, src in zip(_leaves(entry.inputs), _leaves(inputs)):
+                dst.copy_(src)
             if uniforms is None:
-                uniforms = draw_uniforms(model.config, batch.image0.shape[0], generator,
-                                         device)
+                uniforms = self.draw(inputs, generator, device)
             for dst, src in zip(entry.uniforms, uniforms):
                 dst.copy_(src)
             if prior_pcl is not None:
@@ -368,25 +463,23 @@ class CompiledRequest:
         t = self._last.slots.tolist()
         return {s: (t[i + 1] - t[i]) / 1e6 for i, s in enumerate(self._last.stages)}
 
-    def _capture(self, key, batch, generator, uniforms, prior_pcl) -> FarOutput:
-        model = self.model
-        device = _device_of(model)
-        static = PairBatch(**{f: None if getattr(batch, f) is None
-                              else getattr(batch, f).clone() for f in REQUEST_FIELDS})
+    def _capture(self, key, inputs, generator, uniforms, prior_pcl):
+        device = _device_of(self.modules[0])
+        static = _map_inputs(torch.Tensor.clone, inputs)
         if uniforms is None:
-            uniforms = draw_uniforms(model.config, batch.image0.shape[0], generator, device)
+            uniforms = self.draw(inputs, generator, device)
         static_u = [u.to(device).clone() for u in uniforms]
         static_pcl = None if prior_pcl is None else prior_pcl.to(device).clone()
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
             self._pool = torch.cuda.graph_pool_handle()
-        stages = request_stages(model.config)
+        stages = tuple(self.stages())
         slots = torch.zeros(len(stages) + 1, dtype=torch.int64, device=device)
         stream, main = self._stream, torch.cuda.current_stream(device)
         stream.wait_stream(main)
         t0 = time.perf_counter()
         with torch.cuda.stream(stream), marking(MarkSink(slots)):
-            out = far_forward(model, static, None, static_u, static_pcl)
+            out = self.forward(*static, uniforms=static_u, prior_pcl=static_pcl)
         torch.cuda.synchronize(device)
         warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
@@ -396,7 +489,7 @@ class CompiledRequest:
         t0 = time.perf_counter()
         try:
             with marking(sink), torch.cuda.graph(graph, pool=self._pool, stream=stream):
-                static_out = far_forward(model, static, None, static_u, static_pcl)
+                static_out = self.forward(*static, uniforms=static_u, prior_pcl=static_pcl)
         except Exception as exc:  # the op that broke the capture, by its frame
             frames = [f for f in traceback.extract_tb(exc.__traceback__)
                       if "far_tpu_torch" in f.filename]
@@ -408,10 +501,10 @@ class CompiledRequest:
         if tuple(sink.names) != (REQUEST_MARK,) + stages:
             raise RuntimeError(f"the capture marked {sink.names}, not the request's "
                                f"stages {stages}")
-        add_counter("far.capture.warmup_s", warmup_s)
-        add_counter("far.capture.record_s", record_s)
+        add_counter(f"{self.prefix}.capture.warmup_s", warmup_s)
+        add_counter(f"{self.prefix}.capture.record_s", record_s)
         for i, stage in enumerate(stages, 1):  # the nodes between two marks
-            add_counter(f"far.capture.nodes.{stage}",
+            add_counter(f"{self.prefix}.capture.nodes.{stage}",
                         sink.nodes[i] - sink.nodes[i - 1] - 1)
         self.graphs[key] = self._last = _Captured(
             graph, static, static_u, static_pcl, static_out,
@@ -423,10 +516,32 @@ class CompiledRequest:
 
 def build_inference_fn(model: FARLoFTR) -> Callable[..., FarOutput]:
     """(batch, generator=None, uniforms=None, prior_pcl=None) -> FarOutput,
-    under ``torch.inference_mode``: a ``CompiledRequest`` (captured once
-    per ``request_signature`` on a card; the eager ``far_forward`` on the
-    CPU)."""
-    return CompiledRequest(model)
+    under ``torch.inference_mode``: a ``CompiledRequest`` of
+    ``far_forward`` (captured once per ``request_signature`` on a card;
+    the eager ``far_forward`` on the CPU)."""
+    return CompiledRequest(
+        lambda batch, **kw: far_forward(model, batch, **kw), (model,),
+        lambda: request_stages(model.config),
+        lambda inputs, generator, device: draw_uniforms(
+            model.config, inputs[0].image0.shape[0], generator, device))
+
+
+def build_mapfree_fn(matcher: FARLoFTR,
+                     reg_model: MapfreeRegression) -> Callable[..., MapfreeOutput]:
+    """(batch, image0_reg, image1_reg, generator=None, uniforms=None,
+    prior_pcl=None) -> MapfreeOutput, under ``torch.inference_mode``: a
+    ``CompiledRequest`` of ``mapfree_forward`` (captured once per
+    signature on a card, the counterpart of the JAX package's
+    ``jax.jit(mapfree_forward)``; the eager ``mapfree_forward`` on the
+    CPU), with ``mapfree_forward``'s defaults: two rounds, MAGSAC at 2 px.
+    Its counters are ``mapfree.capture.*``."""
+    return CompiledRequest(
+        lambda batch, image0_reg, image1_reg, **kw: mapfree_forward(
+            matcher, reg_model, batch, image0_reg, image1_reg, **kw),
+        (matcher, reg_model), mapfree_stages,
+        lambda inputs, generator, device: draw_mapfree_uniforms(
+            inputs[0].image0.shape[0], generator, device),
+        prefix="mapfree")
 
 
 def resolve_device(device=None) -> torch.device:

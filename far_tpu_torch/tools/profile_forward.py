@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 -m far_tpu_torch.tools.profile_forward [--family far|vitess|mapfree]
-        [--dtype bfloat16] [--batch 4] [--solver 5pt|8pt]
+        [--dtype bfloat16] [--batch 4] [--solver 5pt|8pt] [--request eager|compiled]
 
 ``--family far`` (the default): ``far_forward`` under ``FARConfig`` at its
 defaults (480x640, full width, the 5-point solver unless ``--solver
@@ -15,7 +15,9 @@ matcher, the solver, trunk + RAFT block, ViT blocks, CrossBlock (K4 x2),
 heads. ``--family mapfree``: ``mapfree_forward`` with a 720x544
 ``FARConfig(regress_rt=False)`` matcher and ``SixDRegConfig()`` at
 368x272; stages: the matcher, then per round the solver, ResUNet x2, the
-correlation volume, the head, the transformer, the pose MLP and MoE.
+correlation volume, the head, the transformer, the pose MLP and MoE; with
+``--request compiled`` the compiled request (``build_mapfree_fn``) in
+their place, timed and traced as the compiled FAR request below.
 Random weights from seeds 0 (matcher) and 1 (regressor). After two
 warm-up requests it times one request by stage with CUDA events, then
 traces one more with ``torch.profiler`` and prints the device time of the
@@ -215,6 +217,12 @@ def profile_mapfree(args, dev) -> None:
     im0, im1 = (torch.rand(args.batch, *reg.config.image_hw, 3, generator=g).to(dev)
                 for _ in range(2))
     gen = torch.Generator(device=dev).manual_seed(0)
+    title = f"{args.dtype} B={args.batch} 368x272 (matcher 720x544)"
+    if args.request == "compiled":
+        compiled_request(f"mapfree_forward {title} (build_mapfree_fn",
+                         pipeline_mod.build_mapfree_fn(matcher, reg),
+                         lambda fn: fn(batch, im0, im1, generator=gen))
+        return
 
     def fn():
         with torch.inference_mode():
@@ -229,7 +237,8 @@ def profile_mapfree(args, dev) -> None:
     for mod, name in ((reg.encoder, "ResUNet x2"), (reg.aggregator, "correlation volume"),
                       (reg.head, "head"), (reg.transformer, "transformer")):
         mod.forward = timer.wrap(name, mod.forward)
-    reg.fuse = timer.wrap("pose MLP and MoE", reg.fuse)
+    reg.regress = timer.wrap("pose MLP", reg.regress)
+    reg.blend = timer.wrap("MoE", reg.blend)
     saved = pipeline_mod.estimate_pose
     timed_solver = timer.wrap("solver", saved)
     rounds = []
@@ -245,8 +254,28 @@ def profile_mapfree(args, dev) -> None:
         timer.wrap("request", fn)()
     finally:
         pipeline_mod.estimate_pose = saved
-    report(f"mapfree_forward {args.dtype} B={args.batch} 368x272 (matcher 720x544), "
-           f"rounds {rounds}", timer, fn, t0)
+    report(f"eager mapfree_forward {title}, rounds {rounds}", timer, fn, t0)
+
+
+def compiled_request(title: str, fn, call) -> None:
+    """A compiled request (``call(fn)`` runs one): the first call captures;
+    then its ms on the host clock (median of 3), its graph pool, the device
+    ms of each of its stages in the last replay (``stage_ms``, from the
+    marks inside the graph) and one traced replay's idle share."""
+    for _ in range(2):
+        call(fn)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call(fn)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"compiled {title}, CUDA graph): {statistics.median(times):.3f} ms on the host "
+          f"clock (median of {[round(t, 3) for t in times]}), graph pool "
+          f"{fn.pool_bytes() / 2**30:.3f} GiB")
+    print(f"compiled {title.split()[0]} stages, device ms of the last replay from the "
+          "graph's marks: " + ", ".join(f"{k} {v:.3f}" for k, v in fn.stage_ms().items()))
+    trace(lambda: call(fn))
 
 
 def main() -> int:
@@ -256,6 +285,9 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--solver", default=FARConfig().solver.minimal_solver,
                     choices=("5pt", "8pt"))
+    ap.add_argument("--request", default="eager", choices=("eager", "compiled"),
+                    help="--family mapfree: the eager request by stage, or the "
+                         "compiled one (build_mapfree_fn)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
@@ -318,21 +350,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the compiled request (build_inference_fn: one CUDA graph replay)
-    fn = build_inference_fn(model)
-    for _ in range(2):  # the first call captures
-        fn(batch, generator=gen)
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        fn(batch, generator=gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(f"compiled far_forward {title} (build_inference_fn, CUDA graph): "
-          f"{statistics.median(times):.3f} ms on the host clock (median of "
-          f"{[round(t, 3) for t in times]}), graph pool {fn.pool_bytes() / 2**30:.3f} GiB")
-    print("compiled far_forward stages, device ms of the last replay from the graph's "
-          "marks: " + ", ".join(f"{k} {v:.3f}" for k, v in fn.stage_ms().items()))
-    trace(lambda: fn(batch, generator=gen))
+    compiled_request(f"far_forward {title} (build_inference_fn", build_inference_fn(model),
+                     lambda fn: fn(batch, generator=gen))
     return 0
 
 

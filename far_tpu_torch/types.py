@@ -82,3 +82,19 @@ class FarOutput:
     E: torch.Tensor                 # (B, 3, 3) last solver essential matrix
     gating: Optional[torch.Tensor] = None
     translation_scale: Optional[torch.Tensor] = None  # (B,)
+
+
+@dataclasses.dataclass
+class MapfreeOutput:
+    """Final output of one map-free 6DReg inference step."""
+
+    R: torch.Tensor                 # (B, 3, 3) fused rotation
+    t: torch.Tensor                 # (B, 3) fused metric translation
+    gating: Optional[torch.Tensor]  # (B, 2) MoE gate (t, R); None without solver preds
+    regressed_9d: torch.Tensor      # (B, 9) the regressor's (t, 6D) pose before the blend
+    solver_rt: torch.Tensor         # (B, 3, 4) last solver pose
+    E: torch.Tensor                 # (B, 3, 3) last solver essential matrix
+    num_inliers: torch.Tensor       # (B,) last round's counts
+    num_tight: torch.Tensor         # (B,)
+    num_ultra_tight: torch.Tensor   # (B,)
+    matches: MatchResult

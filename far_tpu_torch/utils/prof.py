@@ -18,10 +18,14 @@ that to XLA's profiler:
   activates a sink for its warm-up and its capture, so the graph holds a
   mark at the request's start (``REQUEST_MARK``) and at the end of each
   stage (``BACKBONE`` … ``EMM``, then ``round_mark(i)`` a solver round;
-  ``pipeline.request_stages`` puts them in order). With no sink (eager
-  calls, the CPU, training) it returns at once.
+  ``pipeline.request_stages`` puts them in order). The map-free request
+  marks the matcher's four stages, then four a round: ``solve_mark(i)``,
+  ``encode_mark(i)``, ``volume_mark(i)`` and ``round_mark(i)``
+  (``pipeline.mapfree_stages``). With no sink (eager calls, the CPU,
+  training) it returns at once.
 - ``counters()``: numbers the capture writes (its seconds, each stage's
-  operation nodes); a replay writes none.
+  operation nodes, under the request's prefix: ``far.capture.*``,
+  ``mapfree.capture.*``); a replay writes none.
 """
 
 from __future__ import annotations
@@ -117,8 +121,25 @@ BACKBONE, COARSE, MATCH, FINE, EMM = "backbone", "coarse", "match", "fine", "emm
 
 
 def round_mark(i: int) -> str:
-    """The mark that ends solver round ``i`` with its MoE fusion."""
+    """The mark that ends solver round ``i`` with its MoE fusion (map-free:
+    the transformer, the pose MLP and the MoE of round ``i``)."""
     return f"round.{i}"
+
+
+def solve_mark(i: int) -> str:
+    """Map-free: the mark that ends round ``i``'s ``estimate_pose``."""
+    return f"solve.{i}"
+
+
+def encode_mark(i: int) -> str:
+    """Map-free: the mark that ends round ``i``'s ResUNet on both images."""
+    return f"encode.{i}"
+
+
+def volume_mark(i: int) -> str:
+    """Map-free: the mark that ends round ``i``'s correlation volume and
+    head."""
+    return f"volume.{i}"
 
 
 class MarkSink:

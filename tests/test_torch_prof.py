@@ -213,7 +213,7 @@ def test_capture_counters_with_faked_cuda(monkeypatch):
     uniforms = draw_uniforms(model.config, 2, torch.Generator().manual_seed(0))
     before = tprof.counters()
     with torch.inference_mode():
-        fn._capture("signature", batch, None, uniforms, None)
+        fn._capture("signature", (batch,), None, uniforms, None)
     after = tprof.counters()
     grew = {k: after[k] - before.get(k, 0) for k in after if k.startswith("far.capture.")}
     assert grew == pytest.approx({
@@ -236,5 +236,42 @@ def test_capture_refuses_marks_that_are_not_the_stages(monkeypatch):
     uniforms = draw_uniforms(model.config, 2, torch.Generator().manual_seed(0))
     before = tprof.counters()
     with torch.inference_mode(), pytest.raises(RuntimeError, match="not the request's stages"):
-        fn._capture("signature", batch, None, uniforms, None)
+        fn._capture("signature", (batch,), None, uniforms, None)
     assert fn.graphs == {} and tprof.counters() == before
+
+
+def test_mapfree_capture_counters_with_faked_cuda(monkeypatch):
+    """The same capture over ``mapfree_forward`` (``build_mapfree_fn``, the
+    guard model as the matcher and a small 6DReg regressor): the counters
+    grow under ``mapfree.capture.*`` by each of ``mapfree_stages``'s nodes,
+    FAR's counters are left as they were, and stage_ms reads the map-free
+    stages."""
+    from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
+
+    matcher, batch = _guard(2)
+    reg = MapfreeRegression(SixDRegConfig(
+        image_hw=(36, 28), encoder_blocks=(1, 1, 1), encoder_out_layers=8,
+        transformer_layers=1, transformer_heads=4, hidden=32, dtype="float32")).eval()
+    g = torch.Generator().manual_seed(1)
+    r0, r1 = (torch.rand(2, 36, 28, 3, generator=g) for _ in range(2))
+    stages = pipeline.mapfree_stages(2)
+    before_mark = iter(range(0, 1000, 10))  # operation nodes before each mark
+
+    def fake_mark(slots, k):
+        slots[k] = 1_000_000 * k
+        return next(before_mark) if capturing else -1
+
+    capturing = _fake_cuda(monkeypatch, fake_mark)
+    clock = iter([1.0, 4.0, 5.0, 5.5])
+    monkeypatch.setattr(pipeline, "time", SimpleNamespace(perf_counter=lambda: next(clock)))
+    fn = pipeline.build_mapfree_fn(matcher, reg)
+    uniforms = pipeline.draw_mapfree_uniforms(2, torch.Generator().manual_seed(0))
+    before = tprof.counters()
+    with torch.inference_mode():
+        fn._capture("signature", (batch, r0, r1), None, uniforms, None)
+    after = tprof.counters()
+    grew = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k)}
+    assert grew == pytest.approx({
+        "mapfree.capture.warmup_s": 3.0, "mapfree.capture.record_s": 0.5,
+        **{f"mapfree.capture.nodes.{s}": 9 for s in stages}}, rel=0, abs=1e-12)
+    assert fn.stage_ms() == {s: 1.0 for s in stages}

@@ -230,8 +230,11 @@ def test_mapfree_forward_matches_jax(monkeypatch):
     assert (np.asarray(jinl[0]) >= 25).all()
     for est, want in zip(record["port"], jinl):
         np.testing.assert_array_equal(est.num_inliers.numpy(), np.asarray(want))
-    assert out[3] is record["port"][-1]
-    for o, r in zip(out[:3], ref):
+    last = record["port"][-1]
+    for name in ("num_inliers", "num_tight", "num_ultra_tight", "E"):
+        assert torch.equal(getattr(out, name), getattr(last, name)), name
+    assert torch.equal(out.solver_rt, last.rt34)
+    for o, r in zip((out.R, out.t, out.gating), ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=1e-3)
 
 
