@@ -192,9 +192,12 @@ of JAX or of ``far_tpu``. Phases, each fatal on failure:
    small_linalg launches; two replays under the sync debug mode; two
    more in a profiler trace holding twice a request's K1-K3 and
    small_linalg launches and no fused 5-point launch; a replay writing
-   all 13 stage marks' slots in order; the first call, a replay and a
-   second batch against the eager
-   ``mapfree_forward`` bit for bit; the stages' device ms. The kernels
+   all 13 stage marks' slots in order; the capture's counters one pass of
+   the regressor's trunk and no node in round 1's encode and volume
+   stages; the first call, a replay and a second batch against the eager
+   ``mapfree_forward`` bit for bit, and the eager request against the
+   round loop that runs the regressor whole in every round (the trunk
+   before it was hoisted) bit for bit; the stages' device ms. The kernels
    line's ``launches_mapfree`` is one replayed request's, phase 12's eager
    B=4 totals ``launches_mapfree_eager``.
 Phase 4 drives the compiled request (its first call captures), so its
@@ -4564,10 +4567,38 @@ B_MAPFREE = 1  # the benchmark cell's batch (mapfree_6dreg.reloc_b1)
 # which op computes each MapfreeOutput field, for a field a replay does not
 # reproduce bit for bit
 MAPFREE_FIELD_OPS = {"R": "the last MoE blend (blend)", "t": "the last MoE blend",
-                     "gating": "the last MoE blend", "regressed_9d": "the last pose MLP",
+                     "gating": "the last MoE blend", "regressed_9d": "the pose MLP (round 0)",
                      "solver_rt": "the last RANSAC round", "E": "the last RANSAC round's polish",
                      "num_inliers": "the last RANSAC round", "num_tight": "the last RANSAC round",
                      "num_ultra_tight": "the last RANSAC round"}
+
+
+def two_pass_mapfree(matcher, reg, batch, image0_reg, image1_reg, uniforms):
+    """The map-free round loop with the regressor whole in every round, as
+    ``mapfree_forward`` ran it before its image-only trunk was hoisted out
+    of the loop: a ``SimpleNamespace`` of the ``MapfreeOutput`` fields the
+    rounds decide."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from far_tpu_torch.pipeline import estimate_pose, mapfree_solver_configs
+
+    first_cfg, refine_cfg = mapfree_solver_configs()
+    m = matcher.match(batch).matches
+    prior_rt = None
+    for i, u in enumerate(uniforms):
+        est = estimate_pose(m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid,
+                            prior_rt=prior_rt, cfg=first_cfg if i == 0 else refine_cfg,
+                            uniforms=u)
+        features = reg.tokens(reg.volume(*reg.encode(image0_reg, image1_reg)))
+        pose_9d = reg.regress(features)
+        counts = torch.stack([est.num_inliers, est.num_tight, est.num_ultra_tight], -1)
+        R, t, _, gate = reg.blend(features, pose_9d, est.rt34, counts)
+        prior_rt = torch.cat([R, t[..., None]], -1)
+    return SimpleNamespace(R=R, t=t, gating=gate, regressed_9d=pose_9d, solver_rt=est.rt34,
+                           E=est.E, num_inliers=est.num_inliers, num_tight=est.num_tight,
+                           num_ultra_tight=est.num_ultra_tight)
 
 
 def compiled_mapfree(dev, card: str) -> dict:
@@ -4575,7 +4606,9 @@ def compiled_mapfree(dev, card: str) -> dict:
     matcher 720x544, regressor 368x272, bf16): (a) the first call (eager
     warm-up, then the capture) counted 16/1/1/0 on K1-K4 and 6
     small_linalg launches by the wrappers, the counters set to 0 before
-    it; (b) two replays under ``set_sync_debug_mode("error")``; (c) two
+    it, and its capture counted one pass of the regressor's trunk
+    (``mapfree.capture.regressor_passes``) and no node in round 1's
+    encode and volume stages; (b) two replays under ``set_sync_debug_mode("error")``; (c) two
     replays more in a profiler trace, which must hold twice a request's
     launches of each hand-written kernel (K1-K3, small_linalg, no fused
     5-point kernel), the wrappers' counters unchanged, and a replay after
@@ -4584,7 +4617,9 @@ def compiled_mapfree(dev, card: str) -> dict:
     a replay and a second batch against the eager ``mapfree_forward`` on
     the same inputs and generator states, every field bit for bit (a field
     that differs is printed with its op and held to the difference of two
-    eager requests), the first output unchanged by the second call; (e)
+    eager requests), the first output unchanged by the second call, and
+    the eager request against ``two_pass_mapfree`` (the regressor whole in
+    every round) on the same draws, every field it returns bit for bit; (e)
     the device ms of each stage (``stage_ms``), the eager and compiled ms
     a request and the graph's pool. Returns the launches of one replayed
     request by kernel."""
@@ -4592,9 +4627,10 @@ def compiled_mapfree(dev, card: str) -> dict:
 
     from far_tpu_torch.models.sixdreg import SixDRegConfig
     from far_tpu_torch.ops.stage_mark import SYMBOL
-    from far_tpu_torch.pipeline import (build_mapfree_fn, init_model, init_sixdreg,
-                                        mapfree_forward, mapfree_stages)
+    from far_tpu_torch.pipeline import (build_mapfree_fn, draw_mapfree_uniforms, init_model,
+                                        init_sixdreg, mapfree_forward, mapfree_stages)
     from far_tpu_torch.tools.profile_forward import synthetic_batch
+    from far_tpu_torch.utils import prof
     from far_tpu_torch.utils.config import FARConfig
 
     fns = counters()
@@ -4627,6 +4663,14 @@ def compiled_mapfree(dev, card: str) -> dict:
     ref1 = eager(0, 3)
     floor = _field_diffs(eager(0, 3), ref1)
     ref2 = eager(1, 4)
+    with torch.inference_mode():
+        looped = two_pass_mapfree(matcher, reg, *inputs[0], draw_mapfree_uniforms(
+            B_MAPFREE, gen.manual_seed(3), dev))
+    differ = {f: max_err(x, getattr(ref1, f)) for f, x in vars(looped).items()
+              if not torch.equal(x, getattr(ref1, f))}
+    if differ:
+        fail(f"{tag}: the trunk run once differs from the regressor run whole every round "
+             f"in {differ} (max abs)")
     eager_ms, eager_runs = _timed(lambda: eager(0, 3))
     torch.cuda.empty_cache()
 
@@ -4634,10 +4678,17 @@ def compiled_mapfree(dev, card: str) -> dict:
     stages = mapfree_stages()
     fn = build_mapfree_fn(matcher, reg)
     reset_counters()
+    before = prof.counters()
     t0 = time.perf_counter()
     first = fn(*inputs[0], generator=gen.manual_seed(3))
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    grew = {k: v - before.get(k, 0) for k, v in prof.counters().items()}
+    trunk = {k: grew.get(f"mapfree.capture.{k}") for k in
+             ("regressor_passes", "nodes.encode.1", "nodes.volume.1")}
+    if trunk != {"regressor_passes": 1, "nodes.encode.1": 0, "nodes.volume.1": 0}:
+        fail(f"{tag}: the capture counted {trunk}, expected one pass of the regressor's "
+             f"trunk and empty encode.1 and volume.1 stages")
     warm = counted()
     if warm != (MAPFREE, small_req, 0):
         fail(f"{tag}: the first call (eager warm-up, then the capture) counted {warm}, "
@@ -4679,7 +4730,9 @@ def compiled_mapfree(dev, card: str) -> dict:
     if list(stage_ms) != list(stages):
         fail(f"{tag}: stage_ms gives {list(stage_ms)}, not the request's stages {stages}")
     print(f"{tag}: replays equal the eager request bit for bit (floor between two eager "
-          f"requests: {floor or 'none'}), no host sync under set_sync_debug_mode('error'), "
+          f"requests: {floor or 'none'}), the eager request equals the regressor run whole "
+          f"every round bit for bit ({', '.join(vars(looped))}), the capture counted "
+          f"{trunk}, no host sync under set_sync_debug_mode('error'), "
           f"two batches unaliased; the first call's warm-up counted {warm[0]} + small_linalg "
           f"{warm[1]}, two replays' profiler trace {got} + small_linalg {got_small}, fused "
           f"5-point {got_five}, stage marks {marks} of {2 * len(stamps)} (tensor cores "

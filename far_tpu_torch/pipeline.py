@@ -34,8 +34,8 @@ from far_tpu_torch.types import FarOutput, MapfreeOutput, PairBatch, SolverSumma
 from far_tpu_torch.utils.config import FARConfig
 from far_tpu_torch.utils.convert_weights import init_weights
 from far_tpu_torch.utils.prof import (
-    BACKBONE, COARSE, EMM, FINE, MATCH, REQUEST_MARK, MarkSink, add_counter, encode_mark, mark,
-    marking, round_mark, solve_mark, volume_mark)
+    BACKBONE, COARSE, EMM, FINE, MATCH, REGRESSOR_PASSES, REQUEST_MARK, MarkSink, add_counter,
+    encode_mark, mark, marking, round_mark, solve_mark, tally, volume_mark)
 
 
 def make_solver_configs(cfg: FARConfig) -> Tuple[SolverConfig, SolverConfig]:
@@ -186,7 +186,10 @@ def mapfree_stages(fine_pred_steps: int = 2) -> Tuple[str, ...]:
     its name after ``REQUEST_MARK``: the matcher's backbone, coarse
     transformer (K1), coarse match (K2) and fine stage (K3); then in each
     round the solver, the ResUNet on both images, the correlation volume
-    with the head, and the transformer with the pose MLP and the MoE."""
+    with the head, and the transformer with the pose MLP and the MoE
+    (``mapfree_forward`` runs the regressor's trunk in round 0 alone, so
+    a later round's ``encode`` and ``volume`` stages hold nothing and its
+    last stage is the MoE)."""
     rounds = tuple(m(i) for i in range(fine_pred_steps)
                    for m in (solve_mark, encode_mark, volume_mark, round_mark))
     return (BACKBONE, COARSE, MATCH, FINE) + rounds
@@ -208,9 +211,15 @@ def mapfree_forward(
 
     Round 0 solves with plain RANSAC under MAGSAC scoring (the
     reference's cv2 USAC_MAGSAC); each later round with the prior-biased
-    engine around the previous fused [R|t]. The regressor runs whole in
-    every round, as the JAX package's does. The start and the end of each
-    of ``mapfree_stages`` are marked (``utils.prof.mark``).
+    engine around the previous fused [R|t]. The regressor's trunk (the
+    ResUNet, volume, head, transformer and pose MLP) reads the regressor
+    pair alone, so it runs once, in round 0 (tallied as
+    ``REGRESSOR_PASSES``); each round then blends its pose with the
+    round's solver pose (the MoE), as ``far_forward`` fuses its EMM
+    features. The JAX package runs the regressor whole in every round, to
+    the same result. The start and the end of each of ``mapfree_stages``
+    are marked (``utils.prof.mark``); a later round's ``encode`` and
+    ``volume`` marks follow its ``solve`` mark at once.
 
     Args:
         batch: the matcher-resolution grayscale pair with intrinsics.
@@ -231,19 +240,24 @@ def mapfree_forward(
     first_cfg, refine_cfg = mapfree_solver_configs(pixel_thr)
     mark(REQUEST_MARK)
     m = matcher.match(batch).matches
-    prior_rt = None
+    prior_rt = features = None
     for i in range(fine_pred_steps):
         est = estimate_pose(
             m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid, prior_rt=prior_rt,
             cfg=first_cfg if i == 0 else refine_cfg, prior_pcl=prior_pcl,
             uniforms=uniforms[i])
         mark(solve_mark(i))
-        vols = reg_model.encode(image0_reg, image1_reg)
-        mark(encode_mark(i))
-        grid = reg_model.volume(*vols)
-        mark(volume_mark(i))
-        features = reg_model.tokens(grid)
-        pose_9d = reg_model.regress(features)
+        if features is None:  # the image-only trunk, once a request
+            tally(REGRESSOR_PASSES)
+            vols = reg_model.encode(image0_reg, image1_reg)
+            mark(encode_mark(i))
+            grid = reg_model.volume(*vols)
+            mark(volume_mark(i))
+            features = reg_model.tokens(grid)
+            pose_9d = reg_model.regress(features)
+        else:
+            mark(encode_mark(i))
+            mark(volume_mark(i))
         counts = torch.stack([est.num_inliers, est.num_tight, est.num_ultra_tight], -1)
         R, t, _, gate = reg_model.blend(features, pose_9d, est.rt34, counts)
         prior_rt = torch.cat([R, t[..., None]], -1)
@@ -407,8 +421,10 @@ class CompiledRequest:
     (``utils.prof.counters``, summed over signatures):
     ``<prefix>.capture.warmup_s`` (the warm-up to its synchronize),
     ``<prefix>.capture.record_s`` (the capture with the graph's
-    instantiation) and ``<prefix>.capture.nodes.<stage>`` (the stage's
-    operation nodes: kernels, copies and memsets, marks left out)."""
+    instantiation), ``<prefix>.capture.nodes.<stage>`` (the stage's
+    operation nodes: kernels, copies and memsets, marks left out) and
+    ``<prefix>.capture.<name>`` for each name the captured request tallied
+    (``utils.prof.tally``: the map-free request's ``regressor_passes``)."""
 
     def __init__(self, forward: Callable, modules: Sequence[torch.nn.Module],
                  stages: Callable[[], Tuple[str, ...]], draw: Callable,
@@ -506,6 +522,8 @@ class CompiledRequest:
         for i, stage in enumerate(stages, 1):  # the nodes between two marks
             add_counter(f"{self.prefix}.capture.nodes.{stage}",
                         sink.nodes[i] - sink.nodes[i - 1] - 1)
+        for name, n in sink.tallies.items():
+            add_counter(f"{self.prefix}.capture.{name}", n)
         self.graphs[key] = self._last = _Captured(
             graph, static, static_u, static_pcl, static_out,
             torch.cuda.memory_reserved(device) - reserved, stages, slots)
@@ -534,7 +552,8 @@ def build_mapfree_fn(matcher: FARLoFTR,
     signature on a card, the counterpart of the JAX package's
     ``jax.jit(mapfree_forward)``; the eager ``mapfree_forward`` on the
     CPU), with ``mapfree_forward``'s defaults: two rounds, MAGSAC at 2 px.
-    Its counters are ``mapfree.capture.*``."""
+    Its counters are ``mapfree.capture.*``, ``regressor_passes`` among
+    them (1 a signature)."""
     return CompiledRequest(
         lambda batch, image0_reg, image1_reg, **kw: mapfree_forward(
             matcher, reg_model, batch, image0_reg, image1_reg, **kw),

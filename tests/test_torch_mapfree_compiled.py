@@ -10,9 +10,11 @@ modules and into the benchmark's plain float32 references
 (``h100bench/reference/sixdreg.py``, ``far.py``), and each module of
 ``MapfreeRegression`` and the whole request are held to them with the
 same draws. Then what the graph relies on: the draws taken outside equal
-the eager ones, the request marks its stages in order, and on the CPU a
-call is the eager request. The card test (a replay against the eager
-request, bit for bit) is marked ``cuda`` and skips here.
+the eager ones, the regressor's trunk runs once a request to the answer
+of the loop that ran it every round, the request marks its stages in
+order, and on the CPU a call is the eager request. The card test (a
+replay against the eager request, bit for bit) is marked ``cuda`` and
+skips here.
 """
 
 import dataclasses
@@ -302,6 +304,59 @@ def test_uniforms_drawn_outside_are_the_eager_draws(request_models, monkeypatch)
         pipeline.mapfree_forward(matcher, reg, batch, r0, r1, uniforms=drawn[:1])
 
 
+def _two_pass(matcher, reg_model, batch, image0_reg, image1_reg, uniforms):
+    """The round loop with the regressor whole in every round, as the
+    request ran it before its trunk was hoisted (and as the JAX package
+    runs it): the fields of ``MapfreeOutput`` the rounds decide."""
+    first_cfg, refine_cfg = pipeline.mapfree_solver_configs()
+    m = matcher.match(batch).matches
+    prior_rt = None
+    for i, u in enumerate(uniforms):
+        est = pipeline.estimate_pose(
+            m.mkpts0_f, m.mkpts1_f, batch.K0, batch.K1, m.valid, prior_rt=prior_rt,
+            cfg=first_cfg if i == 0 else refine_cfg, uniforms=u)
+        vols = reg_model.encode(image0_reg, image1_reg)
+        features = reg_model.tokens(reg_model.volume(*vols))
+        pose_9d = reg_model.regress(features)
+        counts = torch.stack([est.num_inliers, est.num_tight, est.num_ultra_tight], -1)
+        R, t, _, gate = reg_model.blend(features, pose_9d, est.rt34, counts)
+        prior_rt = torch.cat([R, t[..., None]], -1)
+    return SimpleNamespace(R=R, t=t, gating=gate, regressed_9d=pose_9d, solver_rt=est.rt34,
+                           num_inliers=est.num_inliers, num_tight=est.num_tight,
+                           num_ultra_tight=est.num_ultra_tight)
+
+
+def _recording(events, real, name=None):
+    """``real`` (a method) that first appends ``name`` to ``events``, or,
+    without a name, its first argument (a mark's stage)."""
+    def call(self, *a, **kw):
+        events.append(name or a[0])
+        return real(self, *a, **kw)
+    return call
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 3])
+def test_trunk_once_answers_as_every_round(rounds, request_models, monkeypatch):
+    """``mapfree_forward`` runs the regressor's image-only trunk once,
+    whatever the number of rounds, and answers bit for bit as the loop
+    that runs it whole in every round, on the same draws."""
+    (matcher, reg), _, batch, r0, r1 = request_models
+    u = pipeline.draw_mapfree_uniforms(2, torch.Generator().manual_seed(13),
+                                       fine_pred_steps=rounds)
+    with torch.inference_mode():
+        want = _two_pass(matcher, reg, batch, r0, r1, u)
+    passes = []
+    monkeypatch.setattr(MapfreeRegression, "encode",
+                        _recording(passes, MapfreeRegression.encode, "encode"))
+    with torch.inference_mode():
+        out = pipeline.mapfree_forward(matcher, reg, batch, r0, r1, uniforms=u,
+                                       fine_pred_steps=rounds)
+    assert passes == ["encode"]
+    for f in ("R", "t", "gating", "regressed_9d", "solver_rt", "num_inliers", "num_tight",
+              "num_ultra_tight"):
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+
+
 def test_mapfree_needs_a_round():
     """A request of no solver round has no pose to return: it raises before
     any work."""
@@ -309,19 +364,31 @@ def test_mapfree_needs_a_round():
         pipeline.mapfree_forward(None, None, None, None, None, fine_pred_steps=0)
 
 
-def test_mapfree_marks_its_stages_in_order(request_models):
+def test_mapfree_marks_its_stages_in_order(request_models, monkeypatch):
     """Under a sink, the request marks its start, the matcher's four
-    stages, then four marks a round: solve, encode, volume, round."""
+    stages, then four marks a round: solve, encode, volume, round. Round
+    1 runs no trunk: its encode and volume marks come straight after its
+    solve mark, and the sink tallies one regressor pass."""
     (matcher, reg), _, batch, r0, r1 = request_models
     stages = pipeline.mapfree_stages(2)
     assert stages == ("backbone", "coarse", "match", "fine", "solve.0", "encode.0", "volume.0",
                       "round.0", "solve.1", "encode.1", "volume.1", "round.1")
     slots = torch.zeros(len(stages) + 1, dtype=torch.int64)
+    events = []
+    for name in ("encode", "volume", "tokens", "regress", "blend"):
+        monkeypatch.setattr(MapfreeRegression, name,
+                            _recording(events, getattr(MapfreeRegression, name), name))
+    monkeypatch.setattr(tprof.MarkSink, "mark", _recording(events, tprof.MarkSink.mark))
     with torch.inference_mode(), tprof.marking(tprof.MarkSink(slots)) as sink:
         pipeline.mapfree_forward(matcher, reg, batch, r0, r1,
                                  generator=torch.Generator().manual_seed(0))
     assert sink.names == [tprof.REQUEST_MARK, *stages]
     assert bool((slots > 0).all()) and bool((slots.diff() >= 0).all())
+    rounds = events[events.index("fine") + 1:]
+    assert rounds == ["solve.0", "encode", "encode.0", "volume", "volume.0", "tokens",
+                      "regress", "blend", "round.0", "solve.1", "encode.1", "volume.1",
+                      "blend", "round.1"]
+    assert sink.tallies == {tprof.REGRESSOR_PASSES: 1}
 
 
 def test_compiled_mapfree_on_the_cpu_is_eager(request_models):
@@ -373,7 +440,8 @@ def test_compiled_mapfree_on_card(card):
     """build_mapfree_fn at small widths on the card: the first call
     captures, its marks in order; a replay under set_sync_debug_mode
     ("error") equals the eager mapfree_forward from the same generator
-    state bit for bit; the capture counts under mapfree.capture.*."""
+    state bit for bit; the capture counts under mapfree.capture.*: one
+    regressor pass, no node in round 1's encode and volume stages."""
     matcher = FARLoFTR(MATCHER).to(card).eval()
     reg = MapfreeRegression(SixDRegConfig(**SMALL)).to(card).eval()
     img0, img1, K, r0, r1, _ = make_pairs(2, MATCHER.image_size,
@@ -387,9 +455,14 @@ def test_compiled_mapfree_on_card(card):
     fn = pipeline.build_mapfree_fn(matcher, reg)
     before = tprof.counters()
     fn(batch, r0, r1, generator=gen.manual_seed(2))
-    grew = {k for k, v in tprof.counters().items() if v != before.get(k)}
-    assert {f"mapfree.capture.nodes.{s}" for s in pipeline.mapfree_stages(2)} < grew
+    after = tprof.counters()
+    grew = {k for k, v in after.items() if v != before.get(k)}
+    empty = ("encode.1", "volume.1")  # round 1 runs no trunk
+    assert {f"mapfree.capture.nodes.{s}" for s in pipeline.mapfree_stages(2)
+            if s not in empty} < grew
     assert not any(k.startswith("far.") for k in grew)
+    for k, n in (("regressor_passes", 1), *((f"nodes.{s}", 0) for s in empty)):
+        assert after[f"mapfree.capture.{k}"] - before.get(f"mapfree.capture.{k}", 0) == n, k
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = fn(batch, r0, r1, generator=gen.manual_seed(2))
