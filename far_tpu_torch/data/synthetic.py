@@ -9,7 +9,9 @@ sample also names its scene, its pair (``pair_names``, which validation
 joins into the pair's identifier) and its dataset. ``collate`` stacks
 samples into a ``PairBatch`` on a device. ``GTCorrespondenceDataset``
 and ``SolverPoseDataset`` are numpy copies of the JAX package's wrappers
-that feed the family trainers (same per-index seeds).
+that feed the family trainers (same per-index seeds). ``synthetic_batch``
+makes a ``PairBatch`` of smooth random images at once, for requests that
+need no ground truth.
 """
 
 from __future__ import annotations
@@ -218,3 +220,17 @@ def collate(samples: Sequence[Dict], device=None) -> Tuple[PairBatch, torch.Tens
     there."""
     batch = to_device(collate_pairs(list(samples)), device)
     return batch, batch.T_0to1
+
+
+def synthetic_batch(B: int, H: int, W: int, device, seed: int = 0) -> PairBatch:
+    """Smooth random images, image 1 a shifted crop of image 0, with
+    intrinsics of focal length 517.97 px centred in the image."""
+    g = torch.Generator().manual_seed(seed)
+    low = torch.rand(B, 1, H // 8 + 2, W // 8 + 2, generator=g)
+    img = torch.nn.functional.interpolate(low, size=(H + 16, W + 32),
+                                          mode="bilinear", align_corners=True)
+    K = torch.tensor([[517.97, 0.0, W / 2.0], [0.0, 517.97, H / 2.0],
+                      [0.0, 0.0, 1.0]]).expand(B, 3, 3).contiguous()
+    nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous().to(device)
+    return PairBatch(image0=nhwc(img[:, :, :H, :W]), image1=nhwc(img[:, :, 16:, 32:]),
+                     K0=K.to(device), K1=K.to(device))

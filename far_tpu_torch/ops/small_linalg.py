@@ -18,7 +18,7 @@ how). The plain versions are ``torch.linalg.eigh`` and
 the sweep counts.
 
 What the kernels match (``tests/test_torch_graph.py``; on the card
-``tests/test_torch_hopper.py`` and ``chip_smoke.py`` phase 19 (g)):
+``tests/test_torch_hopper.py``; ``chip_smoke.py`` phase 3 times them):
 eigenvalues ascending and eigenvectors up to sign as ``torch.linalg.eigh``
 gives them; singular values descending, U and V up to a common sign per
 column; the products ``(U S) Vh`` the 8-point solver forms within

@@ -34,8 +34,8 @@ from far_tpu_torch.types import FarOutput, MapfreeOutput, PairBatch, SolverSumma
 from far_tpu_torch.utils.config import FARConfig
 from far_tpu_torch.utils.convert_weights import init_weights
 from far_tpu_torch.utils.prof import (
-    BACKBONE, COARSE, EMM, FINE, MATCH, REGRESSOR_PASSES, REQUEST_MARK, MarkSink, add_counter,
-    encode_mark, mark, marking, round_mark, solve_mark, tally, volume_mark)
+    BACKBONE, COARSE, EMM, FINE, MATCH, REQUEST_MARK, MarkSink, add_counter, encode_mark, mark,
+    marking, round_mark, solve_mark, volume_mark)
 
 
 def make_solver_configs(cfg: FARConfig) -> Tuple[SolverConfig, SolverConfig]:
@@ -213,13 +213,12 @@ def mapfree_forward(
     reference's cv2 USAC_MAGSAC); each later round with the prior-biased
     engine around the previous fused [R|t]. The regressor's trunk (the
     ResUNet, volume, head, transformer and pose MLP) reads the regressor
-    pair alone, so it runs once, in round 0 (tallied as
-    ``REGRESSOR_PASSES``); each round then blends its pose with the
-    round's solver pose (the MoE), as ``far_forward`` fuses its EMM
-    features. The JAX package runs the regressor whole in every round, to
-    the same result. The start and the end of each of ``mapfree_stages``
-    are marked (``utils.prof.mark``); a later round's ``encode`` and
-    ``volume`` marks follow its ``solve`` mark at once.
+    pair alone, so it runs once, in round 0; each round then blends its
+    pose with the round's solver pose (the MoE), as ``far_forward`` fuses
+    its EMM features. The JAX package runs the regressor whole in every
+    round, to the same result. The start and the end of each of
+    ``mapfree_stages`` are marked (``utils.prof.mark``); a later round's
+    ``encode`` and ``volume`` marks follow its ``solve`` mark at once.
 
     Args:
         batch: the matcher-resolution grayscale pair with intrinsics.
@@ -248,7 +247,6 @@ def mapfree_forward(
             uniforms=uniforms[i])
         mark(solve_mark(i))
         if features is None:  # the image-only trunk, once a request
-            tally(REGRESSOR_PASSES)
             vols = reg_model.encode(image0_reg, image1_reg)
             mark(encode_mark(i))
             grid = reg_model.volume(*vols)
@@ -421,10 +419,8 @@ class CompiledRequest:
     (``utils.prof.counters``, summed over signatures):
     ``<prefix>.capture.warmup_s`` (the warm-up to its synchronize),
     ``<prefix>.capture.record_s`` (the capture with the graph's
-    instantiation), ``<prefix>.capture.nodes.<stage>`` (the stage's
-    operation nodes: kernels, copies and memsets, marks left out) and
-    ``<prefix>.capture.<name>`` for each name the captured request tallied
-    (``utils.prof.tally``: the map-free request's ``regressor_passes``)."""
+    instantiation) and ``<prefix>.capture.nodes.<stage>`` (the stage's
+    operation nodes: kernels, copies and memsets, marks left out)."""
 
     def __init__(self, forward: Callable, modules: Sequence[torch.nn.Module],
                  stages: Callable[[], Tuple[str, ...]], draw: Callable,
@@ -522,8 +518,6 @@ class CompiledRequest:
         for i, stage in enumerate(stages, 1):  # the nodes between two marks
             add_counter(f"{self.prefix}.capture.nodes.{stage}",
                         sink.nodes[i] - sink.nodes[i - 1] - 1)
-        for name, n in sink.tallies.items():
-            add_counter(f"{self.prefix}.capture.{name}", n)
         self.graphs[key] = self._last = _Captured(
             graph, static, static_u, static_pcl, static_out,
             torch.cuda.memory_reserved(device) - reserved, stages, slots)
@@ -552,8 +546,7 @@ def build_mapfree_fn(matcher: FARLoFTR,
     signature on a card, the counterpart of the JAX package's
     ``jax.jit(mapfree_forward)``; the eager ``mapfree_forward`` on the
     CPU), with ``mapfree_forward``'s defaults: two rounds, MAGSAC at 2 px.
-    Its counters are ``mapfree.capture.*``, ``regressor_passes`` among
-    them (1 a signature)."""
+    Its counters are ``mapfree.capture.*``."""
     return CompiledRequest(
         lambda batch, image0_reg, image1_reg, **kw: mapfree_forward(
             matcher, reg_model, batch, image0_reg, image1_reg, **kw),

@@ -42,23 +42,9 @@ import torch
 
 import far_tpu_torch.models.loftr as loftr_mod
 import far_tpu_torch.pipeline as pipeline_mod
+from far_tpu_torch.data.synthetic import synthetic_batch
 from far_tpu_torch.pipeline import build_inference_fn, init_model
-from far_tpu_torch.types import PairBatch
 from far_tpu_torch.utils.config import FARConfig, SolverOptions
-
-
-def synthetic_batch(B: int, H: int, W: int, device, seed: int = 0) -> PairBatch:
-    """Smooth random images, image 1 a shifted crop of image 0, with
-    intrinsics of focal length 517.97 px centred in the image."""
-    g = torch.Generator().manual_seed(seed)
-    low = torch.rand(B, 1, H // 8 + 2, W // 8 + 2, generator=g)
-    img = torch.nn.functional.interpolate(low, size=(H + 16, W + 32),
-                                          mode="bilinear", align_corners=True)
-    K = torch.tensor([[517.97, 0.0, W / 2.0], [0.0, 517.97, H / 2.0],
-                      [0.0, 0.0, 1.0]]).expand(B, 3, 3).contiguous()
-    nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous().to(device)
-    return PairBatch(image0=nhwc(img[:, :, :H, :W]), image1=nhwc(img[:, :, 16:, 32:]),
-                     K0=K.to(device), K1=K.to(device))
 
 
 class StageTimer:

@@ -23,14 +23,9 @@ that to XLA's profiler:
   ``encode_mark(i)``, ``volume_mark(i)`` and ``round_mark(i)``
   (``pipeline.mapfree_stages``). With no sink (eager calls, the CPU,
   training) it returns at once.
-- ``tally(name)``: one more ``name`` in the request under the active
-  sink (``MarkSink.tallies``), nothing without one: the map-free request
-  tallies each pass of the 6DReg regressor's image-only trunk
-  (``REGRESSOR_PASSES``).
 - ``counters()``: numbers the capture writes (its seconds, each stage's
-  operation nodes and each tally of the captured request, under the
-  request's prefix: ``far.capture.*``, ``mapfree.capture.*``); a replay
-  writes none.
+  operation nodes, under the request's prefix: ``far.capture.*``,
+  ``mapfree.capture.*``); a replay writes none.
 """
 
 from __future__ import annotations
@@ -147,25 +142,17 @@ def volume_mark(i: int) -> str:
     return f"volume.{i}"
 
 
-# map-free: the tally of the 6DReg regressor's image-only trunk (the
-# ResUNet on both images, the volume, the head, the transformer, the pose
-# MLP), once a request
-REGRESSOR_PASSES = "regressor_passes"
-
-
 class MarkSink:
     """Where ``mark`` goes while the sink is active: a device mark each
     (``ops/stage_mark``) that writes its clock to its slot of ``slots``
-    (int64, one slot a mark), the marks' names in order (``names``), the
+    (int64, one slot a mark), the marks' names in order (``names``) and the
     operation nodes (kernels, copies, memsets) the capturing graph held
-    before each (``nodes``: -1 outside a capture) and the count of each
-    name ``tally`` was given (``tallies``)."""
+    before each (``nodes``: -1 outside a capture)."""
 
     def __init__(self, slots: torch.Tensor):
         self.slots = slots
         self.names: List[str] = []
         self.nodes: List[int] = []
-        self.tallies: Dict[str, int] = {}
 
     def mark(self, stage: str) -> None:
         from far_tpu_torch.ops.stage_mark import stage_mark
@@ -193,13 +180,6 @@ def mark(stage: str) -> None:
     sink is active, nothing otherwise."""
     if _SINK is not None:
         _SINK.mark(stage)
-
-
-def tally(name: str) -> None:
-    """One more ``name`` in the active sink's ``tallies``; nothing where
-    no sink is active."""
-    if _SINK is not None:
-        _SINK.tallies[name] = _SINK.tallies.get(name, 0) + 1
 
 
 _COUNTERS: Dict[str, float] = {}

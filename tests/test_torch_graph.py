@@ -12,7 +12,7 @@ state take the same draws; the polish's eigensolver and 3x3 SVD
 (device, dtype); the signature; and ``build_inference_fn`` against the
 JAX package's jitted one. The card tests (graph replay against the eager
 request, the kernels against ``torch.linalg``) are in
-``tests/test_torch_hopper.py``; ``chip_smoke.py`` phase 19 runs the
+``tests/test_torch_hopper.py``; ``chip_smoke.py`` phase 4 runs the
 compiled request at full size.
 """
 

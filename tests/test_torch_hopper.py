@@ -388,7 +388,8 @@ def test_loftr_layer_bf16_route_on_card(card, B, L, S, C, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,S,C,H", [(2, 300, 200, 32, 4), (1, 257, 130, 96, 4),
-                                       (1, 64, 64, 32, 8)])
+                                       (1, 64, 64, 32, 8), (2, 4800, 4800, 32, 4),
+                                       (2, 4800, 4800, 96, 4)])
 def test_loftr_layer_bf16_outside_the_set_takes_cuda_cores(card, B, L, S, C, H):
     """bf16 shapes the tensor-core route is not built for (C = 32, the
     guard's coarse stack; C = 96 with a head width of 24) run the
@@ -409,29 +410,30 @@ def test_loftr_layer_bf16_outside_the_set_takes_cuda_cores(card, B, L, S, C, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,D", [(1, 1000, 64), (1, 203, 64), (2, 300, 8),
-                                   (1, 257, 16), (1, 130, 32)])
-def test_bilinear_bf16_route_on_card(card, B, N, D):
+@pytest.mark.parametrize("B,N,D,Dv", [(1, 1000, 64, 70), (1, 203, 64, 70), (2, 300, 8, 14),
+                                      (1, 257, 16, 22), (1, 130, 32, 38), (1, 37, 16, 13),
+                                      (1, 130, 64, 72)])
+def test_bilinear_bf16_route_on_card(card, B, N, D, Dv):
     """Tolerance 1e-2 max|ref|: the kernel rounds P and H = G / csum to
     bf16 (2^-9 relative each, random in sign) before sums over N."""
     g = torch.Generator().manual_seed(N + D)
     q, k = (torch.randn(B, 4, N, D, generator=g).to(card, torch.bfloat16)
             for _ in range(2))
-    v = torch.randn(B, 4, N, D + 6, generator=g).to(card, torch.bfloat16)
+    v = torch.randn(B, 4, N, Dv, generator=g).to(card, torch.bfloat16)
     scale = D ** -0.5
     ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), scale)
     before = bilinear_dual_softmax.launches_tc
     out = bilinear_dual_softmax(q, k, v, scale)
     torch.cuda.synchronize()
     assert bilinear_dual_softmax.launches_tc == before + 1
-    assert out.shape == (B, 4, D + 6, D + 6)
+    assert out.shape == (B, 4, Dv, Dv)
     err = float((out - ref).abs().max())
     assert err <= 1e-2 * float(ref.abs().max()), err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,Dv", [(1, 300, 128, 128), (2, 257, 64, 80),
-                                      (1, 130, 96, 40)])
+                                      (1, 130, 96, 40), (2, 4800, 128, 128)])
 def test_bilinear_bf16_outside_the_set_takes_cuda_cores(card, B, N, D, Dv):
     """bf16 with D > 64 or Dv > 72 runs the CUDA-core kernel (launches_tc
     unchanged); it rounds P and H to bf16 as the tensor-core route does,
@@ -513,7 +515,8 @@ def test_loftr_layer_f32_tf32_route_on_card(card, B, L, S, C, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,N,D,Dv", [(2, 4, 4800, 64, 70), (1, 4, 1000, 64, 70),
                                         (4, 3, 576, 64, 70), (1, 2, 37, 16, 13),
-                                        (1, 1, 130, 64, 72), (2, 4, 203, 8, 14)])
+                                        (1, 1, 130, 64, 72), (2, 4, 203, 8, 14),
+                                        (1, 4, 37, 16, 13), (1, 4, 130, 64, 72)])
 def test_bilinear_f32_tf32_route_on_card(card, B, H, N, D, Dv):
     """float32 on the 3xTF32 route (launches_tf32 + 1), 1e-4 max|ref|
     against the plain version in strict float32, deterministic run to run."""
@@ -532,12 +535,14 @@ def test_bilinear_f32_tf32_route_on_card(card, B, H, N, D, Dv):
 
 
 @pytest.mark.cuda
-def test_f32_outside_the_tf32_sets_takes_cuda_cores(card):
+@pytest.mark.parametrize("L,B4,H4,N", [(300, 1, 2, 257), (4800, 2, 4, 4800)])
+def test_f32_outside_the_tf32_sets_takes_cuda_cores(card, L, B4, H4, N):
     """float32 shapes the 3xTF32 routes are not built for (K1 C = 32, the
-    guard's coarse stack; K4 D = 128) run the CUDA-core kernels:
-    launches + 1, launches_tf32 and launches_tc unchanged."""
+    guard's coarse stack, at B = 2 and L = S = ``L``; K4 D = 128 at
+    (``B4``, ``H4``, ``N``)) run the CUDA-core kernels: launches + 1,
+    launches_tf32 and launches_tc unchanged."""
     g = torch.Generator().manual_seed(5)
-    x, src = (torch.randn(2, 300, 32, generator=g).to(card) for _ in range(2))
+    x, src = (torch.randn(2, L, 32, generator=g).to(card) for _ in range(2))
     p = _params(32, g, card)
     counts = (loftr_layer.launches, loftr_layer.launches_tc, loftr_layer.launches_tf32)
     out = loftr_layer(x, src, pack_params(p, torch.float32), 4)
@@ -546,7 +551,7 @@ def test_f32_outside_the_tf32_sets_takes_cuda_cores(card):
         counts[0] + 1, counts[1], counts[2])
     ref = loftr_layer_plain(x, src, p, 4)
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
-    q, k, v = (torch.randn(1, 2, 257, 128, generator=g).to(card) for _ in range(3))
+    q, k, v = (torch.randn(B4, H4, N, 128, generator=g).to(card) for _ in range(3))
     f = bilinear_dual_softmax
     counts = (f.launches, f.launches_tc, f.launches_tf32)
     out = f(q, k, v, 128 ** -0.5)
@@ -635,7 +640,8 @@ def test_fine_transformer_f32_tf32_route_on_card(card, n, s, C, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,C,H", [(5, 25, 256, 8), (3, 81, 128, 8), (5, 25, 128, 16),
                                      (4, 25, 128, 2), (9, 25, 32, 4), (6, 9, 128, 8),
-                                     (5, 21, 128, 8), (5, 21, 128, 4)])
+                                     (5, 21, 128, 8), (5, 21, 128, 4), (2048, 25, 256, 8),
+                                     (2048, 81, 128, 8)])
 def test_fine_transformer_f32_outside_the_tf32_set_takes_cuda_cores(card, n, s, C, H):
     """float32 shapes the 3xTF32 route is not built for (C = 256 or 32, s =
     81, a head width of 8 or 64, s <= 21: more than 2 windows a block,
@@ -724,15 +730,18 @@ def test_bare_wrappers_refuse_grad_and_auto_forms_train(card, dtype):
 def test_loftr_layer_at_mapfree_tokens(card, dtype):
     """K1 at L = S = 6120, the coarse tokens of a 720x544 map-free matcher
     image (90x68; 6120 is not a multiple of 64), C = 256, 8 heads: f32 on
-    the CUDA cores to 1e-4 max|ref|, bf16 on the tensor cores to 6e-2."""
+    the 3xTF32 tensor-core route to 1e-4 max|ref|, bf16 on the tensor
+    cores to 6e-2."""
     g = torch.Generator().manual_seed(6120)
     x, src = (torch.randn(2, 6120, 256, generator=g).to(card, dtype) for _ in range(2))
     p = _params(256, g, card)
     ref = loftr_layer_plain(x.float(), src.float(), p, 8)
-    before = loftr_layer.launches_tc
+    before = (loftr_layer.launches_tc, loftr_layer.launches_tf32)
     out = loftr_layer(x, src, pack_params(p, dtype), 8)
     torch.cuda.synchronize()
-    assert loftr_layer.launches_tc == before + (dtype == torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
+    assert (loftr_layer.launches_tc, loftr_layer.launches_tf32) == (
+        before[0] + bf16, before[1] + (not bf16))
     tol = (1e-4 if dtype == torch.float32 else 6e-2) * float(ref.abs().max())
     assert float((out.float() - ref).abs().max()) <= tol
 
@@ -768,15 +777,18 @@ def test_dual_softmax_at_mapfree_tokens(card, dtype):
 def test_bilinear_at_vitess_tokens(card, dtype):
     """K4 as ViTEss's CrossBlock runs it: B = 4, 3 heads, N = 24 x 24 = 576,
     D = 64, Dv = 70 (v padded to 72 on the tensor-core route); f32 on the
-    CUDA cores to 1e-4 max|ref|, bf16 on the tensor cores to 1e-2."""
+    3xTF32 tensor-core route to 1e-4 max|ref|, bf16 on the tensor cores to
+    1e-2."""
     g = torch.Generator().manual_seed(576)
     q, k = (torch.randn(4, 3, 576, 64, generator=g).to(card, dtype) for _ in range(2))
     v = torch.randn(4, 3, 576, 70, generator=g).to(card, dtype)
     ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
-    before = bilinear_dual_softmax.launches_tc
-    out = bilinear_dual_softmax(q, k, v, 0.125)
+    f = bilinear_dual_softmax
+    before = (f.launches_tc, f.launches_tf32)
+    out = f(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert bilinear_dual_softmax.launches_tc == before + (dtype == torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
+    assert (f.launches_tc, f.launches_tf32) == (before[0] + bf16, before[1] + (not bf16))
     assert out.shape == (4, 3, 70, 70)
     tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(ref.abs().max())
     assert float((out - ref).abs().max()) <= tol
@@ -786,8 +798,9 @@ def test_bilinear_at_vitess_tokens(card, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bilinear_auto_at_vitess_train_shape(card, dtype):
     """K4 as a ViTEss training step runs it, B = 6 (the interiornet
-    preset's batch), 3 heads, N = 576, D = 64, Dv = 70: the wrapper against
-    the plain version (f32 1e-4 max|ref|, bf16 1e-2), and
+    preset's batch), 3 heads, N = 576, D = 64, Dv = 70: the wrapper on its
+    tensor-core route (f32: 3xTF32) against the plain version (f32 1e-4
+    max|ref|, bf16 1e-2), and
     bilinear_dual_softmax_auto's output equal to the wrapper's with its
     gradients within 1e-5 max|ref| of autograd through the plain version
     (what its backward recomputes below N = 1024) on the card."""
@@ -798,10 +811,12 @@ def test_bilinear_auto_at_vitess_train_shape(card, dtype):
     v = torch.randn(6, 3, 576, 70, generator=g).to(card, dtype)
     cot = torch.randn(6, 3, 70, 70, generator=g).to(card)
     ref = bilinear_dual_softmax_plain(q.float(), k.float(), v.float(), 0.125)
-    before = bilinear_dual_softmax.launches_tc
-    out = bilinear_dual_softmax(q, k, v, 0.125)
+    f = bilinear_dual_softmax
+    before = (f.launches_tc, f.launches_tf32)
+    out = f(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert bilinear_dual_softmax.launches_tc == before + (dtype == torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
+    assert (f.launches_tc, f.launches_tf32) == (before[0] + bf16, before[1] + (not bf16))
     tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(ref.abs().max())
     assert float((out - ref).abs().max()) <= tol
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -893,7 +908,7 @@ def test_eigh_small_on_card(card, B, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 4, 2051])
+@pytest.mark.parametrize("B", [1, 4, 7, 2051])
 def test_svd3_on_card(card, B):
     """far_svd3 against torch.linalg.svd on 3x3 matrices of singular values
     (1, [0.3, 1], [0, 1e-3]), the polish's kind: singular values
@@ -950,21 +965,22 @@ def test_svd3_nearly_rank1_on_card(card, ratio):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("solver", ["5pt", "8pt"])
-def test_compiled_request_on_card(card, solver, tmp_path):
-    """build_inference_fn at a small width on the card: the first call
-    captures, a replay equals the eager far_forward from the same
-    generator state bit for bit, with no host sync under
-    set_sync_debug_mode("error"). The first call's warm-up adds one
+def test_compiled_request_on_card(card, solver, dtype, tmp_path):
+    """build_inference_fn at a small width on the card, in float32 and
+    bfloat16: the first call captures, a replay equals the eager
+    far_forward from the same generator state bit for bit, with no host
+    sync under set_sync_debug_mode("error"). The first call's warm-up adds one
     request's launches to the counters; a replay runs no wrapper and adds
     none, and a profiler trace of it shows the polish's small-matrix
     kernels as often as the warm-up launched them."""
     import dataclasses
 
+    from far_tpu_torch.data.synthetic import synthetic_batch
     from far_tpu_torch.ops import launch_counts
     from far_tpu_torch.ops.small_linalg import eigh_small, svd3
     from far_tpu_torch.pipeline import build_inference_fn, far_forward, init_model
-    from far_tpu_torch.tools.profile_forward import synthetic_batch
     from far_tpu_torch.utils.config import (
         AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
         RegressConfig, SolverOptions)
@@ -975,7 +991,7 @@ def test_compiled_request_on_card(card, solver, tmp_path):
         match=MatchConfig(max_matches=32, thr=0.0), fine=FineConfig(d_model=16, nhead=4),
         regress=RegressConfig(d_model=32, emm_heads=4, hidden=64),
         solver=SolverOptions(num_hypotheses=256, refine_num_hypotheses=256,
-                             minimal_solver=solver))
+                             minimal_solver=solver), dtype=dtype)
     model = init_model(cfg, seed=1, device=card)
     batch = synthetic_batch(2, *cfg.image_size, card, seed=3)
     gen = torch.Generator(device=card)
@@ -1027,10 +1043,10 @@ def test_stage_marks_on_card(card):
     carries a program mark's name."""
     import dataclasses
 
+    from far_tpu_torch.data.synthetic import synthetic_batch
     from far_tpu_torch.ops.stage_mark import stage_mark
     from far_tpu_torch.pipeline import REQUEST_MARK, build_inference_fn, far_forward, \
         init_model, request_stages
-    from far_tpu_torch.tools.profile_forward import synthetic_batch
     from far_tpu_torch.utils.config import (
         AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
         RegressConfig, SolverOptions)
@@ -1129,11 +1145,12 @@ def _fivepoint_hits(E, valid, Egt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(1, 102), (1, 51), (16, 102), (16, 51)])
+@pytest.mark.parametrize("B,n", [(1, 102), (1, 51), (16, 102), (16, 51), (64, 1)])
 def test_fivepoint_kernel_on_card(card, B, n):
     """far_fivepoint against run_5point_essential on the same card at the
     cells' rounds (B pairs, 102 samples in the first round and 51 in the
-    second, N = 1024), with tests/test_torch_fivepoint.py's criteria: the
+    second, N = 1024), and at 64 scenes of one sample each (64 exact
+    minimal problems), with tests/test_torch_fivepoint.py's criteria: the
     kernel recovers the truth in >= 85 % of problems; the valid masks agree
     on >= 85 % of slots; ||E||_F = sqrt(2) where valid and the identity
     where masked; one launch. Two float32 implementations part where det
@@ -1243,9 +1260,9 @@ def test_fivepoint_kernel_in_the_compiled_request_on_card(card):
     plain solve alone was ~2,700 a round)."""
     import dataclasses
 
+    from far_tpu_torch.data.synthetic import synthetic_batch
     from far_tpu_torch.ops.fivepoint import fivepoint_essential
     from far_tpu_torch.pipeline import build_inference_fn, far_forward, init_model
-    from far_tpu_torch.tools.profile_forward import synthetic_batch
     from far_tpu_torch.utils.config import (
         AttentionStackConfig, BackboneConfig, FARConfig, FineConfig, MatchConfig,
         RegressConfig, SolverOptions)

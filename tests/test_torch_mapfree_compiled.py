@@ -24,9 +24,9 @@ import pytest
 import torch
 
 from far_tpu_torch import pipeline
+from far_tpu_torch.data.synthetic import synthetic_batch
 from far_tpu_torch.models.loftr import FARLoFTR
 from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
-from far_tpu_torch.tools.profile_forward import synthetic_batch
 from far_tpu_torch.types import PairBatch
 from far_tpu_torch.utils import prof as tprof
 from far_tpu_torch.utils.config import (
@@ -368,7 +368,7 @@ def test_mapfree_marks_its_stages_in_order(request_models, monkeypatch):
     """Under a sink, the request marks its start, the matcher's four
     stages, then four marks a round: solve, encode, volume, round. Round
     1 runs no trunk: its encode and volume marks come straight after its
-    solve mark, and the sink tallies one regressor pass."""
+    solve mark."""
     (matcher, reg), _, batch, r0, r1 = request_models
     stages = pipeline.mapfree_stages(2)
     assert stages == ("backbone", "coarse", "match", "fine", "solve.0", "encode.0", "volume.0",
@@ -388,7 +388,6 @@ def test_mapfree_marks_its_stages_in_order(request_models, monkeypatch):
     assert rounds == ["solve.0", "encode", "encode.0", "volume", "volume.0", "tokens",
                       "regress", "blend", "round.0", "solve.1", "encode.1", "volume.1",
                       "blend", "round.1"]
-    assert sink.tallies == {tprof.REGRESSOR_PASSES: 1}
 
 
 def test_compiled_mapfree_on_the_cpu_is_eager(request_models):
@@ -436,40 +435,72 @@ def card():
 
 
 @pytest.mark.cuda
-def test_compiled_mapfree_on_card(card):
-    """build_mapfree_fn at small widths on the card: the first call
-    captures, its marks in order; a replay under set_sync_debug_mode
-    ("error") equals the eager mapfree_forward from the same generator
-    state bit for bit; the capture counts under mapfree.capture.*: one
-    regressor pass, no node in round 1's encode and volume stages."""
-    matcher = FARLoFTR(MATCHER).to(card).eval()
-    reg = MapfreeRegression(SixDRegConfig(**SMALL)).to(card).eval()
-    img0, img1, K, r0, r1, _ = make_pairs(2, MATCHER.image_size,
-                                          torch.Generator(device=card).manual_seed(4), card,
-                                          channels=3, extra_hw=SMALL["image_hw"])
-    gray = lambda im: im.mean(-1, keepdim=True)
-    batch = PairBatch(image0=gray(img0), image1=gray(img1), K0=K, K1=K)
+@pytest.mark.parametrize("size", ["small", "cell"])
+def test_compiled_mapfree_on_card(card, size, tmp_path):
+    """build_mapfree_fn on the card at small widths in float32 and at the
+    cell's shapes (``mapfree_6dreg.reloc_b1``: B=1, a 720x544 matcher,
+    ``SixDRegConfig()`` at 368x272, bf16): the first call captures, its
+    warm-up launching one request's kernels (K1 16, K2 1, K3 1, K4 0, the
+    polish's small-matrix kernels 6, the fused 5-point kernel 0) and its
+    marks in order; replays of two scenes under set_sync_debug_mode
+    ("error") launch through no wrapper and write every mark slot in
+    order; the first call and both replays equal the eager
+    mapfree_forward from the same generator state bit for bit, the first
+    replay's output unchanged by the second; a profiler trace of a replay
+    shows each route's kernels (K1-K4 by route, the small-matrix and the
+    fused 5-point kernels) as often as the warm-up launched them, K1-K3 on
+    their tensor-core routes in bf16; the capture counts under
+    mapfree.capture.*: no node in round 1's encode and volume stages."""
+    import json
+    import re
+    from collections import Counter
+
+    from far_tpu_torch.ops import launch_counts
+    from far_tpu_torch.ops.bilinear_attention import bilinear_dual_softmax
+    from far_tpu_torch.ops.fine_layer import fine_transformer
+    from far_tpu_torch.ops.fivepoint import fivepoint_essential
+    from far_tpu_torch.ops.loftr_layer import loftr_layer
+    from far_tpu_torch.ops.matching_kernel import dual_softmax_rowcol
+    from far_tpu_torch.ops.small_linalg import eigh_small, svd3
+
+    if size == "small":
+        B, reg_cfg = 2, SixDRegConfig(**SMALL)
+        matcher = FARLoFTR(MATCHER).to(card).eval()
+        reg = MapfreeRegression(reg_cfg).to(card).eval()
+    else:
+        B, reg_cfg = 1, SixDRegConfig(dtype="bfloat16")
+        matcher = pipeline.init_model(FARConfig(image_size=(720, 544), regress_rt=False,
+                                                dtype="bfloat16"), seed=0, device=card)
+        reg = pipeline.init_sixdreg(reg_cfg, seed=1, device=card)
+
+    def scene(seed):
+        img0, img1, K, r0, r1, _ = make_pairs(B, matcher.config.image_size,
+                                              torch.Generator(device=card).manual_seed(seed),
+                                              card, channels=3, extra_hw=reg_cfg.image_hw)
+        gray = lambda im: im.mean(-1, keepdim=True)
+        return PairBatch(image0=gray(img0), image1=gray(img1), K0=K, K1=K), r0, r1
+
+    scenes = (scene(4), scene(5))
     gen = torch.Generator(device=card)
     with torch.inference_mode():
-        ref = pipeline.mapfree_forward(matcher, reg, batch, r0, r1, generator=gen.manual_seed(2))
+        refs = [pipeline.mapfree_forward(matcher, reg, *x, generator=gen.manual_seed(2 + i))
+                for i, x in enumerate(scenes)]
     fn = pipeline.build_mapfree_fn(matcher, reg)
-    before = tprof.counters()
-    fn(batch, r0, r1, generator=gen.manual_seed(2))
+    before, launched = tprof.counters(), launch_counts()
+    first = fn(*scenes[0], generator=gen.manual_seed(2))
     after = tprof.counters()
+    one = {k: v - launched[k] for k, v in launch_counts().items()}
+    want = {loftr_layer: 16, dual_softmax_rowcol: 1, fine_transformer: 1,
+            bilinear_dual_softmax: 0, eigh_small: 2, svd3: 4, fivepoint_essential: 0}
+    assert {w: one[w, "launches"] for w in want} == want
     grew = {k for k, v in after.items() if v != before.get(k)}
     empty = ("encode.1", "volume.1")  # round 1 runs no trunk
     assert {f"mapfree.capture.nodes.{s}" for s in pipeline.mapfree_stages(2)
             if s not in empty} < grew
     assert not any(k.startswith("far.") for k in grew)
-    for k, n in (("regressor_passes", 1), *((f"nodes.{s}", 0) for s in empty)):
-        assert after[f"mapfree.capture.{k}"] - before.get(f"mapfree.capture.{k}", 0) == n, k
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = fn(batch, r0, r1, generator=gen.manual_seed(2))
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    assert len(fn.graphs) == 1 and list(fn.stage_ms()) == list(pipeline.mapfree_stages(2))
+    for s in empty:
+        k = f"mapfree.capture.nodes.{s}"
+        assert after[k] - before.get(k, 0) == 0, k
 
     def fields(o):
         for f in dataclasses.fields(o):
@@ -477,5 +508,59 @@ def test_compiled_mapfree_on_card(card):
             yield from (fields(v) if dataclasses.is_dataclass(v) else
                         [(f.name, v)] if isinstance(v, torch.Tensor) else [])
 
-    for (name, a), (_, b) in zip(fields(out), fields(ref)):
-        assert torch.equal(a, b), name
+    slots = fn._last.slots
+    with torch.inference_mode():
+        slots.zero_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*scenes[0], generator=gen.manual_seed(2))
+        kept = [v.clone() for _, v in fields(out)]
+        out2 = fn(*scenes[1], generator=gen.manual_seed(3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {k: v - launched[k] for k, v in launch_counts().items()} == one
+    stamps = slots.tolist()
+    assert len(stamps) == len(pipeline.mapfree_stages(2)) + 1
+    assert min(stamps) > 0 and stamps == sorted(stamps)
+    assert len(fn.graphs) == 1 and list(fn.stage_ms()) == list(pipeline.mapfree_stages(2))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(*scenes[0], generator=gen.manual_seed(2))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+
+    def symbol(name):  # "void tc::row_pass_kernel<64>(...)" -> "tc::row_pass_kernel"
+        head = re.split(r"[<(]", name.replace("(anonymous namespace)", "anon"), maxsplit=1)[0]
+        return "::".join((head.split() or [name])[-1].split("::")[-2:])
+
+    seen = Counter(symbol(e["name"]) for e in events
+                   if str(e.get("cat", "")).lower() == "kernel")
+    # each route's own __global__ function (csrc/*.cu; anon: an anonymous
+    # namespace) and its launches a wrapper call
+    own = {(loftr_layer, "tc"): ("tc::row_pass_kernel", 1),
+           (loftr_layer, "tf32"): ("tf32::split_weights_kernel", 1),
+           (loftr_layer, "cuda"): ("anon::ln_kernel", 2),
+           (dual_softmax_rowcol, "tc"): ("tc::combine_conf_kernel", 1),
+           (dual_softmax_rowcol, "cuda"): ("anon::row_combine_kernel", 1),
+           (fine_transformer, "tc"): ("tc::fine_tc_kernel", 1),
+           (fine_transformer, "tf32"): ("tf32::fine_tf32_kernel", 1),
+           (fine_transformer, "cuda"): ("anon::fine_kernel", 1),
+           (bilinear_dual_softmax, "tc"): ("tc::main_kernel", 1),
+           (bilinear_dual_softmax, "tf32"): ("tf32::main_tf32_kernel", 1),
+           (bilinear_dual_softmax, "cuda"): ("anon::bilinear_tile_kernel", 1),
+           (eigh_small, "cuda"): ("anon::eigh_kernel", 1),
+           (svd3, "cuda"): ("anon::svd3_kernel", 1),
+           (fivepoint_essential, "cuda"): ("anon::fivepoint_kernel", 1)}
+    for (wrapper, route), (sym, per) in own.items():
+        tc, tf32 = one.get((wrapper, "launches_tc"), 0), one.get((wrapper, "launches_tf32"), 0)
+        calls = {"tc": tc, "tf32": tf32, "cuda": one[wrapper, "launches"] - tc - tf32}[route]
+        assert seen[sym] == per * calls, (sym, seen[sym], calls)
+    if size == "cell":
+        for w in (loftr_layer, dual_softmax_rowcol, fine_transformer):
+            assert one[w, "launches_tc"] == one[w, "launches"], w
+    assert all(torch.equal(v, k) for (_, v), k in zip(fields(out), kept))
+    for got, ref in ((first, refs[0]), (out, refs[0]), (out2, refs[1])):
+        for (name, a), (_, b) in zip(fields(got), fields(ref)):
+            assert torch.equal(a, b), name
