@@ -31,18 +31,27 @@ remat path (``models/loftr.py``) needs that: a checkpointed backbone runs
 its forward again in the backward pass, and an in-place update there
 would move the statistics twice (momentum 0.81, not 0.9), where Flax's
 functional ``nn.remat`` updates them once.
+
+With no gradient to carry, the glue between two convolutions goes
+through ``ops/backbone_glue.py``: an eval BatchNorm2d with its ReLU or
+LeakyReLU (``bn_act``), a residual block's second half (``bn_add_act``)
+and the FPN's upsample-add (``up2_add``). On the card each is one kernel
+pass a convolution output, rounded at the same points as its plain
+version, the unfused sequence, which the CPU runs. Training, grad mode
+and GroupNorm keep ``norm`` and the separate steps.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from far_tpu_torch.ops import backbone_glue
 from far_tpu_torch.parallel.comm import all_reduce_sum, process_count
 
 
@@ -140,6 +149,22 @@ def norm_layer(kind: str, channels: int) -> nn.Module:
     return nn.GroupNorm(GROUPS, channels, eps=1e-6)
 
 
+def _fused(*mods: Optional[nn.Module]) -> bool:
+    """Whether the glue goes through ``ops/backbone_glue.py`` (one kernel
+    pass on the card, its plain version on the CPU): no gradient to carry,
+    and each of ``mods`` (None: absent) an eval BatchNorm2d."""
+    return not torch.is_grad_enabled() and all(
+        m is None or (isinstance(m, nn.BatchNorm2d) and not m.training) for m in mods)
+
+
+def _norm_act(y: torch.Tensor, m: nn.Module, slope: float = 0.0) -> torch.Tensor:
+    """act(norm(y)): ReLU for ``slope`` 0, else LeakyReLU(slope)."""
+    if _fused(m):
+        return backbone_glue.bn_act(y, m, slope)
+    y = norm(y, m)
+    return F.relu(y) if slope == 0.0 else F.leaky_relu(y, slope)
+
+
 def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
 
@@ -161,11 +186,15 @@ class BasicBlock(nn.Module):
                                             norm_layer(norm_kind, planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(norm(conv(x, self.conv1), self.bn1))
-        y = norm(conv(y, self.conv2), self.bn2)
-        if self.downsample is not None:
-            x = norm(conv(x, self.downsample[0]), self.downsample[1])
-        return F.relu(x + y)
+        y = conv(_norm_act(conv(x, self.conv1), self.bn1), self.conv2)
+        ds = self.downsample
+        r, bn_r = (x, None) if ds is None else (conv(x, ds[0]), ds[1])
+        if _fused(self.bn2, bn_r):
+            return backbone_glue.bn_add_act(y, self.bn2, r, bn_r)
+        y = norm(y, self.bn2)
+        if bn_r is not None:
+            r = norm(r, bn_r)
+        return F.relu(r + y)
 
 
 def _stage(cin: int, planes: int, stride: int, norm_kind: str) -> nn.Sequential:
@@ -179,13 +208,19 @@ def _outconv2(mid: int, out: int, norm_kind: str) -> nn.Sequential:
 
 
 def _refine(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
-    x = F.leaky_relu(norm(conv(x, seq[0]), seq[1]), 0.01)
-    return conv(x, seq[3])
+    return conv(_norm_act(conv(x, seq[0]), seq[1], 0.01), seq[3])
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2.0, mode="bilinear",
                          align_corners=True)
+
+
+def _up2_add(a: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
+    """a + _up2(small)."""
+    if _fused():
+        return backbone_glue.up2_add(a, small)
+    return a + _up2(small)
 
 
 class ResNetFPN_8_2(nn.Module):
@@ -208,14 +243,14 @@ class ResNetFPN_8_2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, 1, H, W) -> coarse (B, d2, H/8, W/8), fine (B, d0, H/2, W/2)."""
-        x0 = F.relu(norm(conv(x, self.conv1), self.bn1))
+        x0 = _norm_act(conv(x, self.conv1), self.bn1)
         x1 = self.layer1(x0)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
         x3_out = conv(x3, self.layer3_outconv)
-        x2_out = _refine(conv(x2, self.layer2_outconv) + _up2(x3_out),
+        x2_out = _refine(_up2_add(conv(x2, self.layer2_outconv), x3_out),
                          self.layer2_outconv2)
-        x1_out = _refine(conv(x1, self.layer1_outconv) + _up2(x2_out),
+        x1_out = _refine(_up2_add(conv(x1, self.layer1_outconv), x2_out),
                          self.layer1_outconv2)
         return x3_out, x1_out
 
@@ -243,15 +278,15 @@ class ResNetFPN_16_4(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, 1, H, W) -> coarse (B, d3, H/16, W/16), fine (B, d1, H/4, W/4)."""
-        x0 = F.relu(norm(conv(x, self.conv1), self.bn1))
+        x0 = _norm_act(conv(x, self.conv1), self.bn1)
         x1 = self.layer1(x0)
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
         x4 = self.layer4(x3)
         x4_out = conv(x4, self.layer4_outconv)
-        x3_out = _refine(conv(x3, self.layer3_outconv) + _up2(x4_out),
+        x3_out = _refine(_up2_add(conv(x3, self.layer3_outconv), x4_out),
                          self.layer3_outconv2)
-        x2_out = _refine(conv(x2, self.layer2_outconv) + _up2(x3_out),
+        x2_out = _refine(_up2_add(conv(x2, self.layer2_outconv), x3_out),
                          self.layer2_outconv2)
         return x4_out, x2_out
 

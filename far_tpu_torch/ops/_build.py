@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("loftr_layer", "matching_kernel", "fine_layer",
-           "bilinear_attention", "small_linalg", "stage_mark", "fivepoint")
+           "bilinear_attention", "small_linalg", "stage_mark", "fivepoint", "backbone_glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
