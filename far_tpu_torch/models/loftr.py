@@ -114,6 +114,10 @@ class TranslationScaleHead(nn.Module):
 
 
 class FARLoFTR(nn.Module):
+    # the stages ``match`` marks, and the map-free request's counters
+    MATCH_STAGES = (BACKBONE, COARSE, MATCH, FINE)
+    MAPFREE_PREFIX = "mapfree"
+
     def __init__(self, cfg: FARConfig):
         super().__init__()
         if cfg.match.match_type not in ("dual_softmax", "sinkhorn"):

@@ -14,13 +14,14 @@ goes through the dense selection; K2 does not run on it.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from far_tpu_torch.ops.matching_kernel import dual_softmax_rowcol
 from far_tpu_torch.utils.config import MatchConfig
+
+MASKED = -1e9  # the log score of a padded slot
 
 
 def border_mask(h: int, w: int, b: int, device=None) -> torch.Tensor:
@@ -60,27 +61,41 @@ def dual_softmax_confidence(feat0: torch.Tensor, feat1: torch.Tensor,
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
 
 
-def log_sinkhorn(scores: torch.Tensor, bin_score: torch.Tensor,
-                 iters: int) -> torch.Tensor:
+def log_sinkhorn(scores: torch.Tensor, bin_score: torch.Tensor, iters: int,
+                 valid0: Optional[torch.Tensor] = None,
+                 valid1: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Log-domain Sinkhorn with a dustbin row and column (SuperGlue's).
 
     scores (B, L, S) float32, bin_score a scalar -> the (B, L+1, S+1) log
-    assignment matrix after ``iters`` row/column normalisations."""
+    assignment matrix after ``iters`` row/column normalisations. The
+    marginals are SuperGlue's over m valid rows and n valid columns (the
+    masks ``valid0`` (B, L) and ``valid1`` (B, S), all true by default,
+    the JAX package's form): 1 / (m + n) a slot, n / (m + n) the dustbin
+    row, m / (m + n) the dustbin column. A padded slot's log mass and
+    dustbin entries are ``MASKED`` (``scores`` must be ``MASKED`` where
+    either slot is padded), so every iteration on the valid slots is
+    magicleap's ``log_optimal_transport`` on them alone."""
     B, L, S = scores.shape
+    if valid0 is None:
+        valid0 = scores.new_ones((B, L), dtype=torch.bool)
+    if valid1 is None:
+        valid1 = scores.new_ones((B, S), dtype=torch.bool)
     b = bin_score.to(scores.dtype).expand(B, 1, 1)
-    couplings = torch.cat([torch.cat([scores, b.expand(B, L, 1)], dim=2),
-                           torch.cat([b.expand(B, 1, S), b], dim=2)], dim=1)
-    norm = -math.log(L + S)
-    log_mu = scores.new_full((B, L + 1), norm)
-    log_mu[:, L] = math.log(S) + norm
-    log_nu = scores.new_full((B, S + 1), norm)
-    log_nu[:, S] = math.log(L) + norm
+    bins0 = torch.where(valid0[..., None], b.expand(B, L, 1), MASKED)
+    bins1 = torch.where(valid1[:, None], b.expand(B, 1, S), MASKED)
+    couplings = torch.cat([torch.cat([scores, bins0], dim=2),
+                           torch.cat([bins1, b], dim=2)], dim=1)
+    m = valid0.sum(-1, keepdim=True).to(scores.dtype)
+    n = valid1.sum(-1, keepdim=True).to(scores.dtype)
+    norm = -(m + n).log()
+    log_mu = torch.cat([torch.where(valid0, norm, MASKED), n.log() + norm], 1)
+    log_nu = torch.cat([torch.where(valid1, norm, MASKED), m.log() + norm], 1)
     u = scores.new_zeros((B, L + 1))
     v = scores.new_zeros((B, S + 1))
     for _ in range(iters):
         u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
         v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
-    return couplings + u[:, :, None] + v[:, None, :] - norm
+    return couplings + u[:, :, None] + v[:, None, :] - norm[..., None]
 
 
 def sinkhorn_confidence(feat0: torch.Tensor, feat1: torch.Tensor,

@@ -7,7 +7,12 @@ descriptors, alternating self and cross attention over the K keypoint
 tokens of both images (masked to the valid keypoints at -1e9 in
 float32), a final projection, the (B, K, K) score matrix, the
 log-domain Sinkhorn with a learned dustbin (``models/matching.py:
-log_sinkhorn``) and a mutual-argmax selection over a threshold. The
+log_sinkhorn``) over each pair's valid keypoints and a mutual-argmax
+selection over a threshold. Sinkhorn's marginals follow magicleap's
+``log_optimal_transport`` on the valid keypoints (m and n of them), where
+the JAX package counts every slot (K + K): the two agree where every slot
+is valid. The keypoint encoder's image size is two Python numbers, so a
+request copies nothing from the host (a CUDA graph captures it). The
 attention products and the score matrix are plain ``torch.einsum``: the
 JAX package computes them outside any Pallas kernel. Module names are
 the JAX package's (``kenc_0``, ``self_3.attn.q``, ``cross_3.fc1``,
@@ -23,11 +28,10 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from far_tpu_torch.models.matching import log_sinkhorn
+from far_tpu_torch.models.matching import MASKED, log_sinkhorn
 from far_tpu_torch.models.regressor import lin
 
 KENC_WIDTHS = (32, 64, 128, 256)  # the keypoint encoder's hidden widths
-MASKED = -1e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +99,9 @@ class SuperGlue(nn.Module):
 
     def _encode(self, kpts, scores, desc, image_hw, dt):
         H, W = image_hw
-        size = torch.tensor([W, H], dtype=torch.float32, device=kpts.device)
-        p = (kpts - size / 2) / (0.7 * size.max())
+        # 0.7 * max(W, H) rounded once to float32, as a float32 product
+        scale = float(torch.tensor(0.7, device="cpu") * max(W, H))
+        p = torch.stack([kpts[..., 0] - W / 2, kpts[..., 1] - H / 2], -1) / scale
         enc = torch.cat([p, scores[..., None]], -1).to(dt)
         n = len(KENC_WIDTHS) + 1
         for i in range(n):
@@ -105,9 +110,11 @@ class SuperGlue(nn.Module):
                 enc = torch.relu(enc)
         return desc.to(dt) + enc
 
-    def assignment(self, kpts0, scores0, valid0, desc0, kpts1, scores1, valid1, desc1,
-                   image_hw: Tuple[int, int]) -> torch.Tensor:
-        """The Sinkhorn assignment (B, K, K) float32 without its dustbins."""
+    def scores(self, kpts0, scores0, valid0, desc0, kpts1, scores1, valid1, desc1,
+               image_hw: Tuple[int, int]) -> torch.Tensor:
+        """The keypoint encoder, the GNN and the final projections: the
+        (B, K, K) float32 score matrix, ``MASKED`` where either keypoint is
+        not valid."""
         cfg = self.cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         x0 = self._encode(kpts0, scores0, desc0, image_hw, dt)
@@ -121,9 +128,19 @@ class SuperGlue(nn.Module):
         f0 = lin(self.final_proj, x0).float()
         f1 = lin(self.final_proj2, x1).float()
         scores = torch.einsum("bnd,bmd->bnm", f0, f1) / cfg.desc_dim ** 0.5
-        scores = scores.masked_fill(~(valid0[:, :, None] & valid1[:, None, :]), MASKED)
-        Z = log_sinkhorn(scores, self.bin_score, cfg.sinkhorn_iterations)
+        return scores.masked_fill(~(valid0[:, :, None] & valid1[:, None, :]), MASKED)
+
+    def transport(self, scores, valid0, valid1) -> torch.Tensor:
+        """Sinkhorn over the valid keypoints: the assignment (B, K, K)
+        float32 without its dustbins."""
+        Z = log_sinkhorn(scores, self.bin_score, self.cfg.sinkhorn_iterations, valid0, valid1)
         return torch.exp(Z)[:, :-1, :-1]
+
+    def assignment(self, kpts0, scores0, valid0, desc0, kpts1, scores1, valid1, desc1,
+                   image_hw: Tuple[int, int]) -> torch.Tensor:
+        """The Sinkhorn assignment (B, K, K) float32 without its dustbins."""
+        s = self.scores(kpts0, scores0, valid0, desc0, kpts1, scores1, valid1, desc1, image_hw)
+        return self.transport(s, valid0, valid1)
 
     def forward(self, kpts0, scores0, valid0, desc0, kpts1, scores1, valid1, desc1,
                 image_hw: Tuple[int, int]):

@@ -3,13 +3,25 @@
 Counterpart of ``far_tpu/models/superpoint.py`` (``SuperPointConfig``,
 ``simple_nms``, ``SuperPointTPU`` as ``SuperPoint``, ``_bilinear_sample``):
 a VGG-style encoder at 1/8, a 65-way cell detector head (64 positions of
-the 8x8 cell and a dustbin) and a descriptor head; NMS is one max-pool
-equality, the 4-pixel border is cleared and the keypoints are a fixed
-top-K over H*W with a validity mask, so every shape is static. Module
-names are magicleap's ``superpoint_v1.pth`` ones (``conv1a`` ...
-``convDb``), so that checkpoint loads with ``strict=True``. Images and
-keypoints keep the JAX package's layout at the public functions: (B, H,
-W, 1) in, <x, y> pixels out. Plain torch: no kernel.
+the 8x8 cell and a dustbin) and a descriptor head; the 4-pixel border is
+cleared and the keypoints are a fixed top-K over H*W with a validity
+mask, so every shape is static. Module names are magicleap's
+``superpoint_v1.pth`` ones (``conv1a`` ... ``convDb``), so that
+checkpoint loads with ``strict=True``. Images and keypoints keep the JAX
+package's layout at the public functions: (B, H, W, 1) in, <x, y> pixels
+out. Plain torch: no kernel.
+
+Three steps follow magicleap's published SuperPoint
+(SuperGluePretrainedNetwork/models/superpoint.py) where the JAX package
+departs from it:
+
+- ``simple_nms``: the max-pool equality, then two suppression passes
+  (the JAX package keeps the equality alone);
+- the dense descriptor map is L2-normalised over channels before it is
+  sampled, and again after (the JAX package normalises after only);
+- ``sample_descriptors``: a keypoint at pixel x is read at
+  (x - s/2 + 0.5) / (w s - s/2 - 0.5) of the map's ``align_corners``
+  span, s = 8 (the JAX package reads it at x / 8).
 """
 
 from __future__ import annotations
@@ -38,11 +50,21 @@ class SuperPointConfig:
 
 
 def simple_nms(scores: torch.Tensor, radius: int) -> torch.Tensor:
-    """(B, H, W) scores kept where they equal their (2r+1)^2 window's max
-    (the pool pads with -inf), else 0."""
-    k = 2 * radius + 1
-    pooled = F.max_pool2d(scores[:, None], k, stride=1, padding=radius)[:, 0]
-    return torch.where(scores == pooled, scores, torch.zeros_like(scores))
+    """magicleap's ``simple_nms`` on (B, H, W) scores: kept where they
+    equal their (2r+1)^2 window's max (the pool pads with -inf); then,
+    twice, the scores away from every kept one (``supp``: within r of
+    none) that equal their window's max among those scores are kept too;
+    the others are 0."""
+    def pool(x):
+        return F.max_pool2d(x[:, None], 2 * radius + 1, stride=1, padding=radius)[:, 0]
+
+    zeros = torch.zeros_like(scores)
+    keep = scores == pool(scores)
+    for _ in range(2):
+        supp = pool(keep.float()) > 0
+        left = torch.where(supp, zeros, scores)
+        keep = keep | ((left == pool(left)) & ~supp)
+    return torch.where(keep, scores, zeros)
 
 
 def _bilinear_sample(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -64,6 +86,20 @@ def _bilinear_sample(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 
     return (g(y0, x0) * (1 - wx) * (1 - wy) + g(y0, x1) * wx * (1 - wy)
             + g(y1, x0) * (1 - wx) * wy + g(y1, x1) * wx * wy)
+
+
+def sample_descriptors(fmap: torch.Tensor, kpts: torch.Tensor, s: int = 8) -> torch.Tensor:
+    """magicleap's ``sample_descriptors``: (B, h, w, C) read at keypoints
+    <x, y> pixels (B, K, 2) of an image s times the map's size, each at
+    (x - s/2 + 0.5) / (w s - s/2 - 0.5) of the map's span from its first
+    to its last column (``grid_sample(align_corners=True)``; rows alike),
+    bilinearly, then L2-normalised. Every keypoint outside the 4-pixel
+    border reads inside the map; a padded slot outside it reads the
+    clipped map where ``grid_sample`` reads zeros."""
+    _, h, w, _ = fmap.shape
+    x = (kpts[..., 0] - s / 2 + 0.5) / (w * s - s / 2 - 0.5) * (w - 1)
+    y = (kpts[..., 1] - s / 2 + 0.5) / (h * s - s / 2 - 0.5) * (h - 1)
+    return F.normalize(_bilinear_sample(fmap, torch.stack([x, y], -1)), dim=-1)
 
 
 _ENCODER = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b")
@@ -114,7 +150,5 @@ class SuperPoint(nn.Module):
         kpts = torch.stack([(idx % W).float(), torch.div(idx, W, rounding_mode="floor").float()], -1)
         valid = scores > cfg.keypoint_threshold
 
-        desc = conv(F.relu(conv(x, self.convDa)), self.convDb).float()
-        d = _bilinear_sample(desc.permute(0, 2, 3, 1), kpts / 8.0)
-        d = d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-8)
-        return kpts, scores, valid, d
+        desc = F.normalize(conv(F.relu(conv(x, self.convDa)), self.convDb).float(), dim=1)
+        return kpts, scores, valid, sample_descriptors(desc.permute(0, 2, 3, 1), kpts)

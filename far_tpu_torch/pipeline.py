@@ -10,7 +10,8 @@ wrapper runs its plain version); without a card and without that request
 they raise. On a card ``build_inference_fn`` returns the counterpart of
 the JAX package's ``jax.jit(far_forward)``: the request captured once per
 signature in a CUDA graph and replayed after (``CompiledRequest``);
-``build_mapfree_fn`` does the same for ``mapfree_forward``.
+``build_mapfree_fn`` does the same for ``mapfree_forward``, whose matcher
+is ``FARLoFTR`` or SuperPoint + SuperGlue (``SuperGlueMatcher``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ import dataclasses
 import itertools
 import time
 import traceback
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from far_tpu_torch.models.constants import denormalize_9d
 from far_tpu_torch.models.loftr import FARLoFTR
 from far_tpu_torch.models.sixdreg import MapfreeRegression, SixDRegConfig
+from far_tpu_torch.models.superglue_matcher import SuperGlueMatcher
 from far_tpu_torch.models.vitess import ViTEss, ViTEssConfig
 from far_tpu_torch.parallel.comm import local_device
 from far_tpu_torch.solvers.pose_estimation import SolverConfig, estimate_pose
@@ -181,22 +183,27 @@ def draw_mapfree_uniforms(B: int, generator: Optional[torch.Generator] = None,
                                 B, generator, device) for i in range(fine_pred_steps)]
 
 
-def mapfree_stages(fine_pred_steps: int = 2) -> Tuple[str, ...]:
+Matcher = Union[FARLoFTR, SuperGlueMatcher]
+
+
+def mapfree_stages(fine_pred_steps: int = 2,
+                   matcher_stages: Sequence[str] = FARLoFTR.MATCH_STAGES) -> Tuple[str, ...]:
     """The stages of ``mapfree_forward`` in order, each ended by a mark of
-    its name after ``REQUEST_MARK``: the matcher's backbone, coarse
-    transformer (K1), coarse match (K2) and fine stage (K3); then in each
-    round the solver, the ResUNet on both images, the correlation volume
-    with the head, and the transformer with the pose MLP and the MoE
-    (``mapfree_forward`` runs the regressor's trunk in round 0 alone, so
-    a later round's ``encode`` and ``volume`` stages hold nothing and its
-    last stage is the MoE)."""
+    its name after ``REQUEST_MARK``: the matcher's (``MATCH_STAGES``:
+    LoFTR's backbone, coarse transformer (K1), coarse match (K2) and fine
+    stage (K3); SuperPoint + SuperGlue's detections, GNN and Sinkhorn);
+    then in each round the solver, the ResUNet on both images, the
+    correlation volume with the head, and the transformer with the pose
+    MLP and the MoE (``mapfree_forward`` runs the regressor's trunk in
+    round 0 alone, so a later round's ``encode`` and ``volume`` stages
+    hold nothing and its last stage is the MoE)."""
     rounds = tuple(m(i) for i in range(fine_pred_steps)
                    for m in (solve_mark, encode_mark, volume_mark, round_mark))
-    return (BACKBONE, COARSE, MATCH, FINE) + rounds
+    return tuple(matcher_stages) + rounds
 
 
 def mapfree_forward(
-    matcher: FARLoFTR,
+    matcher: Matcher,
     reg_model: MapfreeRegression,
     batch: PairBatch,
     image0_reg: torch.Tensor,
@@ -221,6 +228,9 @@ def mapfree_forward(
     ``encode`` and ``volume`` marks follow its ``solve`` mark at once.
 
     Args:
+        matcher: ``FARLoFTR`` or ``SuperGlueMatcher``: ``match(batch)``
+            gives the padded correspondences and marks the matcher's
+            stages.
         batch: the matcher-resolution grayscale pair with intrinsics.
         image0_reg/image1_reg: the regressor-resolution RGB pair
             (B, H, W, 3) in [0, 1].
@@ -538,7 +548,7 @@ def build_inference_fn(model: FARLoFTR) -> Callable[..., FarOutput]:
             model.config, inputs[0].image0.shape[0], generator, device))
 
 
-def build_mapfree_fn(matcher: FARLoFTR,
+def build_mapfree_fn(matcher: Matcher,
                      reg_model: MapfreeRegression) -> Callable[..., MapfreeOutput]:
     """(batch, image0_reg, image1_reg, generator=None, uniforms=None,
     prior_pcl=None) -> MapfreeOutput, under ``torch.inference_mode``: a
@@ -546,14 +556,16 @@ def build_mapfree_fn(matcher: FARLoFTR,
     signature on a card, the counterpart of the JAX package's
     ``jax.jit(mapfree_forward)``; the eager ``mapfree_forward`` on the
     CPU), with ``mapfree_forward``'s defaults: two rounds, MAGSAC at 2 px.
-    Its counters are ``mapfree.capture.*``."""
+    Its stages are the matcher's then the rounds' (``mapfree_stages``),
+    its counters ``<matcher.MAPFREE_PREFIX>.capture.*``: ``mapfree`` for
+    LoFTR, ``mapfree_sg`` for SuperPoint + SuperGlue."""
     return CompiledRequest(
         lambda batch, image0_reg, image1_reg, **kw: mapfree_forward(
             matcher, reg_model, batch, image0_reg, image1_reg, **kw),
-        (matcher, reg_model), mapfree_stages,
+        (matcher, reg_model), lambda: mapfree_stages(matcher_stages=matcher.MATCH_STAGES),
         lambda inputs, generator, device: draw_mapfree_uniforms(
             inputs[0].image0.shape[0], generator, device),
-        prefix="mapfree")
+        prefix=matcher.MAPFREE_PREFIX)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -8,7 +8,7 @@ a validity mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -56,6 +56,33 @@ class MatcherOutput:
 
 
 @dataclasses.dataclass
+class KeypointMatches:
+    """Detected keypoints of both images and their matches (K slots a
+    side, masked): SuperPoint's detections and SuperGlue's mutual
+    matches, the correspondences in ``MatchResult``'s fields the solver
+    reads (``mkpts0_f``, ``mkpts1_f``, ``valid``)."""
+
+    kpts0: torch.Tensor     # (B, K, 2) keypoints <x, y> of image 0
+    kpts1: torch.Tensor     # (B, K, 2)
+    scores0: torch.Tensor   # (B, K) detection scores
+    scores1: torch.Tensor   # (B, K)
+    kvalid0: torch.Tensor   # (B, K) bool: a detected keypoint
+    kvalid1: torch.Tensor   # (B, K)
+    desc0: torch.Tensor     # (B, K, D) float32 unit descriptors
+    desc1: torch.Tensor     # (B, K, D)
+    matches0: torch.Tensor  # (B, K) int64 index into kpts1, -1 where none
+    mconf: torch.Tensor     # (B, K) assignment at the match (0 where none)
+    valid: torch.Tensor     # (B, K) bool: slot i of image 0 matched
+    mkpts0_f: torch.Tensor  # (B, K, 2) kpts0, zero where not valid
+    mkpts1_f: torch.Tensor  # (B, K, 2) the matched kpts1, zero where not valid
+
+
+@dataclasses.dataclass
+class KeypointMatcherOutput:
+    matches: KeypointMatches
+
+
+@dataclasses.dataclass
 class SolverSummary:
     """Solver-side scalars fed to the MoE gate (counts, unscaled)."""
 
@@ -97,4 +124,4 @@ class MapfreeOutput:
     num_inliers: torch.Tensor       # (B,) last round's counts
     num_tight: torch.Tensor         # (B,)
     num_ultra_tight: torch.Tensor   # (B,)
-    matches: MatchResult
+    matches: Union[MatchResult, KeypointMatches]

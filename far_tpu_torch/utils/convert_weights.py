@@ -723,7 +723,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             v = torch.zeros(t.shape, dtype=t.dtype)
         elif name.endswith("running_var"):
             v = torch.ones(t.shape)
-        elif name == "bin_score":  # the dustbin score the module was built with
+        elif name.split(".")[-1] == "bin_score":  # the dustbin score the module was built with
             v = t.detach().clone()
         elif name.endswith("pos_embed"):
             v = (torch.randn(t.shape, generator=g) * 0.02).clamp(-0.04, 0.04)

@@ -21,11 +21,12 @@ that to XLA's profiler:
   ``pipeline.request_stages`` puts them in order). The map-free request
   marks the matcher's four stages, then four a round: ``solve_mark(i)``,
   ``encode_mark(i)``, ``volume_mark(i)`` and ``round_mark(i)``
-  (``pipeline.mapfree_stages``). With no sink (eager calls, the CPU,
-  training) it returns at once.
+  (``pipeline.mapfree_stages``); with SuperPoint + SuperGlue as its
+  matcher, the matcher's stages are ``DETECT``, ``GNN`` and ``SINKHORN``.
+  With no sink (eager calls, the CPU, training) it returns at once.
 - ``counters()``: numbers the capture writes (its seconds, each stage's
   operation nodes, under the request's prefix: ``far.capture.*``,
-  ``mapfree.capture.*``); a replay writes none.
+  ``mapfree.capture.*``, ``mapfree_sg.capture.*``); a replay writes none.
 """
 
 from __future__ import annotations
@@ -118,6 +119,9 @@ class TraceProfiler(PassThroughProfiler):
 # the compiled request's marks: its start, then the end of each stage
 REQUEST_MARK = "request"
 BACKBONE, COARSE, MATCH, FINE, EMM = "backbone", "coarse", "match", "fine", "emm"
+# SuperPoint + SuperGlue's stages: both images' detections; the keypoint
+# encoder, the GNN and the score matrix; Sinkhorn and the selection
+DETECT, GNN, SINKHORN = "detect", "gnn", "sinkhorn"
 
 
 def round_mark(i: int) -> str:

@@ -47,6 +47,7 @@ from far_tpu_torch.utils import cli as tcli
 from far_tpu_torch.utils import config as tconfig
 from far_tpu_torch.utils.convert_weights import flax_to_state_dict, load_flax_npz
 from test_torch_data import jax_native, write_mapfree_scene  # noqa: F401 (a fixture)
+from test_torch_superglue import magicleap_superpoint
 
 torch.set_num_threads(2)
 
@@ -361,8 +362,10 @@ def test_precompute_cli(tmp_path, monkeypatch):
     bit for bit (both on OpenCV), without touching a device; superglue
     on the JAX CLI's SuperPoint/SuperGlue init (PRNGKey(0) and (1),
     carried by flax_to_state_dict) writes its store, every entry within
-    1e-4 px. Both CLIs' superglue run at 256 keypoints and threshold 0
-    (the default 0.2 keeps no match of random weights)."""
+    1e-4 px, the JAX CLI's SuperPoint given magicleap's NMS and descriptor
+    sampling, which the port's follows (``magicleap_superpoint``). Both
+    CLIs' superglue run at 256 keypoints and threshold 0 (the default 0.2
+    keeps no match of random weights)."""
     out = tmp_path / "corr.npz"
     store = tprecompute.main(["--dataset", "synthetic", "--image_size", "64x64",
                               "--n_synthetic", "2", "--matcher", "loftr", "--out", str(out),
@@ -402,6 +405,7 @@ def test_precompute_cli(tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(tprecompute, "superglue_models", carried_models)
+    magicleap_superpoint(monkeypatch)
     for matcher in ("sift", "superglue"):
         argv = ["--dataset", "synthetic", "--image_size", "64x64", "--n_synthetic", "2",
                 "--matcher", matcher, "--dtype", "float32"]

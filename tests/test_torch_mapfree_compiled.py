@@ -12,9 +12,9 @@ modules and into the benchmark's plain float32 references
 same draws. Then what the graph relies on: the draws taken outside equal
 the eager ones, the regressor's trunk runs once a request to the answer
 of the loop that ran it every round, the request marks its stages in
-order, and on the CPU a call is the eager request. The card test (a
-replay against the eager request, bit for bit) is marked ``cuda`` and
-skips here.
+order, and on the CPU a call is the eager request. The card tests (a
+replay against the eager request, bit for bit, with the LoFTR matcher and
+with SuperPoint + SuperGlue) are marked ``cuda`` and skip here.
 """
 
 import dataclasses
@@ -561,6 +561,83 @@ def test_compiled_mapfree_on_card(card, size, tmp_path):
         for w in (loftr_layer, dual_softmax_rowcol, fine_transformer):
             assert one[w, "launches_tc"] == one[w, "launches"], w
     assert all(torch.equal(v, k) for (_, v), k in zip(fields(out), kept))
+    for got, ref in ((first, refs[0]), (out, refs[0]), (out2, refs[1])):
+        for (name, a), (_, b) in zip(fields(got), fields(ref)):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_compiled_mapfree_superglue_on_card(card):
+    """build_mapfree_fn over SuperPoint + SuperGlue at the cell's shapes
+    (``mapfree_6dreg_superglue.reloc_b1``: B=1, a 720x544 pair, 2,048
+    keypoints a side, 9 (self, cross) rounds, ``SixDRegConfig()`` at
+    368x272, bf16): the first call captures, with the marks request,
+    detect, gnn, sinkhorn and four a round in order and counters under
+    mapfree_sg.capture.* only (every stage's nodes but round 1's empty
+    encode and volume); replays of two scenes under set_sync_debug_mode
+    ("error") write every mark slot in order; the first call and both
+    replays equal the eager mapfree_forward from the same generator
+    state bit for bit, the first replay's output unchanged by the
+    second."""
+    from far_tpu_torch.models.superglue import SuperGlueConfig
+    from far_tpu_torch.models.superglue_matcher import SuperGlueMatcher
+    from far_tpu_torch.models.superpoint import SuperPointConfig
+    from far_tpu_torch.utils.convert_weights import init_weights
+
+    matcher = init_weights(SuperGlueMatcher(
+        SuperPointConfig(nms_radius=3, max_keypoints=2048, dtype="bfloat16"),
+        SuperGlueConfig(match_threshold=1e-4, dtype="bfloat16")), 0).to(card).eval()
+    reg_cfg = SixDRegConfig(dtype="bfloat16")
+    reg = pipeline.init_sixdreg(reg_cfg, seed=1, device=card)
+
+    def scene(seed):
+        img0, img1, K, r0, r1, _ = make_pairs(1, (720, 544),
+                                              torch.Generator(device=card).manual_seed(seed),
+                                              card, channels=3, extra_hw=reg_cfg.image_hw)
+        gray = lambda im: im.mean(-1, keepdim=True)
+        return PairBatch(image0=gray(img0), image1=gray(img1), K0=K, K1=K), r0, r1
+
+    scenes = (scene(4), scene(5))
+    gen = torch.Generator(device=card)
+    with torch.inference_mode():
+        refs = [pipeline.mapfree_forward(matcher, reg, *x, generator=gen.manual_seed(2 + i))
+                for i, x in enumerate(scenes)]
+    stages = pipeline.mapfree_stages(2, ("detect", "gnn", "sinkhorn"))
+    fn = pipeline.build_mapfree_fn(matcher, reg)
+    before = tprof.counters()
+    first = fn(*scenes[0], generator=gen.manual_seed(2))
+    after = tprof.counters()
+    grew = {k for k, v in after.items() if v != before.get(k)}
+    empty = ("encode.1", "volume.1")  # round 1 runs no trunk
+    assert {f"mapfree_sg.capture.nodes.{s}" for s in stages if s not in empty} < grew
+    assert all(k.startswith("mapfree_sg.capture.") for k in grew), grew
+    for s in empty:
+        k = f"mapfree_sg.capture.nodes.{s}"
+        assert after[k] - before.get(k, 0) == 0, k
+
+    def fields(o):
+        for f in dataclasses.fields(o):
+            v = getattr(o, f.name)
+            yield from (fields(v) if dataclasses.is_dataclass(v) else
+                        [(f.name, v)] if isinstance(v, torch.Tensor) else [])
+
+    slots = fn._last.slots
+    with torch.inference_mode():
+        slots.zero_()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*scenes[0], generator=gen.manual_seed(2))
+        kept = [v.clone() for _, v in fields(out)]
+        out2 = fn(*scenes[1], generator=gen.manual_seed(3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    stamps = slots.tolist()
+    assert len(stamps) == len(stages) + 1
+    assert min(stamps) > 0 and stamps == sorted(stamps)
+    assert len(fn.graphs) == 1 and tuple(fn.stage_ms()) == stages
+    assert all(torch.equal(v, k) for (_, v), k in zip(fields(out), kept))
+    assert bool(out.matches.kvalid0.all()) and bool(out.matches.valid.any())
     for got, ref in ((first, refs[0]), (out, refs[0]), (out2, refs[1])):
         for (name, a), (_, b) in zip(fields(got), fields(ref)):
             assert torch.equal(a, b), name
